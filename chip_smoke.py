@@ -1,0 +1,278 @@
+"""Chip smoke test of the PyTorch port on one CUDA card.
+
+Run from the root of a checkout on a machine with an NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds every kernel of the port from ``dask_sql_tpu_torch/csrc`` (one
+``nvcc`` per source, started together), holds each kernel against its plain
+PyTorch version on the card, drives TPC-H Q1 at SF1 (6,000,000 synthetic
+``lineitem`` rows) through ``Context(device="cuda")`` and checks it against a
+float64 numpy oracle, then times the query, the kernel, its plain version and
+the PyTorch library call that computes the same function.  Each phase prints
+one line.  The second-to-last lines are the kernels' JSON record and the
+card's name and power limit; the last line is the JSON result.  Any failed
+phase ends the script with a nonzero exit code and no result line.  Without a
+CUDA card, or without the ``dask_sql_tpu_torch`` package beside it, it fails.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+N_ROWS = 6_000_000  # ~SF1 lineitem row count
+QUERY = """
+SELECT
+    l_returnflag,
+    l_linestatus,
+    SUM(l_quantity) AS sum_qty,
+    SUM(l_extendedprice) AS sum_base_price,
+    SUM(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
+    SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
+    AVG(l_quantity) AS avg_qty,
+    AVG(l_extendedprice) AS avg_price,
+    AVG(l_discount) AS avg_disc,
+    COUNT(*) AS count_order
+FROM lineitem
+WHERE l_shipdate <= DATE '1998-09-02'
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus
+"""
+KEYS = ["l_returnflag", "l_linestatus"]
+REL_BOUND = 5e-6  # MATMUL_FLOAT_REL_ERR_BOUND of the port's segment sum
+
+#: device memory rate by card name (NVIDIA data sheets), bytes/s
+_MEMORY_RATE = [("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12),
+                ("H100", 3.35e12)]
+#: float64 rate outside the tensor cores, H100 SXM data sheet, FLOP/s
+FP64_RATE = 34e12
+
+
+def gen_lineitem(n: int, seed: int = 0):
+    """Synthetic TPC-H lineitem, the same generator and seed as `bench.py`."""
+    import pandas as pd
+
+    rng = np.random.RandomState(seed)
+    start = np.datetime64("1992-01-01")
+    return pd.DataFrame(
+        {
+            "l_returnflag": rng.choice(["A", "N", "R"], n),
+            "l_linestatus": rng.choice(["F", "O"], n),
+            "l_quantity": rng.randint(1, 51, n).astype(np.float32),
+            "l_extendedprice": (rng.rand(n).astype(np.float32) * 100000.0),
+            "l_discount": (rng.rand(n).astype(np.float32) * 0.1),
+            "l_tax": (rng.rand(n).astype(np.float32) * 0.08),
+            "l_shipdate": start + rng.randint(0, 2526, n).astype("timedelta64[D]"),
+        }
+    )
+
+
+def q1_oracle(df):
+    """Q1 in float64 numpy/pandas, from the same frame."""
+    sel = df[df.l_shipdate <= np.datetime64("1998-09-02")]
+    price = sel.l_extendedprice.to_numpy(np.float64)
+    disc = sel.l_discount.to_numpy(np.float64)
+    tax = sel.l_tax.to_numpy(np.float64)
+    work = sel[KEYS].assign(
+        qty=sel.l_quantity.to_numpy(np.float64), price=price, disc=disc,
+        disc_price=price * (1 - disc), charge=price * (1 - disc) * (1 + tax))
+    out = work.groupby(KEYS).agg(
+        sum_qty=("qty", "sum"), sum_base_price=("price", "sum"),
+        sum_disc_price=("disc_price", "sum"), sum_charge=("charge", "sum"),
+        avg_qty=("qty", "mean"), avg_price=("price", "mean"),
+        avg_disc=("disc", "mean"), count_order=("qty", "count"))
+    return out.reset_index().sort_values(KEYS).reset_index(drop=True)
+
+
+def phase(name: str, **fields) -> None:
+    print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    raise SystemExit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def memory_rate(name: str) -> float:
+    for key, rate in _MEMORY_RATE:
+        if key in name:
+            return rate
+    fail(f"no memory rate known for card {name!r}")
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean milliseconds of fn() on the card, by CUDA events, after warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def segsum_inputs(n: int, domain: int, k: int, n_counts: int, seed: int,
+                  stray_ids: bool = False):
+    """gid [n] int32 and a [k, n] float32 column stack on the card: the
+    first `n_counts` columns 0/1 masks (exact counts), the rest floats of
+    spread magnitudes (hi/lo pairs of float64 sums)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gid = torch.randint(0, domain, (n,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    if stray_ids and n:
+        # ids outside [0, domain) must add nothing
+        gid[::97] = -1
+        gid[1::89] = domain
+    cols = torch.rand((k, n), generator=g, device="cuda")
+    cols[:n_counts] = (cols[:n_counts] < 0.9).float()
+    scale = torch.logspace(0, 5, max(k - n_counts, 1), device="cuda")
+    cols[n_counts:] *= scale[: k - n_counts, None]
+    return gid, cols.contiguous()
+
+
+def check_kernel(segsum, gid, cols, domain, n_counts, label):
+    got = segsum.segsum_columns(gid, cols, domain)
+    want = segsum.segsum_plain(gid, cols.t(), domain)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != torch.float64:
+        fail(f"segsum {label}: shape {tuple(got.shape)} {got.dtype}")
+    if not torch.equal(got[:, :n_counts], want[:, :n_counts]):
+        fail(f"segsum {label}: counts differ from the plain version")
+    err = (got - want).abs()
+    rel = float((err / want.abs().clamp_min(1e-30)).max()) if err.numel() else 0.0
+    if not rel <= REL_BOUND:
+        fail(f"segsum {label}: relative error {rel} > {REL_BOUND}")
+    max_abs = float(err.max()) if err.numel() else 0.0
+    phase("segsum_check", case=label, n=int(gid.shape[0]), domain=domain,
+          k=int(cols.shape[0]), max_abs_err=max_abs, max_rel_err=rel)
+    return max_abs
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script runs on the card only")
+    from dask_sql_tpu_torch import Context, _build
+    from dask_sql_tpu_torch.ops import segsum
+    from dask_sql_tpu_torch.utils import TRANSFER_STATS
+
+    # 1. card
+    card = card_line()
+    kind = torch.cuda.get_device_name(0)
+    phase("card", nvidia_smi=card, kind=kind, count=torch.cuda.device_count(),
+          torch=torch.__version__, cuda=torch.version.cuda)
+
+    # 2. build: every kernel source at once
+    t0 = time.perf_counter()
+    built = _build.build()
+    phase("build", seconds=time.perf_counter() - t0, compiled=built)
+
+    # 3. each kernel against its plain version, at the main path's shapes
+    q1_domain, q1_k, q1_counts = 12, 13, 6
+    gid, cols = segsum_inputs(N_ROWS, q1_domain, q1_k, q1_counts, seed=1)
+    q1_err = check_kernel(segsum, gid, cols, q1_domain, q1_counts, "q1_shape")
+    for label, n, domain, k, counts, stray in (
+            ("domain_1", 100_003, 1, 3, 1, False),
+            ("domain_2048_two_chunks", 1_000_000, 2048, 20, 2, False),
+            ("ragged_block_stray_ids", 1_000_003, 12, 13, 6, True),
+            ("empty", 0, 12, 13, 6, False)):
+        g_, c_ = segsum_inputs(n, domain, k, counts, seed=2, stray_ids=stray)
+        check_kernel(segsum, g_, c_, domain, counts, label)
+
+    # 4. Q1 at SF1 through the port's entry points, on the card
+    t0 = time.perf_counter()
+    df = gen_lineitem(N_ROWS)
+    want = q1_oracle(df)
+    c = Context(device="cuda")
+    c.create_table("lineitem", df)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for key in segsum.LAUNCHES:
+        segsum.LAUNCHES[key] = 0
+    TRANSFER_STATS["d2h"] = 0
+    t0 = time.perf_counter()
+    got = c.sql(QUERY).compute()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(segsum.LAUNCHES)
+    d2h = TRANSFER_STATS["d2h"]
+    if launches["segsum"] < 1:
+        fail(f"Q1 did not launch the segsum kernel: {launches}")
+    if d2h != 1:
+        fail(f"Q1 made {d2h} device-to-host transfers, expected 1")
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        fail(f"Q1 result shape {got.shape} / columns {list(got.columns)}")
+    for key in KEYS:
+        if got[key].tolist() != want[key].tolist():
+            fail(f"Q1 group keys differ in {key}")
+    if got["count_order"].tolist() != want["count_order"].tolist():
+        fail("Q1 counts differ from the oracle")
+    q1_rel = 0.0
+    for name in want.columns[2:-1]:
+        g = got[name].to_numpy(np.float64)
+        w = want[name].to_numpy(np.float64)
+        if not np.all(np.isfinite(g)):
+            fail(f"Q1 {name} is not finite")
+        q1_rel = max(q1_rel, float(np.max(np.abs(g - w) / np.abs(w))))
+    if not q1_rel <= REL_BOUND:
+        fail(f"Q1 relative error {q1_rel} > {REL_BOUND}")
+    phase("q1_sf1", rows=N_ROWS, groups=len(got), setup_s=setup_s,
+          first_ms=first_ms, launches=launches, d2h=d2h, max_rel_err=q1_rel)
+
+    # 5. times, beside the card's name and power limit
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        c.sql(QUERY).compute()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    q1_ms = float(np.median(runs))
+    phase("q1_time", card=card, ms=q1_ms, runs_ms=runs,
+          rows_per_s=N_ROWS / (q1_ms / 1e3))
+
+    kernel_ms = cuda_ms(lambda: segsum.segsum_columns(gid, cols, q1_domain), 20)
+    plain_ms = cuda_ms(lambda: segsum.segsum_plain(gid, cols.t(), q1_domain), 5)
+    src64 = cols.t().to(torch.float64).contiguous()
+    library_ms = cuda_ms(lambda: torch.zeros(q1_domain, q1_k, dtype=torch.float64,
+                                             device="cuda").index_add_(0, gid, src64), 5)
+    n_bytes = N_ROWS * (4 + 4 * q1_k) + q1_domain * q1_k * 8
+    bytes_ms = n_bytes / memory_rate(kind) * 1e3
+    ops_ms = N_ROWS * q1_k / FP64_RATE * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    phase("segsum_time", card=card, n=N_ROWS, domain=q1_domain, k=q1_k,
+          ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+          bound_us=bound_ms * 1e3, bytes=n_bytes)
+
+    print(json.dumps({"kernels": [{
+        "name": "segsum",
+        "route": "cuda",
+        "source": "dask_sql_tpu_torch/csrc/segsum.cu",
+        "replaces": "dask_sql_tpu/ops/pallas_kernels.py:99",
+        "launches": launches["segsum"],
+        "max_abs_err": q1_err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+    }]}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

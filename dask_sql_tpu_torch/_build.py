@@ -1,0 +1,104 @@
+"""Build and bind the port's CUDA kernels.
+
+Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, in ``_build/`` next to this file
+(listed in ``.gitignore``), and loads with ``ctypes``.  A library is built at
+first use and named by a hash of its source and flags, so an edited source
+rebuilds.  `build()` starts one ``nvcc`` per missing library, all at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+_HERE = Path(__file__).resolve().parent
+_CSRC = _HERE / "csrc"
+BUILD_DIR = _HERE / "_build"
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+#: library name -> (source file, {C function: argtypes}); every function
+#: returns a cudaError_t as int
+KERNELS: Dict[str, tuple] = {
+    "segsum": ("segsum.cu", {
+        # gid, cols, n, k, domain, rows_per_block, kc, scratch, out, stream
+        "dsql_segsum_f32": [_P, _P, _I64, _I, _I, _I, _I, _P, _P, _P],
+    }),
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "with the CUDA toolkit on the machine with the card")
+
+
+def library_path(name: str) -> Path:
+    source = _CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(source.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every named library that is not built yet, one ``nvcc`` per
+    source, all started together.  Returns {name: seconds} for those
+    compiled; raises with the compiler's output when one fails."""
+    import time
+
+    BUILD_DIR.mkdir(exist_ok=True)
+    todo = [n for n in (names or KERNELS) if not library_path(n).exists()]
+    if not todo:
+        return {}
+    nvcc = _nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for name in todo:
+        target = library_path(name)
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / KERNELS[name][0])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target)
+    times, errors = {}, []
+    for name, (proc, tmp, target) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, target)
+        times[name] = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return times
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if needed."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(library_path(name)))
+            for fn, argtypes in KERNELS[name][1].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,46 @@
+"""Per-context configuration of the PyTorch port.
+
+Counterpart of `dask_sql_tpu/config.py`, with only the keys this port reads
+and the reference's defaults.  Each `Context` owns one `Config`; `set()`
+pushes a scoped overlay (per-query options of `Context.sql`).
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Any, Dict, Optional
+
+DEFAULTS: Dict[str, Any] = {
+    "sql.identifier.case_sensitive": True,
+    # segment-sum mode: auto | scatter | matmul | pallas (the last two pick
+    # the hand-written kernel, ops/segsum.py choose_segsum_impl)
+    "sql.compile.segsum": "auto",
+}
+
+
+class Config:
+    """Base values + thread-local scoped overlays."""
+
+    def __init__(self):
+        self._values: Dict[str, Any] = dict(DEFAULTS)
+        self._local = threading.local()
+
+    def get(self, key: str, default: Any = None) -> Any:
+        for frame in reversed(getattr(self._local, "stack", None) or ()):
+            if key in frame:
+                return frame[key]
+        return self._values.get(key, default)
+
+    def update(self, options: Optional[Dict[str, Any]]) -> None:
+        self._values.update(options or {})
+
+    @contextlib.contextmanager
+    def set(self, options: Optional[Dict[str, Any]] = None):
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        stack.append(dict(options or {}))
+        try:
+            yield self
+        finally:
+            stack.pop()

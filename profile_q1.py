@@ -1,0 +1,96 @@
+"""Where the time of TPC-H Q1 at SF1 goes in the PyTorch port, on one CUDA card.
+
+Run from the root of a checkout on a machine with the card:
+
+    python3 profile_q1.py
+
+It loads 6,000,000 synthetic ``lineitem`` rows (the generator and query of
+``chip_smoke.py``), warms Q1 up, then prints JSON lines: the host time of
+planning (``c.sql``) and of execution (``.compute()``), medians of 5 runs;
+and, from ``torch.profiler`` over 5 more runs, the device time by kernel and
+the device's busy and idle shares of the wall time.  The Chrome trace goes to
+``profile_out/q1_trace.json``.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+RUNS = 5
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profile_q1: no CUDA device", file=sys.stderr)
+        return 1
+    from chip_smoke import N_ROWS, QUERY, gen_lineitem
+    from dask_sql_tpu_torch import Context
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    c = Context(device="cuda")
+    c.create_table("lineitem", gen_lineitem(N_ROWS))
+    for _ in range(2):
+        c.sql(QUERY).compute()
+
+    plan_ms, exec_ms = [], []
+    for _ in range(RUNS):
+        t0 = time.perf_counter()
+        frame = c.sql(QUERY)
+        t1 = time.perf_counter()
+        frame.compute()
+        t2 = time.perf_counter()
+        plan_ms.append((t1 - t0) * 1e3)
+        exec_ms.append((t2 - t1) * 1e3)
+    print(json.dumps({"phase": "q1_host_split", "card": card, "rows": N_ROWS,
+                      "plan_ms": float(np.median(plan_ms)),
+                      "execute_ms": float(np.median(exec_ms)),
+                      "plan_runs_ms": plan_ms, "execute_runs_ms": exec_ms}))
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(RUNS):
+            c.sql(QUERY).compute()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    out = Path("profile_out")
+    out.mkdir(exist_ok=True)
+    trace = out / "q1_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    # device work is what the trace files under these categories; the
+    # operator rows of key_averages() would count a kernel twice
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    by_name = {}
+    for e in device:
+        d = by_name.setdefault(e["name"], [0.0, 0])
+        d[0] += e["dur"]
+        d[1] += 1
+    device_us = sum(d[0] for d in by_name.values())
+    print(json.dumps({"phase": "q1_device_split", "card": card, "runs": RUNS,
+                      "wall_ms_per_query": wall_us / RUNS / 1e3,
+                      "device_ms_per_query": device_us / RUNS / 1e3,
+                      "device_busy_share": device_us / wall_us,
+                      "device_idle_share": 1 - device_us / wall_us,
+                      "device_ops_per_query": len(device) / RUNS}))
+    for name, (dur, count) in sorted(by_name.items(), key=lambda x: -x[1][0])[:15]:
+        print(json.dumps({"kernel": name[:90], "launches_per_query": count / RUNS,
+                          "device_ms_per_query": dur / RUNS / 1e3,
+                          "share_of_device": dur / device_us}))
+    print(card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,182 @@
+"""TPC-H Q1 through the port's `Context(device="cpu")` against the reference
+`Context`, on the same seeded frames.
+
+The reference runs with ``sql.compile.segsum = "matmul"``: its float64-carry
+segment sum, which runs on the CPU (its CPU default, scatter, sums float32
+columns in float32).  Group keys, counts and output dtypes must match
+exactly; float results within MATMUL_FLOAT_REL_ERR_BOUND relative, the
+bound the reference's own segment sum is held to.
+"""
+import numpy as np
+import pandas as pd
+import pytest
+
+import dask_sql_tpu
+from bench import QUERY, gen_lineitem
+from dask_sql_tpu_torch import Context
+from dask_sql_tpu_torch.columnar.table import Table
+from dask_sql_tpu_torch.ops import segsum as segsum_ops
+from dask_sql_tpu_torch.utils import TRANSFER_STATS
+from tests.tpch import QUERIES, generate
+
+REL = segsum_ops.MATMUL_FLOAT_REL_ERR_BOUND
+KEYS = ["l_returnflag", "l_linestatus"]
+
+
+def _reference(df, sql):
+    c = dask_sql_tpu.Context()
+    c.create_table("lineitem", df)
+    return c.sql(sql, config_options={"sql.compile.segsum": "matmul"}).compute()
+
+
+@pytest.fixture
+def segsum_calls(monkeypatch):
+    """Counts calls of the reducer's segment-sum entry point."""
+    calls = []
+    inner = segsum_ops.segsum_columns
+
+    def counted(gid, cols, domain):
+        calls.append((domain, int(cols.shape[0])))
+        return inner(gid, cols, domain)
+
+    monkeypatch.setattr(segsum_ops, "segsum_columns", counted)
+    return calls
+
+
+def _port(source, sql, segsum_calls):
+    c = Context(device="cpu")
+    c.create_table("lineitem", source)
+    TRANSFER_STATS["d2h"] = 0
+    got = c.sql(sql).compute()
+    assert TRANSFER_STATS["d2h"] == 1
+    assert len(segsum_calls) == 1
+    return got
+
+
+def assert_same_result(got: pd.DataFrame, want: pd.DataFrame):
+    assert list(got.columns) == list(want.columns)
+    assert list(got.dtypes) == list(want.dtypes)
+    assert len(got) == len(want)
+    for name in got.columns:
+        g, w = got[name].reset_index(drop=True), want[name].reset_index(drop=True)
+        if g.dtype.kind == "f":
+            np.testing.assert_allclose(g.to_numpy(), w.to_numpy(), rtol=REL,
+                                       err_msg=name)
+        else:
+            pd.testing.assert_series_equal(g, w, check_exact=True)
+
+
+@pytest.mark.parametrize("frame", ["bench", "tpch"])
+def test_q1_matches_reference(frame, segsum_calls):
+    if frame == "bench":
+        df, sql = gen_lineitem(20_000), QUERY
+    else:
+        df, sql = generate(2000)["lineitem"], QUERIES[1]
+    got = _port(df, sql, segsum_calls)
+    assert_same_result(got, _reference(df, sql))
+    assert len(got) == 6
+    # one segment sum of 13 columns over the 4 x 3 radix domain: five float
+    # sums (two float64, split hi/lo) and six count masks (float32 inputs
+    # in the bench frame; tpch's float64 columns widen the stack)
+    domain, k = segsum_calls[0]
+    assert domain == 12
+    assert k == (13 if frame == "bench" else 16)
+
+
+def test_q1_null_keys_nan_floats_and_empty_filter(segsum_calls):
+    df = gen_lineitem(3000, seed=1)
+    rng = np.random.RandomState(5)
+    flags = df["l_returnflag"].astype(object)
+    flags[rng.rand(len(df)) < 0.05] = None
+    df["l_returnflag"] = flags
+    price = df["l_extendedprice"].to_numpy().copy()
+    price[rng.rand(len(df)) < 0.05] = np.nan
+    df["l_extendedprice"] = price
+    got = _port(df, QUERY, segsum_calls)
+    want = _reference(df, QUERY)
+    assert_same_result(got, want)
+    assert got["l_returnflag"].isna().sum() == 2  # the NULL key's two groups
+
+    empty = QUERY.replace("DATE '1998-09-02'", "DATE '1900-01-01'")
+    segsum_calls.clear()
+    got = _port(df, empty, segsum_calls)
+    assert len(got) == 0
+    assert_same_result(got, _reference(df, empty))
+
+    # a global aggregate over no rows still yields one row: COUNT 0, SUM NULL
+    glob = ("SELECT COUNT(*) AS n, SUM(l_quantity) AS s FROM lineitem "
+            "WHERE l_shipdate <= DATE '1900-01-01'")
+    segsum_calls.clear()
+    got = _port(df, glob, segsum_calls)
+    assert got["n"].tolist() == [0] and got["s"].isna().all()
+    assert_same_result(got, _reference(df, glob))
+
+
+def test_string_codes_match_reference():
+    df = gen_lineitem(5000, seed=3)
+    rc = dask_sql_tpu.Context()
+    rc.create_table("lineitem", df)
+    ref_table = rc.schema["root"].tables["lineitem"].table
+    pc = Context(device="cpu")
+    pc.create_table("lineitem", df)
+    port_table = pc.schema["root"].tables["lineitem"]
+    for name in KEYS:
+        r, p = ref_table.columns[name], port_table.columns[name]
+        np.testing.assert_array_equal(p.data.numpy(), np.asarray(r.data))
+        assert list(p.dictionary) == list(r.dictionary)
+
+
+def test_from_numpy_columns_carries_reference_table(segsum_calls):
+    """The reference's loaded table, decoded column by column, becomes a
+    port table with the same codes; Q1 over it matches the reference."""
+    df = gen_lineitem(4000, seed=4)
+    rc = dask_sql_tpu.Context()
+    rc.create_table("lineitem", df)
+    ref_table = rc.schema["root"].tables["lineitem"].table
+    parts = {}
+    for name, col in ref_table.columns.items():
+        col = col.decode()
+        parts[name] = (np.asarray(col.data),
+                       None if col.validity is None else np.asarray(col.validity),
+                       col.dictionary, col.sql_type.value)
+    table = Table.from_numpy_columns(parts, device="cpu")
+    for name in KEYS:
+        np.testing.assert_array_equal(table.columns[name].data.numpy(),
+                                      np.asarray(ref_table.columns[name].data))
+    got = _port(table, QUERY, segsum_calls)
+    assert_same_result(got, _reference(df, QUERY))
+
+
+def test_int_key_wide_domain_matches_reference(segsum_calls):
+    """An integer group key: bounds come from one device pull, and a group
+    domain past HOST_PULL_DOMAIN compacts to the present groups before its
+    one transfer."""
+    rng = np.random.RandomState(9)
+    df = pd.DataFrame({"k": rng.randint(0, 200_000, 3000).astype(np.int64),
+                       "v": rng.rand(3000) * 1e6})
+    sql = "SELECT k, COUNT(*) AS n, SUM(v) AS s, MAX(v) AS m FROM t GROUP BY k ORDER BY k"
+    c = Context(device="cpu")
+    c.create_table("t", df)
+    TRANSFER_STATS["d2h"] = 0
+    got = c.sql(sql).compute()
+    assert TRANSFER_STATS["d2h"] == 2  # the key bounds, then the result
+    assert segsum_calls[0][0] > (1 << 16)
+    rc = dask_sql_tpu.Context()
+    rc.create_table("t", df)
+    want = rc.sql(sql, config_options={"sql.compile.segsum": "matmul"}).compute()
+    assert_same_result(got, want)
+
+
+def test_filter_projection_sort_matches_reference():
+    """The eager plugins: a filter, an arithmetic projection and a two-key
+    sort over the scan, without an aggregate."""
+    df = gen_lineitem(2000, seed=6)
+    sql = ("SELECT l_returnflag, l_extendedprice * (1 - l_discount) AS net "
+           "FROM lineitem WHERE l_shipdate <= DATE '1995-01-01' "
+           "AND NOT l_quantity < 10 ORDER BY net DESC, l_returnflag")
+    c = Context(device="cpu")
+    c.create_table("lineitem", df)
+    got = c.sql(sql, return_futures=False)
+    rc = dask_sql_tpu.Context()
+    rc.create_table("lineitem", df)
+    assert_same_result(got, rc.sql(sql).compute())
