@@ -9,11 +9,16 @@ It builds every kernel of the port from ``dask_sql_tpu_torch/csrc`` (one
 PyTorch version on the card, drives TPC-H Q1 at SF1 (6,000,000 synthetic
 ``lineitem`` rows) through ``Context(device="cuda")`` and checks it against a
 float64 numpy oracle, then times the query, the kernel, its plain version and
-the PyTorch library call that computes the same function.  Each phase prints
-one line.  The second-to-last lines are the kernels' JSON record and the
-card's name and power limit; the last line is the JSON result.  Any failed
-phase ends the script with a nonzero exit code and no result line.  Without a
-CUDA card, or without the ``dask_sql_tpu_torch`` package beside it, it fails.
+the PyTorch library call that computes the same function, at the typed shape
+the query gives the kernel and at the ``[k, n]`` stacked shape of earlier
+work.  The kernel is timed on the card alone (``ms``, behind a spin kernel),
+with the host issuing each call in the loop (``unspun_ms``, the way the plain
+version and the library call are timed), and on the host (``host_us`` to
+issue one call).  Each phase prints one line.  The second-to-last lines
+are the kernels' JSON record and the card's name and power limit; the last
+line is the JSON result.  Any failed phase ends the script with a nonzero
+exit code and no result line.  Without a CUDA card, or without the
+``dask_sql_tpu_torch`` package beside it, it fails.
 """
 from __future__ import annotations
 
@@ -113,7 +118,9 @@ def memory_rate(name: str) -> float:
 
 
 def cuda_ms(fn, iters: int) -> float:
-    """Mean milliseconds of fn() on the card, by CUDA events, after warm-up."""
+    """Mean milliseconds of fn() by CUDA events around `iters` calls, after
+    warm-up.  Where issuing a call takes the host longer than the card
+    takes to run it, the events time the host."""
     fn()
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -123,6 +130,26 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def card_ms(fn, iters: int):
+    """(ms, host_us) of fn() after warm-up, each a mean over `iters` calls:
+    the card's milliseconds by CUDA events, with a spin kernel queued ahead
+    of them so that the host has issued every call before the card reaches
+    the first, and the host's microseconds to issue one call, by its own
+    clock over those calls."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_us
 
 
 def segsum_inputs(n: int, domain: int, k: int, n_counts: int, seed: int,
@@ -142,6 +169,83 @@ def segsum_inputs(n: int, domain: int, k: int, n_counts: int, seed: int,
     scale = torch.logspace(0, 5, max(k - n_counts, 1), device="cuda")
     cols[n_counts:] *= scale[: k - n_counts, None]
     return gid, cols.contiguous()
+
+
+def typed_inputs(n: int, domain: int, seed: int, stray_ids: bool = False):
+    """gid [n] int32 and the typed columns of Q1's call on the card: six
+    bool count masks, then three float32 and two float64 sums each under
+    one of those masks, with NaN in the rows the mask hides."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gid = torch.randint(0, domain, (n,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    if stray_ids and n:
+        gid[::97] = -1
+        gid[1::89] = domain
+    masks = [torch.rand(n, generator=g, device="cuda") < p
+             for p in (0.99, 0.98, 0.97, 0.9, 0.7, 0.5)]
+    sums = [torch.rand(n, generator=g, device="cuda", dtype=dt) * scale
+            for dt, scale in ((torch.float32, 50.0), (torch.float32, 1e5),
+                              (torch.float32, 0.1), (torch.float64, 1e5),
+                              (torch.float64, 1e9))]
+    columns = [(m, None) for m in masks]
+    for x, m in zip(sums, masks[1:]):
+        x[~m] = float("nan")
+        columns.append((x, m))
+    return gid, columns
+
+
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A copy of x whose data starts one element past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:]
+    view.copy_(x)
+    return view
+
+
+def typed_bytes(gid, columns, domain) -> int:
+    """Bytes the typed call must move: each distinct buffer read once, the
+    output written once."""
+    bufs = {gid.data_ptr(): gid.nbytes}
+    for data, mask in columns:
+        bufs[data.data_ptr()] = data.nbytes
+        if mask is not None:
+            bufs[mask.data_ptr()] = mask.nbytes
+    return sum(bufs.values()) + domain * len(columns) * 8
+
+
+def typed_adds(gid, columns, domain) -> int:
+    """Float64 additions the typed call's data needs: one per row whose id
+    lies in the domain and whose column adds (mask, and bool value, true)."""
+    live = (gid >= 0) & (gid < domain)
+    total = 0
+    for data, mask in columns:
+        on = live if mask is None else live & mask
+        if data.dtype == torch.bool:
+            on = on & data
+        total += int(on.sum())
+    return total
+
+
+def check_typed(segsum, gid, columns, domain, label):
+    got = segsum.segsum_typed(gid, columns, domain)
+    want = segsum.segsum_typed_plain(gid, columns, domain)
+    torch.cuda.synchronize()
+    k = len(columns)
+    if got.shape != (domain, k) or got.dtype != torch.float64:
+        fail(f"segsum {label}: shape {tuple(got.shape)} {got.dtype}")
+    counts = [j for j, (d, _) in enumerate(columns) if d.dtype == torch.bool]
+    if not torch.equal(got[:, counts], want[:, counts]):
+        fail(f"segsum {label}: counts differ from the plain version")
+    err = (got - want).abs()
+    rel = float((err / want.abs().clamp_min(1e-30)).max()) if err.numel() else 0.0
+    if not rel <= REL_BOUND:
+        fail(f"segsum {label}: relative error {rel} > {REL_BOUND}")
+    max_abs = float(err.max()) if err.numel() else 0.0
+    kc, replicas, blocks = segsum.launch_geometry(gid, columns, domain)
+    phase("segsum_check", case=label, n=int(gid.shape[0]), domain=domain, k=k,
+          replicas=replicas, blocks=blocks, chunks=-(-k // kc),
+          max_abs_err=max_abs, max_rel_err=rel)
+    return max_abs
 
 
 def check_kernel(segsum, gid, cols, domain, n_counts, label):
@@ -191,6 +295,37 @@ def main() -> int:
             ("empty", 0, 12, 13, 6, False)):
         g_, c_ = segsum_inputs(n, domain, k, counts, seed=2, stray_ids=stray)
         check_kernel(segsum, g_, c_, domain, counts, label)
+    del g_, c_
+    # the typed columns the reducer hands the kernel, read where they lie
+    tgid, tcols = typed_inputs(N_ROWS, q1_domain, seed=3)
+    typed_err = check_typed(segsum, tgid, tcols, q1_domain, "typed_q1_shape")
+    for label, n, domain, stray in (
+            ("typed_misaligned_views", 1_000_001, 12, True),
+            ("typed_domain_2048", 1_000_000, 2048, False),
+            # chunks of 6 columns: one of counts, one of float sums
+            ("typed_domain_4096_mixed_chunks", 1_000_000, 4096, False),
+            ("typed_ragged_stray_ids", 1_000_003, 12, True),
+            ("typed_40_columns", 100_003, 12, True),
+            ("typed_empty", 0, 12, False)):
+        g_, c_ = typed_inputs(n, domain, seed=4, stray_ids=stray)
+        if label == "typed_misaligned_views":
+            g_ = misaligned(g_)
+            c_ = [(misaligned(d), None if m is None else misaligned(m))
+                  for d, m in c_]
+        if label == "typed_40_columns":
+            c_ = (c_ * 4)[:40]
+        check_typed(segsum, g_, c_, domain, label)
+    del g_, c_
+    # the kernel's plan takes the domain the router may send it, no more
+    g_, c_ = typed_inputs(4, 1, seed=5)
+    segsum.launch_geometry(g_, c_, segsum.KERNEL_MAX_DOMAIN)
+    try:
+        segsum.launch_geometry(g_, c_, segsum.KERNEL_MAX_DOMAIN + 1)
+        fail("segsum plans a domain above KERNEL_MAX_DOMAIN")
+    except ValueError:
+        pass
+    phase("segsum_check", case="max_domain", domain=segsum.KERNEL_MAX_DOMAIN)
+    del g_, c_
 
     # 4. Q1 at SF1 through the port's entry points, on the card
     t0 = time.perf_counter()
@@ -241,18 +376,51 @@ def main() -> int:
     phase("q1_time", card=card, ms=q1_ms, runs_ms=runs,
           rows_per_s=N_ROWS / (q1_ms / 1e3))
 
-    kernel_ms = cuda_ms(lambda: segsum.segsum_columns(gid, cols, q1_domain), 20)
+    rate = memory_rate(kind)
+    # the typed call Q1 makes: 11 columns read in place
+    tk = len(tcols)
+    typed = lambda: segsum.segsum_typed(tgid, tcols, q1_domain)  # noqa: E731
+    t_ms, t_host_us = card_ms(typed, 20)
+    t_unspun_ms = cuda_ms(typed, 20)
+    t_plain_ms = cuda_ms(
+        lambda: segsum.segsum_typed_plain(tgid, tcols, q1_domain), 5)
+    tsrc64 = torch.stack([d.to(torch.float64) if m is None else
+                          torch.where(m, d.to(torch.float64), 0.0)
+                          for d, m in tcols], dim=1)
+    t_library_ms = cuda_ms(lambda: torch.zeros(
+        q1_domain, tk, dtype=torch.float64, device="cuda").index_add_(
+            0, tgid, tsrc64), 5)
+    del tsrc64
+    t_bytes = typed_bytes(tgid, tcols, q1_domain)
+    t_bytes_ms = t_bytes / rate * 1e3
+    t_ops_ms = typed_adds(tgid, tcols, q1_domain) / FP64_RATE * 1e3
+    t_bound_ms = max(t_bytes_ms, t_ops_ms)
+    kc, replicas, blocks = segsum.launch_geometry(tgid, tcols, q1_domain)
+    phase("segsum_time", shape="typed_q1", card=card, n=N_ROWS,
+          domain=q1_domain, k=tk, replicas=replicas, blocks=blocks, ms=t_ms,
+          host_us=t_host_us, unspun_ms=t_unspun_ms, plain_ms=t_plain_ms,
+          library_ms=t_library_ms, bound_us=t_bound_ms * 1e3, bytes=t_bytes,
+          share_of_bound=t_bound_ms / t_ms)
+
+    # the [k, n] float32 stack of earlier work: 13 columns
+    stacked = lambda: segsum.segsum_columns(gid, cols, q1_domain)  # noqa: E731
+    kernel_ms, host_us = card_ms(stacked, 20)
+    unspun_ms = cuda_ms(stacked, 20)
     plain_ms = cuda_ms(lambda: segsum.segsum_plain(gid, cols.t(), q1_domain), 5)
     src64 = cols.t().to(torch.float64).contiguous()
     library_ms = cuda_ms(lambda: torch.zeros(q1_domain, q1_k, dtype=torch.float64,
                                              device="cuda").index_add_(0, gid, src64), 5)
     n_bytes = N_ROWS * (4 + 4 * q1_k) + q1_domain * q1_k * 8
-    bytes_ms = n_bytes / memory_rate(kind) * 1e3
+    bytes_ms = n_bytes / rate * 1e3
     ops_ms = N_ROWS * q1_k / FP64_RATE * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    phase("segsum_time", card=card, n=N_ROWS, domain=q1_domain, k=q1_k,
-          ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-          bound_us=bound_ms * 1e3, bytes=n_bytes)
+    kc, replicas, blocks = segsum.launch_geometry(
+        gid, [(c, None) for c in cols.unbind(0)], q1_domain)
+    phase("segsum_time", shape="stacked_q1", card=card, n=N_ROWS,
+          domain=q1_domain, k=q1_k, replicas=replicas, blocks=blocks,
+          ms=kernel_ms, host_us=host_us, unspun_ms=unspun_ms,
+          plain_ms=plain_ms, library_ms=library_ms, bound_us=bound_ms * 1e3,
+          bytes=n_bytes, share_of_bound=bound_ms / kernel_ms)
 
     print(json.dumps({"kernels": [{
         "name": "segsum",
@@ -260,12 +428,21 @@ def main() -> int:
         "source": "dask_sql_tpu_torch/csrc/segsum.cu",
         "replaces": "dask_sql_tpu/ops/pallas_kernels.py:99",
         "launches": launches["segsum"],
-        "max_abs_err": q1_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": library_ms,
+        "max_abs_err": typed_err,
+        "ms": t_ms,
+        "plain_ms": t_plain_ms,
+        "bound_ms": t_bound_ms,
+        "bound_by": "bytes" if t_bytes_ms >= t_ops_ms else "operations",
+        "library_ms": t_library_ms,
+        "host_us": t_host_us,
+        "unspun_ms": t_unspun_ms,
+        "stacked_ms": kernel_ms,
+        "stacked_host_us": host_us,
+        "stacked_unspun_ms": unspun_ms,
+        "stacked_plain_ms": plain_ms,
+        "stacked_bound_ms": bound_ms,
+        "stacked_library_ms": library_ms,
+        "stacked_max_abs_err": q1_err,
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,11 +27,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
 #: library name -> (source file, {C function: argtypes}); every function
-#: returns a cudaError_t as int
+#: returns a cudaError_t as int (and dsql_segsum_plan -1 for a shape its
+#: kernel does not take)
 KERNELS: Dict[str, tuple] = {
     "segsum": ("segsum.cu", {
-        # gid, cols, n, k, domain, rows_per_block, kc, scratch, out, stream
-        "dsql_segsum_f32": [_P, _P, _I64, _I, _I, _I, _I, _P, _P, _P],
+        # n, domain, k, data_buf[k], mask_buf[k], types[k], int plan[16]
+        "dsql_segsum_plan": [_I64, _I, _I, _P, _P, _P, _P],
+        # gid, n, domain, k, data[k], masks[k], types[k], plan, scratch,
+        # out, stream
+        "dsql_segsum_typed": [_P, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     }),
 }
 

@@ -137,13 +137,14 @@ class SegmentReducer:
     """Batched segment reductions for one pipeline run.
 
     Counts and float sums are collected and reduced together: in 'kernel'
-    and 'plain' modes every float sum and count becomes a float32 column
-    (float64 inputs as an exact hi/lo pair) of ONE segment sum through
-    `ops.segsum.segsum_columns`, with float64 output — counts exact, float
-    error bounded by MATMUL_FLOAT_REL_ERR_BOUND.  'scatter' reduces each
-    one on its own with ``index_add_`` (float64 sums, integer counts).
-    Integer sums always use an exact int64 ``index_add_``; min/max use
-    ``scatter_reduce``.
+    and 'plain' modes each count and float sum becomes one typed column
+    (data, mask) of ONE `ops.segsum.segsum_typed` call, read where it lies
+    (a count is its bool mask; a float32 or float64 sum is its data under
+    its mask, other floats cast to float32), with float64 output: counts
+    exact, float error bounded by MATMUL_FLOAT_REL_ERR_BOUND.  'scatter'
+    reduces each one on its own with ``index_add_`` (float64 sums, integer
+    counts).  Integer sums always use an exact int64 ``index_add_``;
+    min/max use ``scatter_reduce``.
 
     Usage: register reductions (count / sum_float / sum_int / seg_min /
     seg_max), call finish(), then resolve handles via get()."""
@@ -154,7 +155,7 @@ class SegmentReducer:
         self.mode = mode
         self.n_rows = n_rows
         self._cnt_dtype = torch.int32 if n_rows < (1 << 31) else torch.int64
-        self._fcols: List[torch.Tensor] = []
+        self._columns: List[Tuple[torch.Tensor, Optional[torch.Tensor]]] = []
         self._fdedup: Dict[Tuple[int, int], Tuple] = {}
         self._cnt_dedup: Dict[int, Tuple] = {}
         self._out: Optional[torch.Tensor] = None
@@ -177,7 +178,7 @@ class SegmentReducer:
         h = self._cnt_dedup.get(id(mask))
         if h is None:
             if self._batched:
-                h = self._push(mask.to(torch.float32))
+                h = self._push(mask, None)
             else:
                 h = ("done", self._scatter(mask.to(self._cnt_dtype)))
             self._cnt_dedup[id(mask)] = h
@@ -190,14 +191,14 @@ class SegmentReducer:
         h = self._fdedup.get(key)
         if h is not None:
             return h
-        masked = torch.where(mask, data, torch.zeros((), dtype=data.dtype,
-                                                     device=data.device))
         if not self._batched:
+            masked = torch.where(mask, data, torch.zeros((), dtype=data.dtype,
+                                                         device=data.device))
             h = ("done", self._scatter(masked.to(torch.float64)))
-        elif masked.dtype == torch.float64:
-            h = self._push2(*segsum_ops.split_hi_lo(masked))
+        elif data.dtype in (torch.float32, torch.float64):
+            h = self._push(data, mask)
         else:
-            h = self._push(masked)
+            h = self._push(data.to(torch.float32), mask)
         self._fdedup[key] = h
         self._keepalive.append((data, mask))
         return h
@@ -227,29 +228,26 @@ class SegmentReducer:
         return init.scatter_reduce_(0, self.gid.to(torch.int64), contrib, how,
                                     include_self=True)
 
-    def _push(self, col: torch.Tensor):
-        self._fcols.append(col.to(torch.float32))
-        return ("f", len(self._fcols) - 1, None)
-
-    def _push2(self, hi: torch.Tensor, lo: torch.Tensor):
-        self._fcols.append(hi)
-        self._fcols.append(lo)
-        return ("f", len(self._fcols) - 2, len(self._fcols) - 1)
+    def _push(self, data: torch.Tensor, mask: Optional[torch.Tensor]):
+        """One typed column over every row: a literal or a constant mask
+        broadcasts to [n] (the kernel reads contiguous rows)."""
+        n = self.gid.shape[0]
+        data = data.expand(n).contiguous()
+        if mask is not None:
+            mask = mask.expand(n).contiguous()
+        self._columns.append((data, mask))
+        return ("f", len(self._columns) - 1)
 
     # -- execution -----------------------------------------------------------
     def finish(self):
-        if self._fcols:
-            cols = torch.stack(self._fcols, dim=0)  # [k, n]
-            self._out = segsum_ops.segsum_columns(self.gid, cols, self.domain)
+        if self._columns:
+            self._out = segsum_ops.segsum_typed(self.gid, self._columns,
+                                                self.domain)
 
     def get(self, h):
         if h[0] == "done":
             return h[1]
-        _, i, j = h
-        v = self._out[:, i]
-        if j is not None:
-            v = v + self._out[:, j]
-        return v
+        return self._out[:, h[1]]
 
 
 def agg_argument(ev, slots, a: AggExpr, sel, cache: Dict[Tuple, Tuple]):

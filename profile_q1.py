@@ -7,9 +7,12 @@ Run from the root of a checkout on a machine with the card:
 It loads 6,000,000 synthetic ``lineitem`` rows (the generator and query of
 ``chip_smoke.py``), warms Q1 up, then prints JSON lines: the host time of
 planning (``c.sql``) and of execution (``.compute()``), medians of 5 runs;
-and, from ``torch.profiler`` over 5 more runs, the device time by kernel and
-the device's busy and idle shares of the wall time.  The Chrome trace goes to
-``profile_out/q1_trace.json``.
+the host time of each call Q1 makes to the segment-sum kernel's wrapper
+(``segsum_typed``, or ``segsum_columns`` in a tree without it), over 5 more
+runs; and, from ``torch.profiler`` over 5 more runs, the device time by
+kernel (``segsum_partials`` is the kernel's first pass, ``segsum_combine``
+its second) and the device's busy and idle shares of the wall time.  The
+Chrome trace goes to ``profile_out/q1_trace.json``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,31 @@ import numpy as np
 import torch
 
 RUNS = 5
+
+
+def time_wrapper(ops, times):
+    """Wraps the segment-sum wrappers of module `ops` so that each outermost
+    call appends its host microseconds to `times`.  Returns a function that
+    puts the originals back."""
+    depth, originals = [0], {}
+    for name in ("segsum_typed", "segsum_columns"):
+        fn = getattr(ops, name, None)
+        if fn is None:
+            continue
+        originals[name] = fn
+
+        def timed(*args, _fn=fn, **kwargs):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    times.append((time.perf_counter() - t0) * 1e6)
+
+        setattr(ops, name, timed)
+    return lambda: [setattr(ops, k, v) for k, v in originals.items()]
 
 
 def main() -> int:
@@ -53,6 +81,18 @@ def main() -> int:
                       "plan_ms": float(np.median(plan_ms)),
                       "execute_ms": float(np.median(exec_ms)),
                       "plan_runs_ms": plan_ms, "execute_runs_ms": exec_ms}))
+
+    from dask_sql_tpu_torch.ops import segsum
+
+    wrapper_us = []
+    restore = time_wrapper(segsum, wrapper_us)
+    for _ in range(RUNS):
+        c.sql(QUERY).compute()
+    restore()
+    print(json.dumps({"phase": "q1_segsum_host", "card": card,
+                      "calls_per_query": len(wrapper_us) / RUNS,
+                      "host_us_per_call": float(np.median(wrapper_us)),
+                      "runs_us": wrapper_us}))
 
     from torch.profiler import ProfilerActivity, profile
 

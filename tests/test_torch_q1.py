@@ -33,13 +33,13 @@ def _reference(df, sql):
 def segsum_calls(monkeypatch):
     """Counts calls of the reducer's segment-sum entry point."""
     calls = []
-    inner = segsum_ops.segsum_columns
+    inner = segsum_ops.segsum_typed
 
-    def counted(gid, cols, domain):
-        calls.append((domain, int(cols.shape[0])))
-        return inner(gid, cols, domain)
+    def counted(gid, columns, domain):
+        calls.append((domain, len(columns)))
+        return inner(gid, columns, domain)
 
-    monkeypatch.setattr(segsum_ops, "segsum_columns", counted)
+    monkeypatch.setattr(segsum_ops, "segsum_typed", counted)
     return calls
 
 
@@ -75,12 +75,12 @@ def test_q1_matches_reference(frame, segsum_calls):
     got = _port(df, sql, segsum_calls)
     assert_same_result(got, _reference(df, sql))
     assert len(got) == 6
-    # one segment sum of 13 columns over the 4 x 3 radix domain: five float
-    # sums (two float64, split hi/lo) and six count masks (float32 inputs
-    # in the bench frame; tpch's float64 columns widen the stack)
+    # one segment sum of 11 typed columns over the 4 x 3 radix domain: five
+    # float sums read in their own dtype under their masks, and six count
+    # masks, in both frames
     domain, k = segsum_calls[0]
     assert domain == 12
-    assert k == (13 if frame == "bench" else 16)
+    assert k == 11
 
 
 def test_q1_null_keys_nan_floats_and_empty_filter(segsum_calls):
@@ -180,3 +180,24 @@ def test_filter_projection_sort_matches_reference():
     rc = dask_sql_tpu.Context()
     rc.create_table("lineitem", df)
     assert_same_result(got, rc.sql(sql).compute())
+
+
+def test_literal_sum_and_constant_filter(segsum_calls):
+    """A literal's sum and a constant filter reach the segment sum as
+    0-dim or stride-0 tensors; the reducer hands the kernel [n] rows."""
+    df = pd.DataFrame({"k": np.array(["a", "b", "a", "c", "b", "a"]),
+                       "v": np.array([1.0, 2.5, np.nan, 4.0, 5.0, 6.0]),
+                       "w": np.arange(6, dtype=np.float32)})
+    lit = "SELECT k, SUM(1.5) AS s, COUNT(*) AS n FROM t GROUP BY k ORDER BY k"
+    got = _port(df, lit.replace("FROM t", "FROM lineitem"), segsum_calls)
+    rc = dask_sql_tpu.Context()
+    rc.create_table("t", df)
+    assert_same_result(got, rc.sql(lit, config_options={
+        "sql.compile.segsum": "matmul"}).compute())
+    segsum_calls.clear()
+    const = ("SELECT k, SUM(v) AS s, AVG(w) AS a FROM lineitem WHERE 1 = 1 "
+             "GROUP BY k ORDER BY k")
+    got = _port(df, const, segsum_calls)
+    want = df.groupby("k").agg(s=("v", "sum"), a=("w", "mean"))
+    np.testing.assert_allclose(got["s"], want["s"], rtol=REL)
+    np.testing.assert_allclose(got["a"], want["a"], rtol=REL)

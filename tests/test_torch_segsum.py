@@ -4,7 +4,9 @@ reference's (dask_sql_tpu/ops/pallas_kernels.py), on the CPU.
 On the CPU the port's wrapper runs its plain version (a float64
 ``index_add_``); the CUDA kernel itself is held against that plain version
 on the card by ``chip_smoke.py``.  Inputs are made with numpy from a seed
-and handed to both sides.
+and handed to both sides.  Tolerances: counts exact; float sums within
+MATMUL_FLOAT_REL_ERR_BOUND (5e-6) relative, the bound the reference's own
+segment sum is held to.
 """
 import numpy as np
 import pytest
@@ -71,6 +73,114 @@ def test_segsum_matches_scan_blocked():
         rel = np.max(np.abs(s - exact) / np.abs(exact))
         assert rel <= port.MATMUL_FLOAT_REL_ERR_BOUND, rel
     assert port.MATMUL_FLOAT_REL_ERR_BOUND == ref.MATMUL_FLOAT_REL_ERR_BOUND
+
+
+def _typed_case(seed, n, domain):
+    """gid with ids outside the domain; two count masks, a float32 and a
+    float64 column of spread magnitudes (NaN under their false masks), and
+    a bool column under a mask."""
+    rng = np.random.RandomState(seed)
+    gid = rng.randint(0, domain, n).astype(np.int32)
+    gid[::37] = -1
+    gid[5::41] = domain
+    m0, m1 = rng.rand(n) < 0.9, rng.rand(n) < 0.5
+    f32 = (rng.rand(n) * 1e5).astype(np.float32)
+    f64 = rng.rand(n) * 10.0 ** rng.uniform(-6, 9, n)
+    flag = rng.rand(n) < 0.3
+    f32[~m0] = np.nan
+    f64[~m1] = np.nan
+    return gid, [(m0, None), (m1, None), (f32, m0), (f64, m1), (flag, m1)]
+
+
+@pytest.mark.parametrize("seed,n,domain", [(3, 4099, 12), (4, 0, 5)])
+def test_segsum_typed_matches_oracle_and_scan_blocked(seed, n, domain):
+    gid, columns = _typed_case(seed, n, domain)
+    got = port.segsum_typed(
+        torch.from_numpy(gid),
+        [(torch.from_numpy(d), None if m is None else torch.from_numpy(m))
+         for d, m in columns], domain).numpy()
+    assert got.dtype == np.float64 and got.shape == (domain, len(columns))
+    # the oracle and the reference see the columns already selected by
+    # their masks: rows under a false mask add nothing, NaN or not
+    selected = [d.astype(np.float64) if m is None
+                else np.where(m, d.astype(np.float64), 0.0) for d, m in columns]
+    keep = (gid >= 0) & (gid < domain)
+    exact = np.zeros((domain, len(columns)))
+    np.add.at(exact, gid[keep], np.stack(selected, axis=1)[keep])
+    ref_cols = [jnp.asarray(c, dtype=jnp.float32)
+                for c in (selected[0], selected[1], selected[2], selected[4])]
+    hi, lo = ref.split_hi_lo(jnp.asarray(selected[3]))
+    want = np.asarray(ref.segsum_scan_blocked(
+        jnp.asarray(gid), ref_cols + [hi, lo], domain, block=1024))
+    want = np.concatenate([want[:, :3], want[:, 4:5] + want[:, 5:6],
+                           want[:, 3:4]], axis=1)
+    counts = [0, 1, 4]
+    assert np.array_equal(got[:, counts], exact[:, counts])
+    assert np.array_equal(want[:, counts], exact[:, counts])
+    rel = port.MATMUL_FLOAT_REL_ERR_BOUND
+    np.testing.assert_allclose(got, exact, rtol=rel)
+    np.testing.assert_allclose(got, want, rtol=rel)
+
+
+@pytest.mark.parametrize("data,mask,n", [
+    (torch.ones(4, dtype=torch.int64), None, 4),      # integer data
+    (torch.ones(4), torch.ones(4), 4),                # float mask
+    (torch.ones(3), None, 4),                         # length differs
+    (torch.ones(4), torch.ones(5, dtype=torch.bool), 4),
+])
+def test_segsum_typed_rejects(data, mask, n):
+    with pytest.raises(ValueError):
+        port.segsum_typed(torch.zeros(n, dtype=torch.int32), [(data, mask)], 3)
+
+
+def _q1_columns(n):
+    """Q1's typed call: six count masks, five sums under masks 1..5."""
+    masks = [torch.zeros(n, dtype=torch.bool) for _ in range(6)]
+    sums = [torch.zeros(n), torch.zeros(n), torch.zeros(n),
+            torch.zeros(n, dtype=torch.float64),
+            torch.zeros(n, dtype=torch.float64)]
+    return [(m, None) for m in masks] + list(zip(sums, masks[1:]))
+
+
+def _stack_columns(n):
+    """The rows of a [4, n] float32 stack: four distinct buffers."""
+    return [(c, None) for c in torch.zeros(4, n).unbind(0)]
+
+
+def _shared_data(n):
+    """One float32 column summed under two masks, and one mask counted."""
+    x, m0, m1 = torch.zeros(n), torch.ones(n, dtype=torch.bool), \
+        torch.zeros(n, dtype=torch.bool)
+    return [(x, m0), (x, m1), (m0, None)]
+
+
+def _reinterpreted(n):
+    """One buffer's bytes read as float32 and as bool: two buffers to the
+    kernel, which tells them apart by their row width."""
+    raw = torch.zeros(4 * n, dtype=torch.uint8)
+    return [(raw.view(torch.float32), None), (raw[:n].view(torch.bool), None)]
+
+
+def _mask_only(n):
+    """A float64 column under its own bool data as a mask, and that mask
+    counted: the count's data and the sum's mask are one buffer."""
+    x, m = torch.zeros(n, dtype=torch.float64), torch.ones(n, dtype=torch.bool)
+    return [(x, m), (m, None), (m, m)]
+
+
+@pytest.mark.parametrize("make,want", [
+    (_q1_columns, ((0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10),
+                   (-1, -1, -1, -1, -1, -1, 1, 2, 3, 4, 5))),
+    (_stack_columns, ((0, 1, 2, 3), (-1, -1, -1, -1))),
+    (_shared_data, ((0, 0, 1), (1, 2, -1))),
+    (_reinterpreted, ((0, 1), (-1, -1))),
+    (_mask_only, ((0, 1, 1), (1, -1, 1))),
+])
+def test_buffer_ids(make, want):
+    # the kernel's plan sizes its staging ring by the distinct buffers of a
+    # call; the wrapper names them by these ids
+    call = port._describe(torch.zeros(8, dtype=torch.int32), make(8))
+    assert (call.data_ids, call.mask_ids) == want
 
 
 def test_segsum_ids_outside_domain_and_empty_input():
