@@ -6,12 +6,18 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
 It builds every kernel of the port from ``dask_sql_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), holds each kernel against its plain
-PyTorch version on the card, drives TPC-H Q1 at SF1 (6,000,000 synthetic
-``lineitem`` rows) through ``Context(device="cuda")`` and checks it against a
-float64 numpy oracle, then times the query, the kernel, its plain version and
-the PyTorch library call that computes the same function, at the typed shape
-the query gives the kernel and at the ``[k, n]`` stacked shape of earlier
-work.  The kernel is timed on the card alone (``ms``, behind a spin kernel),
+PyTorch version on the card, and drives three paths through
+``Context(device="cuda")``, each checked against a float64 pandas/numpy
+oracle: TPC-H Q1 at SF1 (6,000,000 synthetic ``lineitem`` rows), TPC-H Q3
+over ``tests/tpch.py generate(scale_rows=1_000_000)`` (the scale of
+``bench.py``'s Q3 line; the compiled join->aggregate pipeline, one transfer
+and a plan-cache hit per warm run), and a star join of 6,000,000 fact rows
+through that pipeline into the segment-sum kernel.  It times each query
+cold and warm, Q1's planning cold and from the plan cache, and the kernel,
+its plain version and the PyTorch library call that computes the same
+function, at the typed shape Q1 gives the kernel and at the ``[k, n]``
+stacked shape of earlier work; the kernel is also held against its plain
+version on the very call the star join makes.  The kernel is timed on the card alone (``ms``, behind a spin kernel),
 with the host issuing each call in the loop (``unspun_ms``, the way the plain
 version and the library call are timed), and on the host (``host_us`` to
 issue one call).  Each phase prints one line.  The second-to-last lines
@@ -50,6 +56,16 @@ ORDER BY l_returnflag, l_linestatus
 """
 KEYS = ["l_returnflag", "l_linestatus"]
 REL_BOUND = 5e-6  # MATMUL_FLOAT_REL_ERR_BOUND of the port's segment sum
+Q3_ROWS = 1_000_000  # tests/tpch.py scale_rows of bench.py's Q3 line
+Q3_KEYS = ["l_orderkey", "o_orderdate", "o_shippriority"]
+Q3_REL = 1e-9  # float64 sums throughout
+STAR_ROWS = 6_000_000
+STAR_QUERY = ("SELECT d1_cat, SUM(f_val) AS s, COUNT(*) AS n "
+              "FROM fact JOIN dim1 ON f_dim1 = d1_key "
+              "JOIN dim2 ON f_dim2 = d2_key "
+              "WHERE d2_region = 'r2' AND f_qty > 3 "
+              "GROUP BY d1_cat ORDER BY d1_cat")
+WARM_RUNS = 5
 
 #: device memory rate by card name (NVIDIA data sheets), bytes/s
 _MEMORY_RATE = [("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12),
@@ -92,6 +108,89 @@ def q1_oracle(df):
         avg_qty=("qty", "mean"), avg_price=("price", "mean"),
         avg_disc=("disc", "mean"), count_order=("qty", "count"))
     return out.reset_index().sort_values(KEYS).reset_index(drop=True)
+
+
+def q3_oracle(tables):
+    """TPC-H Q3 in float64 pandas, from the same frames: merge, filter,
+    group, sort."""
+    cust = tables["customer"]
+    cust = cust[cust.c_mktsegment == "BUILDING"]
+    orders = tables["orders"]
+    orders = orders[orders.o_orderdate < np.datetime64("1995-03-15")]
+    li = tables["lineitem"]
+    li = li[li.l_shipdate > np.datetime64("1995-03-15")]
+    m = li.merge(orders, left_on="l_orderkey", right_on="o_orderkey")
+    m = m.merge(cust, left_on="o_custkey", right_on="c_custkey")
+    m = m.assign(revenue=m.l_extendedprice.to_numpy(np.float64)
+                 * (1 - m.l_discount.to_numpy(np.float64)))
+    out = m.groupby(Q3_KEYS, as_index=False).revenue.sum()
+    out = out.sort_values(["revenue", "o_orderdate"], ascending=[False, True],
+                          kind="mergesort").head(10)
+    return out[["l_orderkey", "revenue", "o_orderdate",
+                "o_shippriority"]].reset_index(drop=True)
+
+
+def gen_star(n: int, seed: int = 3):
+    """The star schema of tests/integration/test_compiled_join.py, with n
+    fact rows."""
+    import pandas as pd
+
+    rng = np.random.RandomState(seed)
+    fact = pd.DataFrame({
+        "f_dim1": rng.randint(0, 100, n),
+        "f_dim2": rng.randint(1000, 1050, n),
+        "f_val": rng.rand(n) * 100,
+        "f_qty": rng.randint(1, 10, n),
+    })
+    dim1 = pd.DataFrame({
+        "d1_key": np.arange(100),
+        "d1_cat": [f"cat{i % 7}" for i in range(100)],
+        "d1_flag": (np.arange(100) % 3 == 0),
+    })
+    dim2 = pd.DataFrame({
+        "d2_key": np.arange(1000, 1050),
+        "d2_region": [f"r{i % 5}" for i in range(50)],
+    })
+    return {"fact": fact, "dim1": dim1, "dim2": dim2}
+
+
+def star_oracle(tables):
+    m = tables["fact"].merge(tables["dim1"], left_on="f_dim1", right_on="d1_key")
+    m = m.merge(tables["dim2"], left_on="f_dim2", right_on="d2_key")
+    m = m[(m.d2_region == "r2") & (m.f_qty > 3)]
+    out = m.groupby("d1_cat").agg(s=("f_val", "sum"), n=("f_val", "count"))
+    return out.reset_index().sort_values("d1_cat").reset_index(drop=True)
+
+
+def max_rel(got, want) -> float:
+    g = np.asarray(got, dtype=np.float64)
+    w = np.asarray(want, dtype=np.float64)
+    if not np.all(np.isfinite(g)):
+        fail("a result is not finite")
+    return float(np.max(np.abs(g - w) / np.abs(w))) if len(w) else 0.0
+
+
+def reset_launches(segsum) -> None:
+    for key in segsum.LAUNCHES:
+        segsum.LAUNCHES[key] = 0
+
+
+def warm_runs(c, sql, transfers, check):
+    """WARM_RUNS timed runs of `sql`, each from the plan cache with one
+    device-to-host transfer; `check(result)` on each.  Returns ms."""
+    runs = []
+    for _ in range(WARM_RUNS):
+        hits = c.metrics["query.plan_cache.hit"]
+        transfers["d2h"] = 0
+        t0 = time.perf_counter()
+        got = c.sql(sql).compute()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        if c.metrics["query.plan_cache.hit"] != hits + 1:
+            fail(f"a warm run missed the plan cache: {sql[:40]!r}")
+        if transfers["d2h"] != 1:
+            fail(f"a warm run made {transfers['d2h']} transfers, expected 1")
+        check(got)
+    return runs
 
 
 def phase(name: str, **fields) -> None:
@@ -327,7 +426,8 @@ def main() -> int:
     phase("segsum_check", case="max_domain", domain=segsum.KERNEL_MAX_DOMAIN)
     del g_, c_
 
-    # 4. Q1 at SF1 through the port's entry points, on the card
+    # 4. Q1 at SF1 through the port's entry points, on the card (each path
+    # runs with the launch counts set to 0 just before it)
     t0 = time.perf_counter()
     df = gen_lineitem(N_ROWS)
     want = q1_oracle(df)
@@ -335,16 +435,15 @@ def main() -> int:
     c.create_table("lineitem", df)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    for key in segsum.LAUNCHES:
-        segsum.LAUNCHES[key] = 0
+    reset_launches(segsum)
     TRANSFER_STATS["d2h"] = 0
     t0 = time.perf_counter()
     got = c.sql(QUERY).compute()
     first_ms = (time.perf_counter() - t0) * 1e3
     launches = dict(segsum.LAUNCHES)
     d2h = TRANSFER_STATS["d2h"]
-    if launches["segsum"] < 1:
-        fail(f"Q1 did not launch the segsum kernel: {launches}")
+    if launches["segsum"] != 1:
+        fail(f"Q1 launched the segsum kernel {launches} times, expected once")
     if d2h != 1:
         fail(f"Q1 made {d2h} device-to-host transfers, expected 1")
     if list(got.columns) != list(want.columns) or len(got) != len(want):
@@ -375,6 +474,130 @@ def main() -> int:
     q1_ms = float(np.median(runs))
     phase("q1_time", card=card, ms=q1_ms, runs_ms=runs,
           rows_per_s=N_ROWS / (q1_ms / 1e3))
+
+    # 6. Q1's planning: cold (parse, bind, optimize) and from the plan cache
+    cold_plan, warm_plan = [], []
+    for _ in range(WARM_RUNS):
+        c._plan_cache.clear()
+        t0 = time.perf_counter()
+        c.sql(QUERY)
+        cold_plan.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        c.sql(QUERY)
+        warm_plan.append((time.perf_counter() - t0) * 1e3)
+    if c.metrics["planner.optimize.fallback"]:
+        fail("the optimizer fell back to an unoptimized plan")
+    phase("plan", card=card, query="q1", cold_ms=float(np.median(cold_plan)),
+          warm_ms=float(np.median(warm_plan)), cold_runs_ms=cold_plan,
+          warm_runs_ms=warm_plan)
+    del c, df, got
+
+    # 7. TPC-H Q3 through the compiled join->aggregate pipeline
+    from dask_sql_tpu_torch.physical import compiled_join
+    from tests.tpch import QUERIES, generate
+
+    t0 = time.perf_counter()
+    tables = generate(scale_rows=Q3_ROWS, seed=7)
+    tables = {n: tables[n] for n in ("customer", "orders", "lineitem")}
+    c3 = Context(device="cuda")
+    for name, frame in tables.items():
+        c3.create_table(name, frame)
+    torch.cuda.synchronize()
+    q3_setup_s = time.perf_counter() - t0
+    q3_want = q3_oracle(tables)
+    q3_rel = [0.0]
+
+    def check_q3(got):
+        if list(got.columns) != list(q3_want.columns) or len(got) != 10:
+            fail(f"Q3 result shape {got.shape} / columns {list(got.columns)}")
+        for key in Q3_KEYS:
+            if got[key].tolist() != q3_want[key].tolist():
+                fail(f"Q3 {key} differs from the oracle")
+        rel = max_rel(got["revenue"], q3_want["revenue"])
+        if not rel <= Q3_REL:
+            fail(f"Q3 revenue relative error {rel} > {Q3_REL}")
+        q3_rel[0] = max(q3_rel[0], rel)
+
+    reset_launches(segsum)
+    TRANSFER_STATS["d2h"] = 0
+    t0 = time.perf_counter()
+    got = c3.sql(QUERIES[3]).compute()
+    q3_cold_ms = (time.perf_counter() - t0) * 1e3
+    q3_cold_d2h = TRANSFER_STATS["d2h"]
+    check_q3(got)
+    q3_runs = warm_runs(c3, QUERIES[3], TRANSFER_STATS, check_q3)
+    q3_launches = dict(segsum.LAUNCHES)
+    if c3.metrics["compiled_join.run"] != 1 + WARM_RUNS:
+        fail(f"Q3 ran the join pipeline {c3.metrics['compiled_join.run']} "
+             f"times in {1 + WARM_RUNS} runs")
+    if c3.metrics["planner.optimize.fallback"]:
+        fail("the optimizer fell back to an unoptimized plan for Q3")
+    pipe = next(reversed(compiled_join._cache.values()))
+    q3_ms = float(np.median(q3_runs))
+    phase("q3", card=card, scale_rows=Q3_ROWS, setup_s=q3_setup_s,
+          cold_ms=q3_cold_ms, cold_d2h=q3_cold_d2h, ms=q3_ms,
+          runs_ms=q3_runs, rows_per_s=Q3_ROWS / (q3_ms / 1e3),
+          join_pipeline_runs=c3.metrics["compiled_join.run"],
+          gid="pointer" if pipe.gid_join is not None else "radix",
+          group_domain=pipe.domain, segsum_mode=pipe.segsum_mode,
+          launches=q3_launches, max_rel_err=q3_rel[0])
+    del c3, tables, got
+
+    # 8. a star join through the pipeline into the segment-sum kernel
+    t0 = time.perf_counter()
+    star = gen_star(STAR_ROWS)
+    cs = Context(device="cuda")
+    for name, frame in star.items():
+        cs.create_table(name, frame)
+    torch.cuda.synchronize()
+    star_setup_s = time.perf_counter() - t0
+    star_want = star_oracle(star)
+    star_rel = [0.0]
+
+    def check_star(got):
+        if got["d1_cat"].tolist() != star_want["d1_cat"].tolist():
+            fail("star join groups differ from the oracle")
+        if got["n"].tolist() != star_want["n"].tolist():
+            fail("star join counts differ from the oracle")
+        rel = max_rel(got["s"], star_want["s"])
+        if not rel <= REL_BOUND:
+            fail(f"star join relative error {rel} > {REL_BOUND}")
+        star_rel[0] = max(star_rel[0], rel)
+
+    reset_launches(segsum)
+    t0 = time.perf_counter()
+    check_star(cs.sql(STAR_QUERY).compute())
+    star_cold_ms = (time.perf_counter() - t0) * 1e3
+    star_runs = warm_runs(cs, STAR_QUERY, TRANSFER_STATS, check_star)
+    star_launches = dict(segsum.LAUNCHES)
+    if star_launches["segsum"] < 1 + WARM_RUNS:
+        fail(f"the star join launched the segsum kernel {star_launches} "
+             f"times in {1 + WARM_RUNS} runs")
+    if cs.metrics["compiled_join.run"] != 1 + WARM_RUNS:
+        fail("the star join did not run through the join pipeline")
+    # the kernel against its plain version on the call the star join makes
+    captured = []
+    typed = segsum.segsum_typed
+
+    def capture(gid, columns, domain):
+        captured.append((gid, list(columns), domain))
+        return typed(gid, columns, domain)
+
+    segsum.segsum_typed = capture
+    try:
+        cs.sql(STAR_QUERY).compute()
+    finally:
+        segsum.segsum_typed = typed
+    star_gid, star_cols, star_domain = captured[0]
+    star_err = check_typed(segsum, star_gid, star_cols, star_domain,
+                           "join_star_call")
+    star_ms = float(np.median(star_runs))
+    phase("join_star", card=card, rows=STAR_ROWS, setup_s=star_setup_s,
+          cold_ms=star_cold_ms, ms=star_ms, runs_ms=star_runs,
+          rows_per_s=STAR_ROWS / (star_ms / 1e3), launches=star_launches,
+          group_domain=star_domain, k=len(star_cols),
+          max_rel_err=star_rel[0], kernel_max_abs_err=star_err)
+    del cs, star, captured, star_gid, star_cols
 
     rate = memory_rate(kind)
     # the typed call Q1 makes: 11 columns read in place
@@ -428,7 +651,10 @@ def main() -> int:
         "source": "dask_sql_tpu_torch/csrc/segsum.cu",
         "replaces": "dask_sql_tpu/ops/pallas_kernels.py:99",
         "launches": launches["segsum"],
-        "max_abs_err": typed_err,
+        "launches_by_path": {"q1_sf1": launches["segsum"],
+                             "q3": q3_launches["segsum"],
+                             "join_star": star_launches["segsum"]},
+        "max_abs_err": max(typed_err, star_err),
         "ms": t_ms,
         "plain_ms": t_plain_ms,
         "bound_ms": t_bound_ms,

@@ -92,6 +92,15 @@ class Table:
         return Table({n: c.take(indices) for n, c in self.columns.items()},
                      int(indices.shape[0]), self.device)
 
+    def slice(self, start: int, stop: int) -> "Table":
+        stop = min(stop, self._num_rows)
+        start = min(start, stop)
+        cols = {}
+        for n, c in self.columns.items():
+            v = None if c.validity is None else c.validity[start:stop]
+            cols[n] = Column(c.data[start:stop], c.sql_type, v, c.dictionary)
+        return Table(cols, stop - start, self.device)
+
     def filter(self, mask: torch.Tensor) -> "Table":
         return self.take(torch.nonzero(mask).flatten())
 

@@ -12,6 +12,17 @@ from typing import Any, Dict, Optional
 
 DEFAULTS: Dict[str, Any] = {
     "sql.identifier.case_sensitive": True,
+    "sql.optimize": True,
+    "sql.predicate_pushdown": True,
+    "sql.dynamic_partition_pruning": True,
+    "sql.optimizer.verbose": False,
+    "sql.optimizer.fact_dimension_ratio": 0.7,
+    "sql.optimizer.max_fact_tables": 2,
+    "sql.optimizer.preserve_user_order": True,
+    "sql.optimizer.filter_selectivity": 1.0,
+    "sql.sort.topk-nelem-limit": 1000000,
+    "sql.compile": True,  # the fused aggregate and join->aggregate pipelines
+    "sql.compile.join_pipeline": True,  # the scan->joins->aggregate pipeline
     # segment-sum mode: auto | scatter | matmul | pallas (the last two pick
     # the hand-written kernel, ops/segsum.py choose_segsum_impl)
     "sql.compile.segsum": "auto",
@@ -33,6 +44,14 @@ class Config:
 
     def update(self, options: Optional[Dict[str, Any]]) -> None:
         self._values.update(options or {})
+
+    def effective_items(self):
+        """Sorted (key, value) pairs of the config this thread sees: base
+        values merged with any active overlays (a plan-cache key part)."""
+        merged = dict(self._values)
+        for frame in getattr(self._local, "stack", None) or ():
+            merged.update(frame)
+        return tuple(sorted(merged.items()))
 
     @contextlib.contextmanager
     def set(self, options: Optional[Dict[str, Any]] = None):

@@ -3,24 +3,33 @@
 Counterpart of `dask_sql_tpu/context.py`, lean: `create_table`, `sql` and a
 lazy frame whose `compute()` returns pandas.  Tables live on the context's
 device, which is the CUDA card unless the caller asks for the CPU.  Plans
-come from the Python parser and binder, unoptimized.  The serving, cache,
-admission and observability tiers of the reference are not ported yet.
+come from the Python parser and binder, then the optimizer (the structural
+rule loop, join reordering and dynamic partition pruning), as the
+reference plans with its native planner off; a plan cache keyed by the SQL
+text, the catalog's table uids and the config lets a repeated query skip
+all of that.  The serving, result-cache, admission and observability tiers
+of the reference are not ported yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import logging
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from .columnar.dtypes import SqlType
 from .columnar.table import Table, normalize_device
 from .config import Config
-from .datacontainer import SchemaContainer, to_table
+from .datacontainer import DataContainer, SchemaContainer, to_table
 from .planner import plan as plan_nodes
 from .planner.binder import Binder
 from .planner.catalog import Catalog, CatalogTable, Statistics
 from .planner.expressions import Field
 from .planner.parser import parse_sql
+from .utils import Metrics
+
+logger = logging.getLogger(__name__)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -80,6 +89,7 @@ class TorchFrame:
 
 class Context:
     DEFAULT_SCHEMA_NAME = "root"
+    _PLAN_CACHE_CAP = 128
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -88,6 +98,9 @@ class Context:
             self.DEFAULT_SCHEMA_NAME: SchemaContainer(self.DEFAULT_SCHEMA_NAME)
         }
         self.config = Config()
+        self.metrics = Metrics()
+        #: plan-cache key -> optimized plan (LRU, `_PLAN_CACHE_CAP` entries)
+        self._plan_cache: "OrderedDict[Tuple, Any]" = OrderedDict()
 
     def create_table(self, table_name: str, input_table: Any,
                      schema_name: Optional[str] = None) -> None:
@@ -95,33 +108,90 @@ class Context:
         schema_name = schema_name or self.schema_name
         if schema_name not in self.schema:
             raise KeyError(f"Schema {schema_name} not found")
-        self.schema[schema_name].tables[table_name] = to_table(input_table,
-                                                               self.device)
+        self.schema[schema_name].tables[table_name] = DataContainer(
+            to_table(input_table, self.device))
 
     def sql(self, sql: str, return_futures: bool = True,
             config_options: Optional[Dict[str, Any]] = None):
-        """Parse and bind a SQL query; run it lazily (`.compute()`) or, with
-        ``return_futures=False``, now to pandas."""
+        """Plan a SQL query (or take its plan from the plan cache); run it
+        lazily (`.compute()`) or, with ``return_futures=False``, now to
+        pandas."""
         if not isinstance(sql, str):
             raise ValueError("sql must be a string")
         with self.config.set(config_options):
-            statements = parse_sql(sql)
-            if len(statements) != 1:
-                raise NotImplementedError("one statement per call in the port")
-            plan = self._get_ral(statements[0])
-        if isinstance(plan, plan_nodes.CustomNode):
-            raise NotImplementedError(
-                f"{type(plan).__name__} statements are not in the port yet")
+            key = self._plan_cache_key(sql, config_options)
+            plan = None if key is None else self._plan_cache.get(key)
+            if plan is not None:
+                self._plan_cache.move_to_end(key)
+                self.metrics.inc("query.plan_cache.hit")
+            else:
+                self.metrics.inc("query.plan_cache.miss")
+                statements = parse_sql(sql)
+                if len(statements) != 1:
+                    raise NotImplementedError("one statement per call in the port")
+                plan = self._get_ral(statements[0])
+                if isinstance(plan, plan_nodes.CustomNode):
+                    raise NotImplementedError(
+                        f"{type(plan).__name__} statements are not in the port yet")
+                if key is not None:
+                    self._plan_cache[key] = plan
+                    while len(self._plan_cache) > self._PLAN_CACHE_CAP:
+                        self._plan_cache.popitem(last=False)
         frame = TorchFrame(self, plan, [f.name for f in plan.schema],
                            config_options)
         return frame if return_futures else frame.compute()
 
+    def _plan_cache_key(self, sql: str, config_options) -> Optional[Tuple]:
+        """Cache key of a SQL text against the current catalog and config,
+        or None when a config value is unhashable.  DPP reads the dimension
+        side at plan time, so its inputs are pinned by the table uids."""
+        try:
+            parts: List[Any] = [sql, self.schema_name]
+            parts.extend(self._catalog_signature())
+            parts.append(self.config.effective_items())
+            if config_options:
+                parts.append(tuple(sorted(config_options.items())))
+            key = tuple(parts)
+            hash(key)
+            return key
+        except TypeError:
+            return None
+
+    def _catalog_signature(self) -> List[Any]:
+        """Versioned identity of the catalog: per schema, its tables' uids
+        (registering a table again gives it a new uid, and so a new
+        signature)."""
+        parts: List[Any] = []
+        for schema_name in sorted(self.schema):
+            parts.append(schema_name)
+            parts.append(tuple(sorted(
+                (name, dc.uid)
+                for name, dc in self.schema[schema_name].tables.items())))
+        return parts
+
     def _get_ral(self, stmt):
-        """AST -> bound plan (the Python binder; no optimizer yet)."""
+        """AST -> bound plan -> optimized plan, as the reference's
+        `_get_ral` with its native planner off.  An optimizer failure falls
+        back to the unoptimized plan, counted in
+        ``metrics["planner.optimize.fallback"]``."""
         catalog = self._prepare_catalog()
         case_sensitive = bool(self.config.get("sql.identifier.case_sensitive", True))
         catalog.case_sensitive = case_sensitive
-        return Binder(catalog, case_sensitive=case_sensitive).bind_statement(stmt)
+        plan = Binder(catalog, case_sensitive=case_sensitive).bind_statement(stmt)
+        if self.config.get("sql.optimize", True):
+            from .planner.optimizer.driver import optimize_core, optimize_post
+            from .resilience.errors import QueryError
+
+            try:
+                plan = optimize_core(plan, self.config, catalog)
+                plan = optimize_post(plan, self.config, catalog, context=self)
+            except QueryError:
+                raise
+            except Exception:
+                self.metrics.inc("planner.optimize.fallback")
+                logger.warning("Optimization failed; using unoptimized plan",
+                               exc_info=True)
+        return plan
 
     def _prepare_catalog(self) -> Catalog:
         catalog = Catalog(self.schema_name)
@@ -129,7 +199,8 @@ class Context:
         for schema_name, container in self.schema.items():
             catalog.add_schema(schema_name)
             cschema = catalog.schemas[schema_name]
-            for table_name, table in container.tables.items():
+            for table_name, dc in container.tables.items():
+                table = dc.table
                 fields = [
                     Field(name, col.sql_type, col.validity is not None or
                           col.sql_type in (SqlType.FLOAT, SqlType.DOUBLE))
@@ -141,7 +212,7 @@ class Context:
         return catalog
 
     def get_table_data(self, schema_name: str, table_name: str) -> Table:
-        table = self.schema[schema_name].tables.get(table_name)
-        if table is None:
+        dc = self.schema[schema_name].tables.get(table_name)
+        if dc is None:
             raise KeyError(f"Table {schema_name}.{table_name} not found")
-        return table
+        return dc.table

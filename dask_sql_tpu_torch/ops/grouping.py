@@ -27,3 +27,30 @@ def resolve_int_bounds(pending, max_domain):
             return None
         out[slot] = (span, lo)
     return out
+
+
+def factorize(keys):
+    """Dense group ids of multi-column keys: (ids per row, the sorted-order
+    permutation, the number of groups).  Ids number the distinct keys in
+    ascending lexicographic order (one stable sort per key, least
+    significant first)."""
+    from ..utils import host_ints
+
+    n = int(keys[0].shape[0])
+    device = keys[0].device
+    if n == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=device)
+        return empty, empty.to(torch.int64), 0
+    order = torch.arange(n, device=device)
+    for k in reversed(list(keys)):
+        order = order[torch.sort(k[order], stable=True).indices]
+    changed = torch.zeros(n, dtype=torch.bool, device=device)
+    changed[0] = True
+    for k in keys:
+        ks = k[order]
+        changed[1:] |= ks[1:] != ks[:-1]
+    gid_sorted = torch.cumsum(changed.to(torch.int32), 0, dtype=torch.int32) - 1
+    gid = torch.empty(n, dtype=torch.int32, device=device)
+    gid[order] = gid_sorted
+    (last,) = host_ints(gid_sorted[-1])
+    return gid, order, last + 1

@@ -1,8 +1,8 @@
-"""Stable multi-key sort (counterpart of `sort_permutation` in
-`dask_sql_tpu/ops/sorting.py`)."""
+"""Stable multi-key sort and top-k (counterparts of `sort_permutation` and
+`topk_permutation` in `dask_sql_tpu/ops/sorting.py`)."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -34,3 +34,40 @@ def sort_permutation(cols: Sequence[Column], ascendings: Sequence[bool],
             nullkey = valid if nf else 1 - valid
             perm = perm[torch.sort(nullkey, stable=True).indices]
     return perm
+
+
+def topk_permutation(col: Column, ascending: bool, k: int,
+                     exact_ties: bool = False) -> Optional[torch.Tensor]:
+    """Rows of the top k on one key (``torch.topk`` finds the boundary
+    value), in input order, ties at the boundary taken in input order as
+    the reference's ``lax.top_k`` takes them; None when ineligible (a key
+    with NULLs needs the full ordering).
+
+    With ``exact_ties`` (secondary sort keys follow), None unless every row
+    tied with the boundary value made the cut: otherwise cutting by the
+    first key alone could drop a row the later keys rank into the window.
+    String keys compare by code, which is string order (every dictionary is
+    sorted at load)."""
+    if col.validity is not None:
+        return None
+    data = col.data
+    if data.dtype == torch.bool:
+        data = data.to(torch.int32)
+    vals = data if data.is_floating_point() else data.to(torch.float64)
+    if ascending:
+        vals = -vals
+    n = int(data.shape[0])
+    k = min(k, n)
+    if k == 0:
+        return torch.zeros(0, dtype=torch.int64, device=data.device)
+    boundary = vals[torch.topk(vals, k).indices[-1]]
+    # every row above the boundary value, then the first rows tied with
+    # it: the rows a stable sort would put in the window
+    above = torch.nonzero(vals > boundary).flatten()
+    tied = torch.nonzero(vals == boundary).flatten()
+    need = k - int(above.shape[0])
+    if exact_ties and int(tied.shape[0]) > need:
+        return None
+    # in input order: the stable sort that follows then breaks full ties by
+    # input position, as a full stable sort would
+    return torch.sort(torch.cat([above, tied[:need]])).values

@@ -12,6 +12,7 @@ is no trace to compile: `_TraceEval` evaluates on real tensors.
 from __future__ import annotations
 
 from dataclasses import replace
+from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -28,12 +29,14 @@ from ..columnar.dtypes import (
 )
 from ..columnar.table import Table
 from ..ops import segsum as segsum_ops
+from ..ops.membership import dictionary_membership, sorted_membership
 from ..planner import plan as p
 from ..planner.expressions import (
     AggExpr,
     Cast,
     ColumnRef,
     Expr,
+    InArrayExpr,
     Literal,
     ScalarFunc,
     transform,
@@ -66,6 +69,16 @@ def torch_dtype(dt) -> torch.dtype:
 def numpy_dtype(dt: torch.dtype) -> np.dtype:
     """The numpy dtype of a torch dtype."""
     return torch.empty(0, dtype=dt).numpy().dtype
+
+
+def check_no_rle(table) -> None:
+    """Run-length-encoded columns are run-aligned, so the row-positional
+    pipelines decline them (raises _Unsupported).  The port's columns are
+    PLAIN until its encodings arrive; the guard holds the reference's
+    contract for them."""
+    for c in table.columns.values():
+        if getattr(c, "encoding", "PLAIN") == "RLE":
+            raise _Unsupported("rle-encoded column in compiled pipeline")
 
 
 def check_agg_static_support(agg_exprs):
@@ -354,25 +367,76 @@ def segment_agg_outputs(ev, slots, agg_exprs, sel, gid, domain, reducer):
     return outs
 
 
-def decode_radix_group_key(col: Column, code: np.ndarray, off,
-                           validity: Optional[np.ndarray]) -> Column:
-    """Host decode of one radix group-key column: `code` is the extracted
-    radix digit (already clamped below the NULL slot)."""
-    if col.sql_type in STRING_TYPES:
-        return Column.from_parts(code.astype(np.int32), validity,
-                                 col.dictionary, col.sql_type)
-    if col.data.dtype == torch.bool:
-        return Column.from_parts(code == 1, validity, None, col.sql_type)
-    return Column.from_parts((code + off).astype(numpy_dtype(col.data.dtype)),
-                             validity, None,
-                             col.sql_type)
+def global_row_of_nothing(host: np.ndarray, agg_exprs):
+    """SQL: a global aggregate over zero input rows still yields one row,
+    COUNT 0 and the other aggregates NULL (their count > 0 validity).
+    Returns the fetched pack and present ids of that row."""
+    host = np.zeros((host.shape[0], 1), dtype=np.float64)
+    for i, a in enumerate(agg_exprs):
+        if a.func in ("count", "count_star"):
+            host[2 + 2 * i] = 1.0  # COUNT stays valid (= 0), not NULL
+    return host, np.zeros(1, dtype=np.int64)
+
+
+def decode_radix_keys(present: np.ndarray, keys) -> List[Column]:
+    """Host decode of the group-key columns from the present mixed-radix
+    ids; `keys` holds (column, radix, offset) per key, most significant
+    first, the radix's last code standing for NULL."""
+    keys = list(keys)
+    out = []
+    stride = 1
+    for _, r, _ in keys:
+        stride *= r
+    for col, r, off in keys:
+        stride //= r
+        code = (present // stride) % r
+        is_null = code == (r - 1)
+        validity = ~is_null if bool(is_null.any()) else None
+        code = np.minimum(code, r - 2)
+        if col.sql_type in STRING_TYPES:
+            out.append(Column.from_parts(code.astype(np.int32), validity,
+                                         col.dictionary, col.sql_type))
+        elif col.data.dtype == torch.bool:
+            out.append(Column.from_parts(code == 1, validity, None,
+                                         col.sql_type))
+        else:
+            out.append(Column.from_parts(
+                (code + off).astype(numpy_dtype(col.data.dtype)), validity,
+                None, col.sql_type))
+    return out
+
+
+def decode_agg_columns(host: np.ndarray, tags, agg_exprs) -> List[Column]:
+    """Host decode of the aggregates' (value, validity) rows of a fetched
+    pack (rows 1 and 2 for the first aggregate, then on in pairs)."""
+    out = []
+    for i, a in enumerate(agg_exprs):
+        d = unpack_row(host, 1 + 2 * i, tags)
+        v = unpack_row(host, 2 + 2 * i, tags) != 0.0
+        target = sql_to_np(a.sql_type)
+        d = d.astype(target) if d.dtype != target else d
+        out.append(Column.from_parts(d, None if bool(v.all()) else v, None,
+                                     a.sql_type))
+    return out
+
+
+def group_table(agg: p.Aggregate, cols: List[Column],
+                present: np.ndarray) -> Table:
+    """The aggregate's host result: its columns under the plan's names."""
+    from .rel.base import unique_names
+
+    names = unique_names([f.name for f in agg.schema])
+    return Table(dict(zip(names, cols)), int(present.shape[0]), "cpu")
 
 
 class _TraceEval:
     """Expression evaluator over (data, valid_or_None) pairs.
 
-    String columns appear as their int32 dictionary codes.  Literals become
-    0-dim tensors on the table's device and broadcast."""
+    String columns appear as their int32 dictionary codes; a string
+    comparison against a literal is a lookup table over the column's host
+    dictionary, gathered by the codes.  Literals become 0-dim tensors on
+    the table's device and broadcast.  `table` is a Table or any object
+    with its ``columns``, ``column_names`` and ``device``."""
 
     def __init__(self, table: Table):
         self.table = table
@@ -408,13 +472,43 @@ class _TraceEval:
             if dst == SqlType.BOOLEAN:
                 return (d != 0, v)
             return (d.to(torch_dtype(sql_to_np(dst))), v)
+        if isinstance(expr, InArrayExpr):
+            return self._in_array(expr, slots)
         if isinstance(expr, ScalarFunc):
             return self._call(expr, slots)
         raise _Unsupported(f"expr {type(expr).__name__}")
 
+    def _string_source(self, expr: Expr) -> Optional[Column]:
+        if isinstance(expr, ColumnRef) and type(expr) is ColumnRef:
+            c = self.col(expr.index)
+            if c.sql_type in STRING_TYPES:
+                return c
+        return None
+
+    def _in_array(self, expr: InArrayExpr, slots):
+        src = self._string_source(expr.arg)
+        if src is not None:
+            codes, valid = slots[expr.arg.index]
+            hit = dictionary_membership(codes, src.dictionary, expr.values)
+            return (~hit if expr.negated else hit, valid)
+        ad, av = self.eval(expr.arg, slots)
+        hit = sorted_membership(ad, expr.values)
+        return (~hit if expr.negated else hit, av)
+
     def _call(self, expr: ScalarFunc, slots):
         op = expr.op
         args = expr.args
+        if op in ("eq", "ne") and len(args) == 2:
+            src = self._string_source(args[0])
+            lit = args[1]
+            if src is not None and isinstance(lit, Literal) \
+                    and isinstance(lit.value, str):
+                d = src.dictionary if src.dictionary is not None \
+                    else np.array([""], dtype=object)
+                lut = torch.from_numpy(d.astype(str) == lit.value)
+                codes, valid = slots[args[0].index]
+                hit = lut.to(codes.device)[torch.clamp(codes, 0, len(d) - 1)]
+                return (~hit if op == "ne" else hit, valid)
         vals = [self.eval(a, slots) for a in args]
         if op in _NUMERIC_BINOPS:
             (ad, av), (bd, bv) = vals
@@ -607,54 +701,48 @@ class CompiledAggregate:
 
     def _decode(self, host: np.ndarray, present: np.ndarray, tags) -> Table:
         if not self.gcols and present.shape[0] == 0:
-            # SQL: a global aggregate over zero input rows still yields one
-            # row (COUNT=0, other aggs NULL via their cnt>0 validity)
-            present = np.zeros(1, dtype=np.int64)
-            host = np.zeros((host.shape[0], 1), dtype=np.float64)
-            for i, a in enumerate(self.agg_exprs):
-                if a.func in ("count", "count_star"):
-                    host[2 + 2 * i] = 1.0  # COUNT stays valid (= 0), not NULL
-
-        from .rel.base import unique_names
-
-        names = unique_names([f.name for f in self.agg.schema])
-        out: Dict[str, Column] = {}
+            host, present = global_row_of_nothing(host, self.agg_exprs)
         # group keys decode from the radix id on the host: the result table
         # is tiny and the operators above it run there
-        strides = []
-        s = 1
-        for r in reversed(self.radices):
-            strides.append(s)
-            s *= r
-        strides = list(reversed(strides))
-        for name, col, r, off, stride in zip(names, self.gcols, self.radices,
-                                             self.offsets, strides):
-            code = (present // stride) % r
-            is_null = code == (r - 1)
-            validity = ~is_null if bool(is_null.any()) else None
-            code = np.minimum(code, r - 2)
-            out[name] = decode_radix_group_key(col, code, off, validity)
-        for i, a in enumerate(self.agg_exprs):
-            d = unpack_row(host, 1 + 2 * i, tags)
-            v = unpack_row(host, 2 + 2 * i, tags) != 0.0
-            target = sql_to_np(a.sql_type)
-            d = d.astype(target) if d.dtype != target else d
-            out[names[len(self.gcols) + i]] = Column.from_parts(
-                d, None if bool(v.all()) else v, None, a.sql_type)
-        return Table(out, int(present.shape[0]), "cpu")
+        cols = (decode_radix_keys(present, zip(self.gcols, self.radices,
+                                               self.offsets))
+                + decode_agg_columns(host, tags, self.agg_exprs))
+        return group_table(self.agg, cols, present)
+
+
+def singleflight_get_or_build(cache: "OrderedDict", key: Tuple, build):
+    """The miss protocol of the compiled-pipeline caches: look up (LRU
+    touch) or build.  ``build()`` constructs, inserts into `cache` and
+    returns the pipeline.  Returns (pipeline, built_here).  The port plans
+    and runs on one thread, so no construction waits for another."""
+    compiled = cache.get(key)
+    if compiled is not None:
+        cache.move_to_end(key)
+        return compiled, False
+    return build(), True
 
 
 def try_compiled_aggregate(rel: p.Aggregate, executor) -> Table:
     """Run an Aggregate subtree as one fused pipeline.  Raises
-    NotImplementedError, naming the reason, for a plan it does not take."""
+    NotImplementedError, naming the reason, for a plan it does not take.
+
+    A scan under filters and projections is read in place, its filters
+    deferred as a mask.  Any other input (a join that the join pipeline
+    declined) runs through the eager plugins first, and the pipeline
+    reduces the table they produce as its scan."""
+    if not executor.config.get("sql.compile", True):
+        raise NotImplementedError(
+            "sql.compile is off, and the eager aggregate is not in the port yet")
     chain = _extract_chain(rel)
     if chain is None:
-        raise NotImplementedError(
-            "aggregate input is not a scan with filters and projections")
-    scan, filters, group_exprs, agg_exprs = chain
-    table = executor.get_table(scan.schema_name, scan.table_name)
-    if scan.projection is not None:
-        table = table.select(scan.projection)
+        table = executor.execute(rel.input)
+        filters, group_exprs, agg_exprs = [], list(rel.group_exprs), \
+            list(rel.agg_exprs)
+    else:
+        scan, filters, group_exprs, agg_exprs = chain
+        table = executor.get_table(scan.schema_name, scan.table_name)
+        if scan.projection is not None:
+            table = table.select(scan.projection)
     try:
         compiled = CompiledAggregate(rel, table, filters, group_exprs,
                                      agg_exprs, executor.config)

@@ -52,4 +52,4 @@ class Executor:
 
 
 # the plugin modules register themselves with Executor on import
-from .rel.logical import aggregate, basic  # noqa: E402,F401
+from .rel.logical import aggregate, basic, join  # noqa: E402,F401

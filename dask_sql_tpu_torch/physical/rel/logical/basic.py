@@ -1,12 +1,13 @@
-"""Relational converters: scan, projection, filter and sort.
+"""Relational converters: scan, projection, filter, limit, sort and
+subquery alias.
 
-Counterpart of the TableScan, Projection, Filter and Sort plugins of
-`dask_sql_tpu/physical/rel/logical/basic.py`.
+Counterpart of the TableScan, Projection, Filter, Limit, Sort and
+SubqueryAlias plugins of `dask_sql_tpu/physical/rel/logical/basic.py`.
 """
 from __future__ import annotations
 
 from ....columnar.table import Table
-from ....ops.sorting import sort_permutation
+from ....ops.sorting import sort_permutation, topk_permutation
 from ....planner import plan as p
 from ....planner.expressions import ColumnRef
 from ...executor import Executor
@@ -65,7 +66,21 @@ class FilterPlugin(BaseRelPlugin):
 
 
 @Executor.add_plugin_class
+class LimitPlugin(BaseRelPlugin):
+    class_name = "Limit"
+
+    def convert(self, rel: p.Limit, executor) -> Table:
+        (inp,) = self.assert_inputs(rel, 1, executor)
+        start = rel.skip or 0
+        stop = inp.num_rows if rel.fetch is None else start + rel.fetch
+        return inp.slice(start, stop)
+
+
+@Executor.add_plugin_class
 class SortPlugin(BaseRelPlugin):
+    """Full stable sort, or with a fetch, top-k on the first key and then
+    the exact sort of the survivors."""
+
     class_name = "Sort"
 
     def convert(self, rel: p.Sort, executor) -> Table:
@@ -73,9 +88,30 @@ class SortPlugin(BaseRelPlugin):
         if inp.num_rows == 0:
             return inp
         cols = [executor.eval_expr(k.expr, inp) for k in rel.keys]
+        limit = executor.config.get("sql.sort.topk-nelem-limit", 1_000_000)
+        if (rel.fetch is not None and cols
+                and rel.fetch * max(len(inp.columns), 1) <= limit):
+            idx = topk_permutation(cols[0], rel.keys[0].ascending,
+                                   rel.fetch * 4, exact_ties=len(cols) > 1)
+            if idx is not None:
+                sub = inp.take(idx)
+                sub_cols = [executor.eval_expr(k.expr, sub) for k in rel.keys]
+                perm = sort_permutation(
+                    sub_cols, [k.ascending for k in rel.keys],
+                    [k.nulls_first_resolved() for k in rel.keys])
+                return sub.take(perm[: rel.fetch])
         perm = sort_permutation(
             cols, [k.ascending for k in rel.keys],
             [k.nulls_first_resolved() for k in rel.keys])
         if rel.fetch is not None:
             perm = perm[: rel.fetch]
         return inp.take(perm)
+
+
+@Executor.add_plugin_class
+class SubqueryAliasPlugin(BaseRelPlugin):
+    class_name = "SubqueryAlias"
+
+    def convert(self, rel: p.SubqueryAlias, executor) -> Table:
+        (inp,) = self.assert_inputs(rel, 1, executor)
+        return self.fix_column_to_row_type(inp, rel.schema)

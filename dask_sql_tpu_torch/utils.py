@@ -1,7 +1,8 @@
-"""Device-to-host transfer accounting (counterpart of the TRANSFER_STATS
-counter in `dask_sql_tpu/utils.py`)."""
+"""Device-to-host transfer accounting and counters (counterparts of the
+TRANSFER_STATS counter and `host_ints` in `dask_sql_tpu/utils.py`)."""
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict
 
 #: device->host transfers made through the port's own seams (the packed
@@ -14,3 +15,22 @@ TRANSFER_STATS: Dict[str, int] = {"d2h": 0}
 
 def count_d2h(n: int = 1) -> None:
     TRANSFER_STATS["d2h"] = TRANSFER_STATS.get("d2h", 0) + n
+
+
+def host_ints(*vals):
+    """Pull several device scalars to Python ints in ONE transfer."""
+    import torch
+
+    if not vals:
+        return ()
+    count_d2h()
+    return tuple(int(v) for v in torch.stack(
+        [torch.as_tensor(v).to(torch.int64) for v in vals]).cpu().tolist())
+
+
+class Metrics(Counter):
+    """Named event counters of one Context (``planner.optimize.fallback``,
+    ``query.plan_cache.hit``/``miss``, ``compiled_join.run``/``declined``)."""
+
+    def inc(self, name: str, n: int = 1) -> None:
+        self[name] += n

@@ -27,6 +27,19 @@ names = [m.name for m in pkgutil.walk_packages(dask_sql_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke, profile_q1
+# what the Q3 path imports as it runs (DPP's executor at plan time, the
+# join pipeline, the eager join) stays in the port too
+from tests.tpch import QUERIES, generate
+c = dask_sql_tpu_torch.Context(device="cpu")
+tables = generate(400)
+for t in ("customer", "orders", "lineitem"):
+    c.create_table(t, tables[t])
+c.sql(QUERIES[3]).compute()
+# repeated build keys: the pipeline declines and the eager join runs
+c.sql("SELECT COUNT(*) AS n FROM orders a JOIN orders b "
+      "ON a.o_custkey = b.o_custkey").compute()
+assert c.metrics["compiled_join.run"] == 1, dict(c.metrics)
+assert c.metrics["compiled_join.declined"] == 1, dict(c.metrics)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dask_sql_tpu"))
 assert not bad, bad
@@ -37,7 +50,7 @@ print(len(names))
 def test_port_and_chip_smoke_import_no_jax():
     out = _run(IMPORT_ALL)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20  # every module of the port imported
+    assert int(out.stdout.strip()) >= 33  # every module of the port imported
 
 
 def test_context_defaults_to_the_card(monkeypatch):

@@ -119,7 +119,7 @@ def test_string_codes_match_reference():
     ref_table = rc.schema["root"].tables["lineitem"].table
     pc = Context(device="cpu")
     pc.create_table("lineitem", df)
-    port_table = pc.schema["root"].tables["lineitem"]
+    port_table = pc.schema["root"].tables["lineitem"].table
     for name in KEYS:
         r, p = ref_table.columns[name], port_table.columns[name]
         np.testing.assert_array_equal(p.data.numpy(), np.asarray(r.data))
