@@ -6,13 +6,22 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 
 It builds every kernel of the port from ``dask_sql_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together), holds each kernel against its plain
-PyTorch version on the card, and drives three paths through
+PyTorch version on the card, and drives these paths through
 ``Context(device="cuda")``, each checked against a float64 pandas/numpy
-oracle: TPC-H Q1 at SF1 (6,000,000 synthetic ``lineitem`` rows), TPC-H Q3
-over ``tests/tpch.py generate(scale_rows=1_000_000)`` (the scale of
-``bench.py``'s Q3 line; the compiled join->aggregate pipeline, one transfer
+oracle: TPC-H Q1 at SF1 (6,000,000 synthetic ``lineitem`` rows, loaded with
+the column encodings the reference picks: DICT ``l_quantity`` and
+``l_shipdate``; the date filter on the codes, one kernel launch, one
+transfer), the same Q1 over PLAIN columns (``columnar.encoding = "off"``)
+timed beside it, ``bench.py``'s root top-k SELECT over those 6,000,000 rows
+and a select filtered on a DICT column (the compiled select: two transfers,
+phase times), TPC-H Q3 over ``tests/tpch.py
+generate(scale_rows=1_000_000)`` (the scale of ``bench.py``'s Q3 line, on
+its encoded columns; the compiled join->aggregate pipeline, one transfer
 and a plan-cache hit per warm run), and a star join of 6,000,000 fact rows
-through that pipeline into the segment-sum kernel.  It times each query
+through that pipeline into the segment-sum kernel.  For each loaded frame
+it prints the encoded columns and the card memory they take, encoded and,
+for Q1's table, loaded PLAIN, and checks every encoded column's decoded
+buffer against the host's PLAIN values exactly.  It times each query
 cold and warm, Q1's planning cold and from the plan cache, and the kernel,
 its plain version and the PyTorch library call that computes the same
 function, at the typed shape Q1 gives the kernel and at the ``[k, n]``
@@ -66,6 +75,12 @@ STAR_QUERY = ("SELECT d1_cat, SUM(f_val) AS s, COUNT(*) AS n "
               "WHERE d2_region = 'r2' AND f_qty > 3 "
               "GROUP BY d1_cat ORDER BY d1_cat")
 WARM_RUNS = 5
+SELECT_QUERY = ("SELECT l_returnflag, l_extendedprice * (1 - l_discount) AS rev "
+                "FROM lineitem WHERE l_discount > 0.09 "
+                "ORDER BY rev DESC LIMIT 100")  # bench.py's root select line
+DICT_SELECT_QUERY = ("SELECT l_shipdate, l_quantity, l_extendedprice "
+                     "FROM lineitem WHERE l_quantity < 10 "
+                     "ORDER BY l_extendedprice DESC LIMIT 100")
 
 #: device memory rate by card name (NVIDIA data sheets), bytes/s
 _MEMORY_RATE = [("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12),
@@ -130,6 +145,25 @@ def q3_oracle(tables):
                 "o_shippriority"]].reset_index(drop=True)
 
 
+def select_oracle(df):
+    """bench.py's root select in float64 pandas: the top 100 by revenue,
+    ties in input order."""
+    disc = df.l_discount.to_numpy()
+    sel = df[disc > np.float32(0.09)]
+    rev = sel.l_extendedprice.to_numpy(np.float64) * (
+        1 - sel.l_discount.to_numpy(np.float64))
+    order = np.argsort(-rev, kind="stable")[:100]
+    return sel.l_returnflag.to_numpy()[order], rev[order]
+
+
+def dict_select_oracle(df):
+    """The DICT-filtered select in pandas: the top 100 by price."""
+    sel = df[df.l_quantity.to_numpy() < np.float32(10)]
+    price = sel.l_extendedprice.to_numpy()
+    order = np.argsort(-price.astype(np.float64), kind="stable")[:100]
+    return sel.iloc[order].reset_index(drop=True)
+
+
 def gen_star(n: int, seed: int = 3):
     """The star schema of tests/integration/test_compiled_join.py, with n
     fact rows."""
@@ -168,6 +202,120 @@ def max_rel(got, want) -> float:
     if not np.all(np.isfinite(g)):
         fail("a result is not finite")
     return float(np.max(np.abs(g - w) / np.abs(w))) if len(w) else 0.0
+
+
+def load_tables(frames, options=None):
+    """(Context on the card with `frames` registered, card memory the
+    tables took in bytes, seconds)."""
+    from dask_sql_tpu_torch import Context
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    c = Context(device="cuda")
+    c.config.update(options or {})
+    for name, frame in frames.items():
+        c.create_table(name, frame)
+    torch.cuda.synchronize()
+    return c, torch.cuda.memory_allocated() - before, time.perf_counter() - t0
+
+
+def check_encodings(c, frames, label, hbm_bytes, plain_hbm_bytes=None):
+    """The `encodings` phase: each table's encoded columns, and each one's
+    decoded buffer on the card against the host's PLAIN values, exactly."""
+    from dask_sql_tpu_torch.columnar.encodings import Encoding
+    from dask_sql_tpu_torch.columnar.table import Table
+
+    encoded = {}
+    for name, frame in frames.items():
+        table = c.schema["root"].tables[name].table
+        cols = {}
+        for cname, col in table.columns.items():
+            if col.encoding is Encoding.PLAIN:
+                continue
+            host = Table.from_pandas(frame[[cname]], "cpu",
+                                     encode=False).columns[cname]
+            dec = col.decode()
+            valid = host.valid_mask().numpy()
+            got_valid = dec.valid_mask().cpu().numpy()
+            got = dec.data.cpu().numpy()
+            if got.dtype != host.data.numpy().dtype \
+                    or not np.array_equal(got_valid, valid) \
+                    or not np.array_equal(got[valid], host.data.numpy()[valid]):
+                fail(f"{name}.{cname}: the decoded {col.encoding} column "
+                     "differs from the PLAIN values")
+            cols[cname] = f"{col.encoding.value} {str(col.data.dtype)[6:]}"
+        encoded[name] = cols
+    observed = c.metrics.observed
+    phase("encodings", frame=label, columns=encoded,
+          encoded_columns=c.metrics["columnar.encoding.encoded_columns"],
+          hbm_bytes=hbm_bytes, plain_hbm_bytes=plain_hbm_bytes,
+          encoded_bytes=sum(observed.get("columnar.encoding.encoded_bytes", [])),
+          decoded_bytes=sum(observed.get("columnar.encoding.decoded_bytes", [])),
+          decoded_equal_plain=True)
+
+
+def check_counters(c, label, **want) -> None:
+    """``columnar.encoding.<name>`` counters of `c` against `want`."""
+    got = {k: c.metrics[f"columnar.encoding.{k}"] for k in want}
+    if got != want:
+        fail(f"{label}: encoding counters {got}, expected {want}")
+
+
+def check_q1(got, want, label) -> float:
+    """Q1's result against its oracle; returns the largest relative error."""
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        fail(f"{label} result shape {got.shape} / columns {list(got.columns)}")
+    for key in KEYS:
+        if got[key].tolist() != want[key].tolist():
+            fail(f"{label} group keys differ in {key}")
+    if got["count_order"].tolist() != want["count_order"].tolist():
+        fail(f"{label} counts differ from the oracle")
+    rel = 0.0
+    for name in want.columns[2:-1]:
+        g = got[name].to_numpy(np.float64)
+        w = want[name].to_numpy(np.float64)
+        if not np.all(np.isfinite(g)):
+            fail(f"{label} {name} is not finite")
+        rel = max(rel, float(np.max(np.abs(g - w) / np.abs(w))))
+    if not rel <= REL_BOUND:
+        fail(f"{label} relative error {rel} > {REL_BOUND}")
+    return rel
+
+
+def run_select(c, sql, transfers, check, label):
+    """A root select: a cold run, then WARM_RUNS warm runs with their phase
+    times, each on the compiled select rung with two transfers (one when
+    nothing survives) and checked by `check(result)`.  Returns
+    (cold ms, warm ms list, per-phase median ms)."""
+    from dask_sql_tpu_torch.physical import compiled_select
+
+    def one(times=None):
+        rung = c.metrics["resilience.rung.compiled_select"]
+        transfers["d2h"] = 0
+        t0 = time.perf_counter()
+        got = c.sql(sql).compute()
+        ms = (time.perf_counter() - t0) * 1e3
+        if c.metrics["resilience.rung.compiled_select"] != rung + 1:
+            fail(f"{label} did not answer on the compiled select rung")
+        if transfers["d2h"] != 2:
+            fail(f"{label} made {transfers['d2h']} transfers, expected 2")
+        check(got)
+        return ms
+
+    cold_ms = one()
+    runs = [one() for _ in range(WARM_RUNS)]
+    # the phases of the same pipeline on the same table, the card
+    # synchronized between them
+    pipe = next(reversed(compiled_select._cache.values()))
+    table = c.schema["root"].tables["lineitem"].table
+    laps = []
+    for _ in range(WARM_RUNS):
+        times = {}
+        pipe.run(table.select(pipe.scan_names), times)
+        laps.append(times)
+    phases = {k: float(np.median([t[k] for t in laps])) for k in laps[0]}
+    return cold_ms, runs, phases
 
 
 def reset_launches(segsum) -> None:
@@ -426,15 +574,15 @@ def main() -> int:
     phase("segsum_check", case="max_domain", domain=segsum.KERNEL_MAX_DOMAIN)
     del g_, c_
 
-    # 4. Q1 at SF1 through the port's entry points, on the card (each path
-    # runs with the launch counts set to 0 just before it)
+    # 4. Q1 at SF1 through the port's entry points, on the card, over the
+    # columns the reference loads (each path runs with the launch counts
+    # set to 0 just before it)
     t0 = time.perf_counter()
     df = gen_lineitem(N_ROWS)
     want = q1_oracle(df)
-    c = Context(device="cuda")
-    c.create_table("lineitem", df)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
+    gen_s = time.perf_counter() - t0
+    c, q1_hbm, load_s = load_tables({"lineitem": df})
+    setup_s = gen_s + load_s
     reset_launches(segsum)
     TRANSFER_STATS["d2h"] = 0
     t0 = time.perf_counter()
@@ -446,24 +594,13 @@ def main() -> int:
         fail(f"Q1 launched the segsum kernel {launches} times, expected once")
     if d2h != 1:
         fail(f"Q1 made {d2h} device-to-host transfers, expected 1")
-    if list(got.columns) != list(want.columns) or len(got) != len(want):
-        fail(f"Q1 result shape {got.shape} / columns {list(got.columns)}")
-    for key in KEYS:
-        if got[key].tolist() != want[key].tolist():
-            fail(f"Q1 group keys differ in {key}")
-    if got["count_order"].tolist() != want["count_order"].tolist():
-        fail("Q1 counts differ from the oracle")
-    q1_rel = 0.0
-    for name in want.columns[2:-1]:
-        g = got[name].to_numpy(np.float64)
-        w = want[name].to_numpy(np.float64)
-        if not np.all(np.isfinite(g)):
-            fail(f"Q1 {name} is not finite")
-        q1_rel = max(q1_rel, float(np.max(np.abs(g - w) / np.abs(w))))
-    if not q1_rel <= REL_BOUND:
-        fail(f"Q1 relative error {q1_rel} > {REL_BOUND}")
+    q1_rel = check_q1(got, want, "Q1")
+    # the reference's counts on these frames: the date filter on the codes,
+    # the 6 group rows decoded on the host, 2 encoded columns
+    check_counters(c, "Q1", encoded_columns=2, codespace_pred=1, late_rows=6)
     phase("q1_sf1", rows=N_ROWS, groups=len(got), setup_s=setup_s,
-          first_ms=first_ms, launches=launches, d2h=d2h, max_rel_err=q1_rel)
+          load_s=load_s, first_ms=first_ms, launches=launches, d2h=d2h,
+          max_rel_err=q1_rel, codespace_pred=1, late_rows=6)
 
     # 5. times, beside the card's name and power limit
     runs = []
@@ -490,20 +627,97 @@ def main() -> int:
     phase("plan", card=card, query="q1", cold_ms=float(np.median(cold_plan)),
           warm_ms=float(np.median(warm_plan)), cold_runs_ms=cold_plan,
           warm_runs_ms=warm_plan)
+
+    # 7. the same Q1 over PLAIN columns, timed beside the encoded one in
+    # turns (encoded, plain, ...)
+    cp, plain_hbm, plain_load_s = load_tables(
+        {"lineitem": df}, {"columnar.encoding": "off"})
+    if cp.schema["root"].tables["lineitem"].table.has_encoded_columns():
+        fail("columnar.encoding = off loaded an encoded column")
+    reset_launches(segsum)
+    TRANSFER_STATS["d2h"] = 0
+    plain_rel = check_q1(cp.sql(QUERY).compute(), want, "Q1 on PLAIN columns")
+    plain_launches = dict(segsum.LAUNCHES)
+    if plain_launches["segsum"] != 1 or TRANSFER_STATS["d2h"] != 1:
+        fail(f"Q1 on PLAIN columns: {plain_launches} launches, "
+             f"{TRANSFER_STATS['d2h']} transfers")
+    enc_runs, plain_runs = [], []
+    for _ in range(WARM_RUNS):
+        for ctx, runs_ in ((c, enc_runs), (cp, plain_runs)):
+            t0 = time.perf_counter()
+            ctx.sql(QUERY).compute()
+            runs_.append((time.perf_counter() - t0) * 1e3)
+    phase("q1_plain", card=card, rows=N_ROWS, load_s=plain_load_s,
+          launches=plain_launches, max_rel_err=plain_rel,
+          ms=float(np.median(plain_runs)), runs_ms=plain_runs,
+          encoded_ms=float(np.median(enc_runs)), encoded_runs_ms=enc_runs)
+    check_encodings(c, {"lineitem": df}, "q1_lineitem", q1_hbm, plain_hbm)
+    del cp
+
+    # 8. bench.py's root top-k select over the same 6M encoded rows, and a
+    # select filtered on a DICT column
+    flags_want, rev_want = select_oracle(df)
+    sel_rel = [0.0]
+
+    def check_select(got):
+        if list(got.columns) != ["l_returnflag", "rev"] or len(got) != 100:
+            fail(f"select result shape {got.shape} / {list(got.columns)}")
+        if got["l_returnflag"].tolist() != flags_want.tolist():
+            fail("select rows or their order differ from the oracle")
+        sel_rel[0] = max(sel_rel[0], max_rel(got["rev"], rev_want))
+        if not sel_rel[0] <= REL_BOUND:
+            fail(f"select relative error {sel_rel[0]} > {REL_BOUND}")
+
+    reset_launches(segsum)
+    sel_cold, sel_runs, sel_phases = run_select(
+        c, SELECT_QUERY, TRANSFER_STATS, check_select, "select")
+    survivors = int((df.l_discount.to_numpy() > np.float32(0.09)).sum())
+    phase("select", card=card, rows=N_ROWS, survivors=survivors,
+          bucket=1 << (survivors - 1).bit_length(), cold_ms=sel_cold,
+          ms=float(np.median(sel_runs)), runs_ms=sel_runs,
+          rows_per_s=N_ROWS / (float(np.median(sel_runs)) / 1e3),
+          phases_ms=sel_phases, d2h=2, launches=dict(segsum.LAUNCHES),
+          max_rel_err=sel_rel[0])
+
+    dict_want = dict_select_oracle(df)
+    pred_before = c.metrics["columnar.encoding.codespace_pred"]
+
+    def check_dict_select(got):
+        if len(got) != 100:
+            fail(f"DICT select gave {len(got)} rows")
+        for name in ("l_shipdate", "l_quantity"):
+            if got[name].tolist() != dict_want[name].tolist():
+                fail(f"DICT select {name} differs from the oracle")
+        if got["l_extendedprice"].tolist() != dict_want["l_extendedprice"].tolist():
+            fail("DICT select prices differ from the oracle")
+
+    late_before = c.metrics["columnar.encoding.late_rows"]
+    dsel_cold, dsel_runs, dsel_phases = run_select(
+        c, DICT_SELECT_QUERY, TRANSFER_STATS, check_dict_select, "DICT select")
+    if c.metrics["columnar.encoding.codespace_pred"] != pred_before + 1:
+        fail("the DICT select's filter did not run on the codes")
+    late = c.metrics["columnar.encoding.late_rows"] - late_before
+    if late != 100 * (1 + WARM_RUNS):
+        fail(f"the DICT select decoded {late} rows late")
+    dsurv = int((df.l_quantity.to_numpy() < np.float32(10)).sum())
+    phase("select_dict", card=card, rows=N_ROWS, survivors=dsurv,
+          bucket=1 << (dsurv - 1).bit_length(), cold_ms=dsel_cold,
+          ms=float(np.median(dsel_runs)), runs_ms=dsel_runs,
+          phases_ms=dsel_phases, d2h=2, codespace_pred=1,
+          late_rows_per_query=100)
     del c, df, got
 
-    # 7. TPC-H Q3 through the compiled join->aggregate pipeline
+    # 9. TPC-H Q3 through the compiled join->aggregate pipeline, over the
+    # encoded columns
     from dask_sql_tpu_torch.physical import compiled_join
     from tests.tpch import QUERIES, generate
 
     t0 = time.perf_counter()
     tables = generate(scale_rows=Q3_ROWS, seed=7)
     tables = {n: tables[n] for n in ("customer", "orders", "lineitem")}
-    c3 = Context(device="cuda")
-    for name, frame in tables.items():
-        c3.create_table(name, frame)
-    torch.cuda.synchronize()
+    c3, q3_hbm, q3_load_s = load_tables(tables)
     q3_setup_s = time.perf_counter() - t0
+    check_encodings(c3, tables, "q3_tables", q3_hbm)
     q3_want = q3_oracle(tables)
     q3_rel = [0.0]
 
@@ -525,6 +739,12 @@ def main() -> int:
     q3_cold_ms = (time.perf_counter() - t0) * 1e3
     q3_cold_d2h = TRANSFER_STATS["d2h"]
     check_q3(got)
+    # the probe side's shipdate filter runs on its DICT codes (the
+    # reference counts 1 on these frames: l_orderkey is FOR at this scale)
+    if c3.metrics["columnar.encoding.codespace_pred"] != 1:
+        fail(f"Q3 code-space predicates "
+             f"{c3.metrics['columnar.encoding.codespace_pred']}, expected 1")
+    q3_late = c3.metrics["columnar.encoding.late_rows"]
     q3_runs = warm_runs(c3, QUERIES[3], TRANSFER_STATS, check_q3)
     q3_launches = dict(segsum.LAUNCHES)
     if c3.metrics["compiled_join.run"] != 1 + WARM_RUNS:
@@ -540,10 +760,13 @@ def main() -> int:
           join_pipeline_runs=c3.metrics["compiled_join.run"],
           gid="pointer" if pipe.gid_join is not None else "radix",
           group_domain=pipe.domain, segsum_mode=pipe.segsum_mode,
-          launches=q3_launches, max_rel_err=q3_rel[0])
+          launches=q3_launches, max_rel_err=q3_rel[0],
+          codespace_pred=c3.metrics["columnar.encoding.codespace_pred"],
+          late_rows_per_query=q3_late,
+          scan_decodes=c3.metrics["columnar.encoding.decode"])
     del c3, tables, got
 
-    # 8. a star join through the pipeline into the segment-sum kernel
+    # 10. a star join through the pipeline into the segment-sum kernel
     t0 = time.perf_counter()
     star = gen_star(STAR_ROWS)
     cs = Context(device="cuda")
@@ -652,6 +875,7 @@ def main() -> int:
         "replaces": "dask_sql_tpu/ops/pallas_kernels.py:99",
         "launches": launches["segsum"],
         "launches_by_path": {"q1_sf1": launches["segsum"],
+                             "q1_plain": plain_launches["segsum"],
                              "q3": q3_launches["segsum"],
                              "join_star": star_launches["segsum"]},
         "max_abs_err": max(typed_err, star_err),

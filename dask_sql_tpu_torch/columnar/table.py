@@ -1,6 +1,6 @@
 """Columnar table of the PyTorch port: named Columns on one explicit device.
 
-Counterpart of `dask_sql_tpu/columnar/table.py` for unpadded, PLAIN tables.
+Counterpart of `dask_sql_tpu/columnar/table.py` for unpadded tables.
 """
 from __future__ import annotations
 
@@ -42,9 +42,11 @@ class Table:
 
     # -- construction -------------------------------------------------------
     @staticmethod
-    def from_pandas(df, device="cpu") -> "Table":
-        """Same dtype rules as the reference's pandas ingest
-        (`Table.from_pandas` there, minus the load-time encodings)."""
+    def from_pandas(df, device="cpu", encode=None) -> "Table":
+        """Same dtype rules as the reference's pandas ingest.  ``encode``:
+        load-time compressed encodings (columnar/encodings.py): None
+        consults the registration load scope and its config, True runs the
+        heuristics anyway, False stays dense."""
         cols = {}
         for name in df.columns:
             ser = df[name]
@@ -55,8 +57,15 @@ class Table:
                     or values.dtype.kind not in ("O", "U", "S", "M", "m", "f",
                                                  "i", "u", "b"):
                 values = ser.astype(object).to_numpy()
-            cols[str(name)] = Column.from_numpy(values, mask, device=device)
+            cols[str(name)] = Column.from_numpy(values, mask, device=device,
+                                                encode=encode)
         return Table(cols, len(df), device)
+
+    @staticmethod
+    def from_arrow(arrow_table, device="cpu") -> "Table":
+        from . import interop
+
+        return interop.arrow_to_table(arrow_table, device)
 
     @staticmethod
     def from_numpy_columns(columns: Dict[str, Tuple[np.ndarray, Optional[np.ndarray],
@@ -82,6 +91,20 @@ class Table:
     def __len__(self) -> int:
         return self._num_rows
 
+    def decode(self) -> "Table":
+        """Every encoded column as PLAIN (the eager operators' view);
+        identity when nothing is encoded."""
+        if not self.has_encoded_columns():
+            return self
+        return Table({n: c.decode() for n, c in self.columns.items()},
+                     self._num_rows, self.device)
+
+    def has_encoded_columns(self) -> bool:
+        from .encodings import Encoding
+
+        return any(c.encoding is not Encoding.PLAIN
+                   for c in self.columns.values())
+
     # -- transformations (all return new Tables) ----------------------------
     def select(self, names: Sequence[str]) -> "Table":
         return Table({n: self.columns[n] for n in names}, self._num_rows,
@@ -95,22 +118,58 @@ class Table:
     def slice(self, start: int, stop: int) -> "Table":
         stop = min(stop, self._num_rows)
         start = min(start, stop)
-        cols = {}
-        for n, c in self.columns.items():
-            v = None if c.validity is None else c.validity[start:stop]
-            cols[n] = Column(c.data[start:stop], c.sql_type, v, c.dictionary)
-        return Table(cols, stop - start, self.device)
+        return Table({n: c.slice(start, stop) for n, c in self.columns.items()},
+                     stop - start, self.device)
 
     def filter(self, mask: torch.Tensor) -> "Table":
+        # one nonzero for the whole table, then a gather per column
         return self.take(torch.nonzero(mask).flatten())
 
     # -- host materialization ----------------------------------------------
     def to_pandas(self):
         import pandas as pd
 
-        if not self.columns:
+        data = self._host_columns()
+        if not data:
             return pd.DataFrame(index=range(self._num_rows))
-        return pd.DataFrame({n: c.to_numpy() for n, c in self.columns.items()})
+        return pd.DataFrame(data)
+
+    def _host_columns(self, packed: Optional[bool] = None):
+        """{name: numpy} with NULLs decoded.  On an accelerator (or with
+        ``packed=True``) every buffer rides ONE packed transfer
+        (`columnar/pack.py`): encoded columns cross as their codes and
+        decode on the host.  On the CPU each column converts in place."""
+        cols = self.columns
+        if packed is None:
+            packed = self.device.type != "cpu"
+        if not cols or self._num_rows == 0 or not packed:
+            return {n: c.to_numpy() for n, c in cols.items()}
+        from .pack import packed_host_arrays
+
+        bufs = []
+        for c in cols.values():
+            bufs.append(c.data)
+            if c.validity is not None:
+                bufs.append(c.validity)
+        host = packed_host_arrays(bufs)
+        if host is None:
+            return {n: c.to_numpy() for n, c in cols.items()}
+        out = {}
+        i = 0
+        for n, c in cols.items():
+            data = host[i]
+            i += 1
+            mask = None
+            if c.validity is not None:
+                mask = ~host[i]
+                i += 1
+            out[n] = c.decode_host(data, mask)
+        return out
+
+    def to_arrow(self):
+        from . import interop
+
+        return interop.table_to_arrow(self)
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{n}:{c.sql_type.value}" for n, c in self.columns.items())

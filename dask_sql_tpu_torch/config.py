@@ -26,6 +26,13 @@ DEFAULTS: Dict[str, Any] = {
     # segment-sum mode: auto | scatter | matmul | pallas (the last two pick
     # the hand-written kernel, ops/segsum.py choose_segsum_impl)
     "sql.compile.segsum": "auto",
+    # load-time column encodings (columnar/encodings.py): auto | off
+    "columnar.encoding": "auto",
+    "columnar.encoding.min_rows": 1024,
+    "columnar.encoding.dict": True,
+    "columnar.encoding.for": True,
+    "columnar.encoding.rle": True,
+    "columnar.encoding.dict_max_card": 1 << 15,
 }
 
 

@@ -21,7 +21,7 @@ import torch
 from .columnar.dtypes import SqlType
 from .columnar.table import Table, normalize_device
 from .config import Config
-from .datacontainer import DataContainer, SchemaContainer, to_table
+from .datacontainer import SchemaContainer
 from .planner import plan as plan_nodes
 from .planner.binder import Binder
 from .planner.catalog import Catalog, CatalogTable, Statistics
@@ -65,7 +65,7 @@ class TorchFrame:
             from .physical.executor import Executor
 
             with self._context.config.set(self._config_options):
-                self._result = Executor(self._context).execute(self._plan)
+                self._result = Executor(self._context).execute_root(self._plan)
         return self._result
 
     def compute(self):
@@ -104,12 +104,31 @@ class Context:
 
     def create_table(self, table_name: str, input_table: Any,
                      schema_name: Optional[str] = None) -> None:
-        """Register a pandas frame (or a port Table on this device)."""
+        """Register a pandas frame, an Arrow table, a dict of columns or a
+        port Table on this device (`input_utils`).  Loading picks each
+        column's compressed encoding (``columnar.encoding*`` keys); the
+        encoded columns are counted in
+        ``metrics["columnar.encoding.encoded_columns"]`` and the resident
+        bytes, encoded and as they would be decoded, recorded under
+        ``columnar.encoding.encoded_bytes`` / ``decoded_bytes``."""
+        from .input_utils import InputUtil
+
         schema_name = schema_name or self.schema_name
         if schema_name not in self.schema:
             raise KeyError(f"Schema {schema_name} not found")
-        self.schema[schema_name].tables[table_name] = DataContainer(
-            to_table(input_table, self.device))
+        dc = InputUtil.to_dc(input_table, table_name, self.device,
+                             config=self.config)
+        self.schema[schema_name].tables[table_name] = dc
+        table = dc.table
+        if table.has_encoded_columns():
+            from .columnar.encodings import Encoding, scan_bytes
+
+            n_enc = sum(1 for c in table.columns.values()
+                        if c.encoding is not Encoding.PLAIN)
+            enc_b, dec_b = scan_bytes(table)
+            self.metrics.inc("columnar.encoding.encoded_columns", n_enc)
+            self.metrics.observe("columnar.encoding.encoded_bytes", enc_b)
+            self.metrics.observe("columnar.encoding.decoded_bytes", dec_b)
 
     def sql(self, sql: str, return_futures: bool = True,
             config_options: Optional[Dict[str, Any]] = None):

@@ -44,7 +44,7 @@ def _key_data(col: Column, target) -> torch.Tensor:
     if col.sql_type == target or (col.sql_type in DATETIME_TYPES
                                   and target in DATETIME_TYPES):
         return col.data
-    from ..physical.compiled import torch_dtype
+    from ..columnar.column import torch_dtype
 
     return col.data.to(torch_dtype(sql_to_np(target)))
 

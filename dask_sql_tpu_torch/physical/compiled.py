@@ -1,16 +1,23 @@
 """Fused scan->aggregate pipeline of the PyTorch port.
 
 Counterpart of the `compiled_aggregate` rung of
-`dask_sql_tpu/physical/compiled.py`, for PLAIN columns: a
+`dask_sql_tpu/physical/compiled.py`: a
 `TableScan -> [Filter/Projection]* -> Aggregate` subtree runs as one pass of
 tensor operations on the table's device.  Selection is deferred as in the
 reference: the filter never compacts rows, its mask is ANDed into every
 aggregate's validity, and only the tiny group table reaches the host, in
 ONE transfer of one packed float64 matrix.  PyTorch runs eagerly, so there
 is no trace to compile: `_TraceEval` evaluates on real tensors.
+
+Encoded columns (columnar/encodings.py) are read as codes: a comparison of
+a DICT column with a literal runs in code space (`_encoded_compare`), a
+DICT or FOR column decodes where an expression reads its values
+(`_decode_slot`), DICT group keys take their codes as radix digits, and
+only the group table's rows decode, on the host.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import replace
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -18,7 +25,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..columnar.column import Column
+from ..columnar.column import Column, numpy_dtype, torch_dtype
 from ..columnar.dtypes import (
     DATETIME_TYPES,
     FLOAT_TYPES,
@@ -26,6 +33,14 @@ from ..columnar.dtypes import (
     STRING_TYPES,
     SqlType,
     sql_to_np,
+)
+from ..columnar.encodings import (
+    FLIP_CMP,
+    Encoding,
+    decode_for,
+    dict_literal_bounds,
+    dict_lut,
+    gather_codes,
 )
 from ..columnar.table import Table
 from ..ops import segsum as segsum_ops
@@ -42,6 +57,8 @@ from ..planner.expressions import (
     transform,
     walk,
 )
+
+logger = logging.getLogger(__name__)
 
 _SUPPORTED_AGGS = {"sum", "count", "avg", "min", "max", "count_star",
                    "var_samp", "var_pop", "stddev_samp", "stddev_pop"}
@@ -61,24 +78,55 @@ class _Unsupported(Exception):
     pass
 
 
-def torch_dtype(dt) -> torch.dtype:
-    """The torch dtype of a numpy dtype."""
-    return torch.from_numpy(np.empty(0, dtype=np.dtype(dt))).dtype
-
-
-def numpy_dtype(dt: torch.dtype) -> np.dtype:
-    """The numpy dtype of a torch dtype."""
-    return torch.empty(0, dtype=dt).numpy().dtype
+class _RunAligned(_Unsupported):
+    """A run-length-encoded column reached a row-positional pipeline."""
 
 
 def check_no_rle(table) -> None:
-    """Run-length-encoded columns are run-aligned, so the row-positional
-    pipelines decline them (raises _Unsupported).  The port's columns are
-    PLAIN until its encodings arrive; the guard holds the reference's
-    contract for them."""
+    """Run-length-encoded columns are run-aligned (storage at rest), so the
+    row-positional pipelines decline them and the eager scan decodes them
+    once (raises _Unsupported)."""
     for c in table.columns.values():
-        if getattr(c, "encoding", "PLAIN") == "RLE":
-            raise _Unsupported("rle-encoded column in compiled pipeline")
+        if c.encoding is Encoding.RLE:
+            raise _RunAligned("rle-encoded column in compiled pipeline")
+
+
+def has_encoded(table) -> bool:
+    """Any column of `table` stored encoded (the late-materialization and
+    code-space counters apply)."""
+    return any(c.encoding is not Encoding.PLAIN
+               for c in table.columns.values())
+
+
+def count_codespace_predicates(exprs, table) -> int:
+    """Predicates a pipeline over `table` evaluates in CODE space (a
+    comparison or IN against a raw DICT-column ref): the
+    ``columnar.encoding.codespace_pred`` count, taken from the plan."""
+    ev = _TraceEval(table)
+    n = 0
+    for e in exprs:
+        if e is None:
+            continue
+        for sub in walk(e):
+            if isinstance(sub, ScalarFunc) and sub.op in (
+                    "eq", "ne", "lt", "le", "gt", "ge") \
+                    and len(sub.args) == 2:
+                a, b = sub.args
+                for colarg, litarg in ((a, b), (b, a)):
+                    try:
+                        c = ev._dict_source(colarg)
+                    except (IndexError, KeyError):
+                        c = None
+                    if c is not None and isinstance(litarg, Literal):
+                        n += 1
+                        break
+            elif isinstance(sub, InArrayExpr):
+                try:
+                    if ev._dict_source(sub.arg) is not None:
+                        n += 1
+                except (IndexError, KeyError):
+                    pass
+    return n
 
 
 def check_agg_static_support(agg_exprs):
@@ -378,6 +426,30 @@ def global_row_of_nothing(host: np.ndarray, agg_exprs):
     return host, np.zeros(1, dtype=np.int64)
 
 
+def decode_radix_group_key(col, code: np.ndarray, off,
+                           validity) -> Column:
+    """Host decode of one radix group-key column (shared by the scan- and
+    join-aggregate pipelines): `code` is the extracted radix digit, clamped
+    below the NULL slot, `col` the key's column or `_ColMeta`.  Encoded
+    keys map codes back through their dictionary or affine."""
+    if col.sql_type in STRING_TYPES:
+        return Column.from_parts(code.astype(np.int32), validity,
+                                 col.dictionary, col.sql_type)
+    enc = col.encoding
+    if enc is Encoding.DICT:
+        vals = col.enc_values[np.minimum(code, len(col.enc_values) - 1)]
+        return Column.from_parts(vals, validity, None, col.sql_type)
+    if col.data.dtype == torch.bool:
+        return Column.from_parts(code == 1, validity, None, col.sql_type)
+    raw = code + off
+    if enc is Encoding.FOR:
+        vals = (raw.astype(np.int64) * col.enc_scale + col.enc_ref).astype(
+            sql_to_np(col.sql_type))
+        return Column.from_parts(vals, validity, None, col.sql_type)
+    return Column.from_parts(raw.astype(numpy_dtype(col.data.dtype)),
+                             validity, None, col.sql_type)
+
+
 def decode_radix_keys(present: np.ndarray, keys) -> List[Column]:
     """Host decode of the group-key columns from the present mixed-radix
     ids; `keys` holds (column, radix, offset) per key, most significant
@@ -393,16 +465,7 @@ def decode_radix_keys(present: np.ndarray, keys) -> List[Column]:
         is_null = code == (r - 1)
         validity = ~is_null if bool(is_null.any()) else None
         code = np.minimum(code, r - 2)
-        if col.sql_type in STRING_TYPES:
-            out.append(Column.from_parts(code.astype(np.int32), validity,
-                                         col.dictionary, col.sql_type))
-        elif col.data.dtype == torch.bool:
-            out.append(Column.from_parts(code == 1, validity, None,
-                                         col.sql_type))
-        else:
-            out.append(Column.from_parts(
-                (code + off).astype(numpy_dtype(col.data.dtype)), validity,
-                None, col.sql_type))
+        out.append(decode_radix_group_key(col, code, off, validity))
     return out
 
 
@@ -429,26 +492,66 @@ def group_table(agg: p.Aggregate, cols: List[Column],
     return Table(dict(zip(names, cols)), int(present.shape[0]), "cpu")
 
 
+class _ColMeta:
+    """A column's type, string dictionary, dtype and encoding metadata,
+    without its device buffers: a cached pipeline must not pin the tables
+    it was built on."""
+
+    __slots__ = ("sql_type", "dictionary", "data", "_len", "encoding",
+                 "enc_values", "enc_ref", "enc_scale")
+
+    def __init__(self, col: Column):
+        self.sql_type = col.sql_type
+        self.dictionary = col.dictionary
+        self.data = torch.empty(0, dtype=col.data.dtype)
+        self._len = len(col)
+        self.encoding = col.encoding
+        self.enc_values = col.enc_values
+        self.enc_ref = col.enc_ref
+        self.enc_scale = col.enc_scale
+
+    def __len__(self):
+        return self._len
+
+
+class _TableMeta:
+    """Column-metadata view of a Table (or of a pipeline's slot space), the
+    evaluator's table in a cached pipeline."""
+
+    def __init__(self, table=None, device=None, columns=None, names=None):
+        if table is not None:
+            names = list(table.column_names)
+            columns = [_ColMeta(table.columns[n]) for n in names]
+            device = table.device
+        self.column_names = list(names)
+        self.columns = dict(zip(self.column_names, columns))
+        self.device = device
+
+
 class _TraceEval:
     """Expression evaluator over (data, valid_or_None) pairs.
 
     String columns appear as their int32 dictionary codes; a string
     comparison against a literal is a lookup table over the column's host
-    dictionary, gathered by the codes.  Literals become 0-dim tensors on
-    the table's device and broadcast.  `table` is a Table or any object
-    with its ``columns``, ``column_names`` and ``device``."""
+    dictionary, gathered by the codes.  DICT and FOR columns appear as
+    their codes: a comparison or IN of a DICT column against literals runs
+    on the codes, and any other read decodes (`_decode_slot`).  Literals
+    become 0-dim tensors on the table's device and broadcast.  `table` is
+    a Table or a `_TableMeta`."""
 
-    def __init__(self, table: Table):
+    def __init__(self, table):
         self.table = table
         self.names = table.column_names
         self.device = table.device
+        #: DICT value arrays on the device, by slot (kept with the pipeline)
+        self._luts: Dict[int, torch.Tensor] = {}
 
     def col(self, index: int) -> Column:
         return self.table.columns[self.names[index]]
 
     def eval(self, expr: Expr, slots):
         if isinstance(expr, ColumnRef) and type(expr) is ColumnRef:
-            return slots[expr.index]
+            return self._decode_slot(expr.index, slots)
         if isinstance(expr, Literal):
             if expr.value is None:
                 return (torch.zeros((), dtype=torch.float64, device=self.device),
@@ -478,6 +581,114 @@ class _TraceEval:
             return self._call(expr, slots)
         raise _Unsupported(f"expr {type(expr).__name__}")
 
+    # -- compressed-domain column access ------------------------------------
+    def _decode_slot(self, index: int, slots):
+        """A slot's VALUES: DICT gathers through its (tiny) value table, FOR
+        applies its affine; the read was the narrow code array.  PLAIN and
+        string codes (their dictionary is the representation) pass
+        through.  A decoded slot is kept in `slots` for the run."""
+        d, v = slots[index]
+        c = self.col(index)
+        enc = c.encoding
+        if enc is Encoding.PLAIN or c.sql_type in STRING_TYPES:
+            return (d, v)
+        key = ("decoded", index)
+        got = slots.get(key)
+        if got is not None:
+            return got
+        if enc is Encoding.DICT:
+            lut = self._luts.get(index)
+            if lut is None or lut.device != d.device:
+                lut = self._luts[index] = dict_lut(c.enc_values, d.device)
+            d = gather_codes(lut, d)
+        elif enc is Encoding.FOR:
+            d = decode_for(d, c.sql_type, c.enc_ref, c.enc_scale)
+        else:
+            raise _RunAligned("rle-encoded column in compiled pipeline")
+        slots[key] = (d, v)
+        return (d, v)
+
+    def _dict_source(self, expr: Expr):
+        """The column (meta) when `expr` is a raw ref to a numeric
+        DICT-encoded column: the code-space predicate target."""
+        if isinstance(expr, ColumnRef) and type(expr) is ColumnRef:
+            c = self.col(expr.index)
+            if c.encoding is Encoding.DICT \
+                    and c.sql_type not in STRING_TYPES:
+                return c
+        return None
+
+    def _encoded_compare(self, op: str, args, slots):
+        """``dict_col CMP literal`` rewritten into CODE space.  The
+        dictionary is sorted, so the predicate becomes a bound on the codes,
+        found on the host by `dict_literal_bounds`.  Both sides are taken
+        in the dtype the value-space compare would use (torch's promotion of
+        the column's and the literal's dtypes), so the answer is the same
+        bit for bit.  None when the shape does not match, or when that
+        dtype would merge dictionary values or the literal is NaN (the
+        caller compares values)."""
+        a, b = args
+        for colarg, litarg, o in ((a, b, op), (b, a, FLIP_CMP[op])):
+            c = self._dict_source(colarg)
+            if c is None:
+                continue
+            if not (isinstance(litarg, Literal)
+                    and not isinstance(litarg.value, bool)
+                    and isinstance(litarg.value, (int, float, np.integer,
+                                                  np.floating))):
+                continue
+            lit_dt = torch_dtype(sql_to_np(litarg.sql_type))
+            cmp_dt = numpy_dtype(torch.promote_types(
+                torch_dtype(c.enc_values.dtype), lit_dt))
+            try:
+                lit = np.asarray(litarg.value,
+                                 dtype=numpy_dtype(lit_dt)).astype(cmp_dt)
+            except (OverflowError, ValueError):
+                return None
+            vals = c.enc_values.astype(cmp_dt, copy=False)
+            if (cmp_dt.kind == "f" and np.isnan(lit)) or (
+                    len(vals) > 1 and not bool(np.all(vals[1:] > vals[:-1]))):
+                return None
+            codes, valid = slots[colarg.index]
+            kind, code = dict_literal_bounds(vals, o, lit[()])
+            if kind == "lt":
+                hit = codes < code
+            elif kind == "ge":
+                hit = codes >= code
+            elif kind == "eq":
+                hit = codes == code
+            elif kind == "ne":
+                hit = codes != code
+            else:
+                hit = torch.full(codes.shape, kind == "all", dtype=torch.bool,
+                                 device=codes.device)
+            return (hit, valid)
+        return None
+
+    def _dict_membership(self, expr, slots, values):
+        """IN over a numeric DICT column: the value list maps through the
+        sorted dictionary on the host (absent values drop out) and the codes
+        are tested on the device.  None when the list is not numeric."""
+        c = self._dict_source(expr.arg)
+        if c is None:
+            return None
+        code_list = []
+        for v in values:
+            if isinstance(v, (bool, np.bool_)) or not isinstance(
+                    v, (int, float, np.integer, np.floating)):
+                return None
+            i = int(np.searchsorted(c.enc_values, v))
+            if i < len(c.enc_values) and c.enc_values[i] == v:
+                code_list.append(i)
+        codes, valid = slots[expr.arg.index]
+        if code_list:
+            hit = sorted_membership(codes, np.asarray(code_list,
+                                                      dtype=np.int32))
+        else:
+            hit = torch.zeros(codes.shape, dtype=torch.bool,
+                              device=codes.device)
+        return (~hit if expr.negated else hit, valid)
+
     def _string_source(self, expr: Expr) -> Optional[Column]:
         if isinstance(expr, ColumnRef) and type(expr) is ColumnRef:
             c = self.col(expr.index)
@@ -491,6 +702,9 @@ class _TraceEval:
             codes, valid = slots[expr.arg.index]
             hit = dictionary_membership(codes, src.dictionary, expr.values)
             return (~hit if expr.negated else hit, valid)
+        got = self._dict_membership(expr, slots, list(np.asarray(expr.values)))
+        if got is not None:
+            return got
         ad, av = self.eval(expr.arg, slots)
         hit = sorted_membership(ad, expr.values)
         return (~hit if expr.negated else hit, av)
@@ -509,6 +723,11 @@ class _TraceEval:
                 codes, valid = slots[args[0].index]
                 hit = lut.to(codes.device)[torch.clamp(codes, 0, len(d) - 1)]
                 return (~hit if op == "ne" else hit, valid)
+        # numeric comparisons against DICT-encoded columns run on the codes
+        if op in ("eq", "ne", "lt", "le", "gt", "ge") and len(args) == 2:
+            got = self._encoded_compare(op, args, slots)
+            if got is not None:
+                return got
         vals = [self.eval(a, slots) for a in args]
         if op in _NUMERIC_BINOPS:
             (ad, av), (bd, bv) = vals
@@ -595,7 +814,9 @@ def _extract_chain(agg: p.Aggregate):
 
 
 class CompiledAggregate:
-    """One scan->aggregate pipeline bound to a concrete input table."""
+    """One scan->aggregate pipeline, planned on a concrete input table; it
+    keeps only the table's metadata, and `run` takes the table of each
+    query."""
 
     def __init__(self, agg: p.Aggregate, table: Table, filters, group_exprs,
                  agg_exprs, config):
@@ -605,6 +826,7 @@ class CompiledAggregate:
         self.filters = filters
         self.group_exprs = group_exprs
         self.agg_exprs = agg_exprs
+        check_no_rle(table)
         ev = _TraceEval(table)
 
         # radix group-id plan: dictionary/bool/small-int group keys
@@ -619,10 +841,17 @@ class CompiledAggregate:
             if c.sql_type in STRING_TYPES and c.dictionary is not None:
                 radices.append(len(c.dictionary) + 1)
                 offsets.append(0)
+            elif c.encoding is Encoding.DICT:
+                # the dictionary codes ARE the radix digits: no min/max
+                # pull, no decode, and float and datetime keys group too
+                radices.append(len(c.enc_values) + 1)
+                offsets.append(0)
             elif c.data.dtype == torch.bool:
                 radices.append(3)
                 offsets.append(0)
             elif not c.data.is_floating_point() and len(c):
+                # PLAIN ints and FOR codes alike: the bounds are over the
+                # stored ints; a FOR key decodes at the host group decode
                 pending.append((len(radices), c.data.min(), c.data.max()))
                 radices.append(None)
                 offsets.append(None)
@@ -643,10 +872,19 @@ class CompiledAggregate:
         self.domain = max(domain, 1)
         self.radices = radices
         self.offsets = offsets
-        self.gcols = gcols
+        self.gcols = [_ColMeta(c) for c in gcols]
         check_agg_static_support(agg_exprs)
         self.segsum_mode = segsum_ops.choose_segsum_impl(config, self.domain,
                                                          table.device)
+        #: compressed-domain accounting (``columnar.encoding.*`` counters)
+        self.has_encoded = has_encoded(table)
+        self.codespace_preds = count_codespace_predicates(
+            list(filters) + [x for a in agg_exprs
+                             for x in list(a.args)
+                             + ([a.filter] if a.filter is not None else [])],
+            table) if self.has_encoded else 0
+        #: the evaluator over the table's metadata, kept with the pipeline
+        self._ev = _TraceEval(_TableMeta(table))
 
     def _prelude(self, ev: _TraceEval, table: Table):
         """Slot table, deferred filter-mask fold and the radix group id.
@@ -683,7 +921,7 @@ class CompiledAggregate:
         return slots, sel, gid, nr
 
     def run(self, table: Table) -> Table:
-        ev = _TraceEval(table)
+        ev = self._ev
         slots, sel, gid, nr = self._prelude(ev, table)
         reducer = SegmentReducer(gid, self.domain, self.segsum_mode, nr)
         hit_h = reducer.count(sel)
@@ -722,30 +960,86 @@ def singleflight_get_or_build(cache: "OrderedDict", key: Tuple, build):
     return build(), True
 
 
+#: LRU of scan-chain pipelines, keyed by the table version and the plan
+_CACHE_CAP = 32
+_cache: "OrderedDict[tuple, CompiledAggregate]" = OrderedDict()
+
+
+def _scan_chain_pipeline(rel, chain, executor):
+    """(pipeline, table) for an aggregate over a scan chain, the pipeline
+    from the cache or built and cached (a build counts its code-space
+    predicates in ``metrics["columnar.encoding.codespace_pred"]``); raises
+    _Unsupported when the pipeline declines the chain."""
+    scan, filters, group_exprs, agg_exprs = chain
+    ctx = executor.context
+    table = executor.get_table(scan.schema_name, scan.table_name)
+    if scan.projection is not None:
+        table = table.select(scan.projection)
+    dc = ctx.schema[scan.schema_name].tables[scan.table_name]
+    key = (
+        dc.uid,
+        scan.schema_name, scan.table_name,
+        tuple(scan.projection or ()),
+        tuple(str(f) for f in filters),
+        tuple(str(e) for e in group_exprs),
+        tuple(str(a) for a in agg_exprs),
+        tuple((f.name, f.sql_type) for f in rel.schema),
+        table.num_rows,
+        str(executor.config.get("sql.compile.segsum", "auto")),
+    )
+
+    def build():
+        obj = CompiledAggregate(rel, table, filters, group_exprs, agg_exprs,
+                                executor.config)
+        _cache[key] = obj
+        while len(_cache) > _CACHE_CAP:
+            _cache.popitem(last=False)
+        return obj
+
+    compiled, built_here = singleflight_get_or_build(_cache, key, build)
+    if built_here and compiled.codespace_preds:
+        ctx.metrics.inc("columnar.encoding.codespace_pred",
+                        compiled.codespace_preds)
+    return compiled, table
+
+
 def try_compiled_aggregate(rel: p.Aggregate, executor) -> Table:
     """Run an Aggregate subtree as one fused pipeline.  Raises
     NotImplementedError, naming the reason, for a plan it does not take.
 
     A scan under filters and projections is read in place, its filters
-    deferred as a mask.  Any other input (a join that the join pipeline
-    declined) runs through the eager plugins first, and the pipeline
-    reduces the table they produce as its scan."""
+    deferred as a mask and its encoded columns as codes; each run counts
+    the rows it decodes on the host in
+    ``metrics["columnar.encoding.late_rows"]``.  Any other input (a join
+    that the join pipeline declined), or a chain the pipeline declines (an
+    RLE column, counted in ``metrics["compiled_aggregate.declined"]``),
+    runs through the eager plugins first, and the pipeline reduces the
+    table they produce as its scan."""
     if not executor.config.get("sql.compile", True):
         raise NotImplementedError(
             "sql.compile is off, and the eager aggregate is not in the port yet")
+    metrics = executor.context.metrics
     chain = _extract_chain(rel)
-    if chain is None:
-        table = executor.execute(rel.input)
-        filters, group_exprs, agg_exprs = [], list(rel.group_exprs), \
-            list(rel.agg_exprs)
-    else:
-        scan, filters, group_exprs, agg_exprs = chain
-        table = executor.get_table(scan.schema_name, scan.table_name)
-        if scan.projection is not None:
-            table = table.select(scan.projection)
+    if chain is not None:
+        try:
+            compiled, table = _scan_chain_pipeline(rel, chain, executor)
+        except _RunAligned as e:
+            logger.info("compiled aggregate declined the scan chain: %s", e)
+            metrics.inc("compiled_aggregate.declined")
+        except _Unsupported as e:
+            raise NotImplementedError(
+                f"compiled aggregate declined the plan: {e}") from e
+        else:
+            result = compiled.run(table)
+            if compiled.has_encoded:
+                # late materialization: only the group table's rows decode
+                metrics.inc("columnar.encoding.late_rows", result.num_rows)
+            metrics.inc("resilience.rung.compiled_aggregate")
+            return result
+    table = executor.execute(rel.input)
     try:
-        compiled = CompiledAggregate(rel, table, filters, group_exprs,
-                                     agg_exprs, executor.config)
+        compiled = CompiledAggregate(rel, table, [], list(rel.group_exprs),
+                                     list(rel.agg_exprs), executor.config)
         return compiled.run(table)
     except _Unsupported as e:
         raise NotImplementedError(f"compiled aggregate declined the plan: {e}") from e

@@ -18,9 +18,12 @@ aggregation run over the probe table's rows without materializing a join:
 The segment reduction is the shared `SegmentReducer` (the hand-written
 segment-sum kernel where the group domain fits it), and the group table
 reaches the host in one transfer of one packed float64 matrix, the group
-key values of a pointer id riding along.  Left out of the reference's
-version: literal parameterization (`families/`), the lazy parquet scan,
-the distributed plan and observability.
+key values of a pointer id riding along.  The probe table's encoded
+columns are read as codes (code-space filters, DICT and FOR group keys as
+radix digits, decode where an expression reads values); an RLE probe
+column makes the pipeline decline.  Left out of the reference's version:
+literal parameterization (`families/`), the lazy parquet scan, the
+distributed plan and observability.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch
 
 from ..columnar.column import Column
 from ..columnar.dtypes import STRING_TYPES, SqlType, sql_to_np
+from ..columnar.encodings import Encoding
 from ..columnar.table import Table
 from ..ops import segsum as segsum_ops
 from ..ops.join import dense_unique_lut
@@ -47,10 +51,14 @@ from ..planner.expressions import (
 )
 from .compiled import (
     SegmentReducer,
+    _ColMeta,
+    _TableMeta,
     _TraceEval,
     _Unsupported,
     check_agg_static_support,
     check_no_rle,
+    count_codespace_predicates,
+    has_encoded,
     decode_agg_columns,
     decode_radix_keys,
     fetch_packed,
@@ -194,28 +202,6 @@ def _choose_gid_join(ext, group_exprs) -> Optional[Tuple[int, List[int]]]:
     return None
 
 
-class _ColMeta:
-    """A column's type, string dictionary and dtype, without its device
-    buffers: a cached pipeline must not pin the tables it was built on."""
-
-    __slots__ = ("sql_type", "dictionary", "data")
-
-    def __init__(self, col: Column):
-        self.sql_type = col.sql_type
-        self.dictionary = col.dictionary
-        self.data = torch.empty(0, dtype=col.data.dtype)
-
-
-class _SlotMeta:
-    """Column metadata of the extended slot space (probe scan columns, then
-    the gathered build columns), the evaluator's table."""
-
-    def __init__(self, cols: List[_ColMeta], names: List[str], device):
-        self.columns = dict(zip(names, cols))
-        self.column_names = names
-        self.device = device
-
-
 class CompiledJoinAggregate:
     """One scan->joins->aggregate pipeline, planned on concrete tables.  It
     keeps the build keys' lookup tables; `run` takes the tables of each
@@ -228,6 +214,8 @@ class CompiledJoinAggregate:
         self.n_joins = len(ext.joins)
         check_agg_static_support(agg_exprs)
         check_no_rle(probe_table)
+        #: compressed-domain accounting: the probe scan reads encoded bytes
+        self.has_encoded = has_encoded(probe_table)
 
         choice = _choose_gid_join(ext, group_exprs)
         if choice is not None:
@@ -298,8 +286,13 @@ class CompiledJoinAggregate:
             bt = build_tables[k]
             meta_cols.append(_ColMeta(bt.columns[bt.column_names[col]]))
             meta_names.append(f"__b{k}_{col}")
-        self._ev = _TraceEval(_SlotMeta(meta_cols, meta_names,
-                                        probe_table.device))
+        self._ev = _TraceEval(_TableMeta(columns=meta_cols, names=meta_names,
+                                         device=probe_table.device))
+        self.codespace_preds = count_codespace_predicates(
+            list(self.conjuncts)
+            + [x for a in self.agg_exprs for x in list(a.args)
+               + ([a.filter] if a.filter is not None else [])],
+            self._ev.table) if self.has_encoded else 0
         if self.gid_join is not None and self.gid_join >= 0:
             bt = build_tables[self.gid_join]
             self.group_meta = [_ColMeta(bt.columns[bt.column_names[c]])
@@ -341,13 +334,22 @@ class CompiledJoinAggregate:
                 spec.append({"ref": g, "kind": "str",
                              "r": len(col.dictionary) + 1, "off": 0,
                              "col": col})
+            elif col.encoding is Encoding.DICT:
+                # numeric dictionary codes are the radix digits directly
+                spec.append({"ref": g, "kind": "dict", "raw": True,
+                             "r": len(col.enc_values) + 1, "off": 0,
+                             "col": col})
             elif col.data.dtype == torch.bool:
                 spec.append({"ref": g, "kind": "bool", "r": 3, "off": 0,
                              "col": col})
             elif not col.data.is_floating_point() and len(col):
+                # PLAIN values and FOR codes alike: the bounds are over the
+                # stored ints; the run reads a FOR key's codes and the host
+                # decode maps them back through the affine
                 pending.append((len(spec), col.data.min(), col.data.max()))
                 spec.append({"ref": g, "kind": "int", "r": None, "off": None,
-                             "col": col})
+                             "col": col,
+                             "raw": col.encoding is Encoding.FOR})
             else:
                 raise _Unsupported("group key not radix-encodable")
         spans = resolve_int_bounds(pending, RADIX_DOMAIN_LIMIT)
@@ -420,7 +422,11 @@ class CompiledJoinAggregate:
         if self.radix_spec is not None:
             gid = torch.zeros(n_rows, dtype=torch.int32, device=device)
             for s in self.radix_spec:
-                d, v = ev.eval(s["ref"], slots)
+                if s.get("raw"):
+                    # an encoded key: its CODES are the radix digits
+                    d, v = slots[s["ref"].index]
+                else:
+                    d, v = ev.eval(s["ref"], slots)
                 r = s["r"]
                 if s["kind"] == "bool":
                     code = d.to(torch.int32)
@@ -568,9 +574,15 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
                 _cache.popitem(last=False)
             return obj
 
-        compiled, _ = singleflight_get_or_build(_cache, key, build)
+        compiled, built_here = singleflight_get_or_build(_cache, key, build)
+        if built_here and compiled.codespace_preds:
+            ctx.metrics.inc("columnar.encoding.codespace_pred",
+                            compiled.codespace_preds)
         ctx.metrics.inc("compiled_join.run")
-        return compiled.run(probe_table, build_tables)
+        result = compiled.run(probe_table, build_tables)
+        if compiled.has_encoded:
+            ctx.metrics.inc("columnar.encoding.late_rows", result.num_rows)
+        return result
     except _Unsupported as e:
         logger.info("compiled join pipeline declined the plan: %s", e)
         ctx.metrics.inc("compiled_join.declined")

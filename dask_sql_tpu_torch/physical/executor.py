@@ -1,7 +1,9 @@
 """Physical executor: walks the logical plan and produces Tables.
 
 Counterpart of `dask_sql_tpu/physical/executor.py` without the degradation
-ladder: each plan node goes to the plugin registered for its node type.
+ladder: the plan root first tries the compiled root select
+(`compiled_select.py`), then each plan node goes to the plugin registered
+for its node type.
 """
 from __future__ import annotations
 
@@ -26,6 +28,20 @@ class Executor:
         plugin = plugin_class()
         cls._plugins[plugin.class_name] = plugin
         return plugin_class
+
+    def execute_root(self, rel: LogicalPlan) -> Table:
+        """Entry for the plan ROOT, whose result goes straight to the host:
+        a root select chain runs as the compiled select (two programs, two
+        transfers; counted in ``metrics["resilience.rung.compiled_select"]``,
+        as the reference's ladder counts its rung), anything else as the
+        eager walk."""
+        from .compiled_select import try_compiled_select
+
+        out = try_compiled_select(rel, self)
+        if out is not None:
+            self.context.metrics.inc("resilience.rung.compiled_select")
+            return out
+        return self.execute(rel)
 
     def execute(self, rel: LogicalPlan) -> Table:
         key = id(rel)

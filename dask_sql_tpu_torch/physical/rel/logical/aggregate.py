@@ -2,7 +2,9 @@
 `dask_sql_tpu/physical/rel/logical/aggregate.py`): the compiled rungs in
 the reference's order, the join->aggregate pipeline first, then the fused
 aggregate.  A plan that both decline raises NotImplementedError naming the
-reason; the eager aggregate rung is not in the port yet."""
+reason; the eager aggregate rung is not in the port yet.  The rung that
+answers is counted in ``metrics["resilience.rung.<rung>"]``, as the
+reference's ladder counts it."""
 from __future__ import annotations
 
 from ....columnar.table import Table
@@ -20,5 +22,7 @@ class AggregatePlugin(BaseRelPlugin):
     def convert(self, rel: p.Aggregate, executor) -> Table:
         joined = try_compiled_join_aggregate(rel, executor)
         if joined is not None:
+            executor.context.metrics.inc(
+                "resilience.rung.compiled_join_aggregate")
             return joined
         return try_compiled_aggregate(rel, executor)

@@ -26,7 +26,11 @@ def _predicate_mask(executor, predicates, table: Table):
 
 @Executor.add_plugin_class
 class TableScanPlugin(BaseRelPlugin):
-    """Projection + pushed-down filters over a registered table."""
+    """Projection + pushed-down filters over a registered table.  The eager
+    operators work in value space, so an encoded table (columnar/
+    encodings.py) decodes once here, counted in
+    ``metrics["columnar.encoding.decode"]``; the compiled pipelines read the
+    codes and never reach this plugin."""
 
     class_name = "TableScan"
 
@@ -34,6 +38,9 @@ class TableScanPlugin(BaseRelPlugin):
         table = executor.get_table(rel.schema_name, rel.table_name)
         if rel.projection is not None:
             table = table.select(rel.projection)
+        if table.has_encoded_columns():
+            executor.context.metrics.inc("columnar.encoding.decode")
+            table = table.decode()
         if rel.filters:
             # filters are bound against the *projected* schema
             table = table.filter(_predicate_mask(executor, rel.filters, table))

@@ -3,7 +3,7 @@ TRANSFER_STATS counter and `host_ints` in `dask_sql_tpu/utils.py`)."""
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict
+from typing import Dict, List
 
 #: device->host transfers made through the port's own seams (the packed
 #: aggregate pull, host bounds of integer group keys, column
@@ -30,7 +30,16 @@ def host_ints(*vals):
 
 class Metrics(Counter):
     """Named event counters of one Context (``planner.optimize.fallback``,
-    ``query.plan_cache.hit``/``miss``, ``compiled_join.run``/``declined``)."""
+    ``query.plan_cache.hit``/``miss``, ``compiled_join.run``/``declined``,
+    ``resilience.rung.<rung>``, ``columnar.encoding.*``), and the values
+    observed under a name (``observed``)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.observed: Dict[str, List[float]] = {}
 
     def inc(self, name: str, n: int = 1) -> None:
         self[name] += n
+
+    def observe(self, name: str, value: float) -> None:
+        self.observed.setdefault(name, []).append(value)

@@ -1,14 +1,16 @@
-"""Where the time of TPC-H Q1 at SF1 (or of Q3) goes in the PyTorch port, on
-one CUDA card.
+"""Where the time of TPC-H Q1 at SF1 (or of Q3, or of the root select) goes
+in the PyTorch port, on one CUDA card.
 
 Run from the root of a checkout on a machine with the card:
 
-    python3 profile_q1.py [--query q1|q3]
+    python3 profile_q1.py [--query q1|q3|select]
 
 For Q1 (the default) it loads 6,000,000 synthetic ``lineitem`` rows (the
 generator and query of ``chip_smoke.py``); for Q3 the customer, orders and
 lineitem tables of ``tests/tpch.py generate(scale_rows=1_000_000)``, the
-scale of ``bench.py``'s Q3 line.  It warms the query up, then prints JSON
+scale of ``bench.py``'s Q3 line; for ``select`` the same 6,000,000 rows and
+``bench.py``'s root top-k select.  Tables load with the column encodings
+the reference picks.  It warms the query up, then prints JSON
 lines, each phase named after the query: the host time of
 planning (``c.sql``) and of execution (``.compute()``), medians of 5 runs;
 the host time of each call Q1 makes to the segment-sum kernel's wrapper
@@ -116,11 +118,11 @@ def load(query: str):
     from dask_sql_tpu_torch import Context
 
     c = Context(device="cuda")
-    if query == "q1":
-        from chip_smoke import N_ROWS, QUERY, gen_lineitem
+    if query in ("q1", "select"):
+        from chip_smoke import N_ROWS, QUERY, SELECT_QUERY, gen_lineitem
 
         c.create_table("lineitem", gen_lineitem(N_ROWS))
-        return c, QUERY, N_ROWS
+        return c, QUERY if query == "q1" else SELECT_QUERY, N_ROWS
     from chip_smoke import Q3_ROWS
     from tests.tpch import QUERIES, generate
 
@@ -132,7 +134,8 @@ def load(query: str):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--query", choices=("q1", "q3"), default="q1")
+    parser.add_argument("--query", choices=("q1", "q3", "select"),
+                        default="q1")
     q = parser.parse_args().query
     if not torch.cuda.is_available():
         print("profile_q1: no CUDA device", file=sys.stderr)
@@ -171,7 +174,7 @@ def main() -> int:
                                            if wrapper_us else None),
                       "runs_us": wrapper_us}))
 
-    if not wrapper_us:
+    if q == "q3":
         scatter_probe(c, QUERY, q, card)
 
     from torch.profiler import ProfilerActivity, profile

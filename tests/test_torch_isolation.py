@@ -27,8 +27,9 @@ names = [m.name for m in pkgutil.walk_packages(dask_sql_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke, profile_q1
-# what the Q3 path imports as it runs (DPP's executor at plan time, the
-# join pipeline, the eager join) stays in the port too
+# what the Q3, Q1 and root select paths import as they run (DPP's
+# executor at plan time, the join pipeline, the eager join, the encodings,
+# the compiled select) stays in the port too
 from tests.tpch import QUERIES, generate
 c = dask_sql_tpu_torch.Context(device="cpu")
 tables = generate(400)
@@ -40,6 +41,13 @@ c.sql("SELECT COUNT(*) AS n FROM orders a JOIN orders b "
       "ON a.o_custkey = b.o_custkey").compute()
 assert c.metrics["compiled_join.run"] == 1, dict(c.metrics)
 assert c.metrics["compiled_join.declined"] == 1, dict(c.metrics)
+# Q1 over encoded columns and the root select (the compiled select rung)
+c.create_table("li", chip_smoke.gen_lineitem(12_000))
+c.sql(chip_smoke.QUERY.replace("FROM lineitem", "FROM li")).compute()
+c.sql("SELECT l_returnflag, l_extendedprice * (1 - l_discount) AS rev "
+      "FROM li WHERE l_discount > 0.09 ORDER BY rev DESC LIMIT 100").compute()
+assert c.metrics["columnar.encoding.codespace_pred"] >= 1, dict(c.metrics)
+assert c.metrics["resilience.rung.compiled_select"] == 1, dict(c.metrics)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dask_sql_tpu"))
 assert not bad, bad

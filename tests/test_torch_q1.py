@@ -10,6 +10,7 @@ bound the reference's own segment sum is held to.
 import numpy as np
 import pandas as pd
 import pytest
+import torch
 
 import dask_sql_tpu
 from bench import QUERY, gen_lineitem
@@ -110,6 +111,44 @@ def test_q1_null_keys_nan_floats_and_empty_filter(segsum_calls):
     got = _port(df, glob, segsum_calls)
     assert got["n"].tolist() == [0] and got["s"].isna().all()
     assert_same_result(got, _reference(df, glob))
+
+
+ENCODING_COUNTERS = ("columnar.encoding.encoded_columns",
+                     "columnar.encoding.codespace_pred",
+                     "columnar.encoding.late_rows")
+
+
+def test_q1_on_encoded_columns_counts_as_the_reference(monkeypatch):
+    """Q1 over the columns the reference loads (DICT `l_quantity` and
+    `l_shipdate`): the date filter runs on the codes, `l_quantity` reaches
+    the segment sum as its decoded float32 values, only the 6 group rows
+    decode on the host, and the counters equal the reference's."""
+    df = gen_lineitem(20_000)
+    c = Context(device="cpu")
+    c.create_table("lineitem", df)
+    table = c.schema["root"].tables["lineitem"].table
+    assert table.columns["l_quantity"].data.dtype == torch.int16
+    seen = []
+    inner = segsum_ops.segsum_typed
+
+    def spy(gid, columns, domain):
+        seen.append([d.dtype for d, _ in columns])
+        return inner(gid, columns, domain)
+
+    monkeypatch.setattr(segsum_ops, "segsum_typed", spy)
+    TRANSFER_STATS["d2h"] = 0
+    got = c.sql(QUERY).compute()
+    assert TRANSFER_STATS["d2h"] == 1
+    assert len(seen) == 1
+    assert torch.int16 not in seen[0]  # no code column is summed as a value
+    rc = dask_sql_tpu.Context()
+    rc.create_table("lineitem", df)
+    want = rc.sql(QUERY, config_options={"sql.compile.segsum": "matmul"}).compute()
+    assert_same_result(got, want)
+    ref_counters = rc.metrics.snapshot()["counters"]
+    assert {k: c.metrics[k] for k in ENCODING_COUNTERS} == \
+        {k: ref_counters.get(k, 0) for k in ENCODING_COUNTERS} == \
+        dict(zip(ENCODING_COUNTERS, (2, 1, 6)))
 
 
 def test_string_codes_match_reference():

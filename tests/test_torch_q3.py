@@ -30,6 +30,7 @@ from dask_sql_tpu_torch.ops import join as port_join
 from dask_sql_tpu_torch.ops import membership as port_membership
 from dask_sql_tpu_torch.ops import sorting as port_sorting
 from dask_sql_tpu_torch.utils import TRANSFER_STATS
+from chip_smoke import q3_oracle
 from tests.tpch import QUERIES, generate
 
 REL = 1e-9
@@ -63,10 +64,10 @@ def _contexts(frames):
     return rc, pc
 
 
-def _both(frames, sql, spies):
+def _both(frames, sql, spies, contexts=None):
     """(port result, reference result); the pipeline fired on both sides
     or on neither."""
-    rc, pc = _contexts(frames)
+    rc, pc = contexts or _contexts(frames)
     want = rc.sql(sql).compute()
     got = pc.sql(sql).compute()
     assert len(spies["port"]) == len(spies["ref"]), spies
@@ -85,14 +86,36 @@ def assert_same_rows(got: pd.DataFrame, want: pd.DataFrame):
             pd.testing.assert_series_equal(g, w, check_exact=True)
 
 
+ENCODING_COUNTERS = ("columnar.encoding.encoded_columns",
+                     "columnar.encoding.decode",
+                     "columnar.encoding.codespace_pred",
+                     "columnar.encoding.late_rows")
+
+
 def test_q3_matches_reference(spies):
+    """Q3 over the encoded columns both sides load (FOR and DICT keys and
+    dates, an RLE `o_shippriority` on a build side): the probe side's
+    filter runs on the codes, the build sides decode at their scans, and
+    the encoding counters equal the reference's."""
     tables = generate(20_000)
     frames = {n: tables[n] for n in ("customer", "orders", "lineitem")}
-    got, want = _both(frames, QUERIES[3], spies)
+    rc, pc = contexts = _contexts(frames)
+    orders = pc.schema["root"].tables["orders"].table
+    assert orders.columns["o_shippriority"].encoding.value == "RLE"
+    got, want = _both(frames, QUERIES[3], spies, contexts)
     assert len(spies["port"]) == 1
     assert len(got) == 10
     assert_same_rows(got, want)
     assert list(got.dtypes) == list(want.dtypes)
+    ref_counters = rc.metrics.snapshot()["counters"]
+    assert {k: pc.metrics[k] for k in ENCODING_COUNTERS} == \
+        {k: ref_counters.get(k, 0) for k in ENCODING_COUNTERS}
+    assert pc.metrics["columnar.encoding.codespace_pred"] == 2
+    oracle = q3_oracle(frames)
+    for key in ("l_orderkey", "o_orderdate", "o_shippriority"):
+        assert got[key].tolist() == oracle[key].tolist()
+    np.testing.assert_allclose(got["revenue"].to_numpy(),
+                               oracle["revenue"].to_numpy(), rtol=REL)
 
 
 def test_q3_warm_run_hits_the_plan_cache_with_one_transfer(spies):
@@ -165,6 +188,33 @@ def test_group_by_join_key_uses_pointer_gid(star, spies):
     exp = m.groupby("f_dim1").f_val.mean()
     np.testing.assert_array_equal(got["f_dim1"].to_numpy(), exp.index.to_numpy())
     np.testing.assert_allclose(got["a"].to_numpy(), exp.to_numpy(), rtol=REL)
+
+
+def test_encoded_probe_group_keys_take_their_codes(star, spies):
+    """A DICT probe column (`f_qty`, 9 values) and a FOR one (`f_big`) as
+    radix group keys: the pipelines read their codes as radix digits and
+    the host decode maps them back, as the reference does."""
+    rng = np.random.RandomState(6)
+    fact = star["fact"].assign(
+        f_big=10**9 + rng.randint(0, 3000, len(star["fact"])) * 7)
+    frames = dict(star, fact=fact)
+    rc, pc = contexts = _contexts(frames)
+    table = pc.schema["root"].tables["fact"].table
+    assert table.columns["f_qty"].encoding.value == "DICT"
+    assert table.columns["f_big"].encoding.value == "FOR"
+    for sql in ("SELECT f_qty, f_big, COUNT(*) AS n, SUM(f_val) AS s "
+                "FROM fact JOIN dim1 ON f_dim1 = d1_key WHERE d1_flag "
+                "GROUP BY f_qty, f_big",
+                "SELECT f_big, f_qty, COUNT(*) AS n, SUM(f_val) AS s "
+                "FROM fact WHERE f_qty > 3 GROUP BY f_big, f_qty"):
+        got, want = _both(frames, sql, spies, contexts)
+        keys = list(got.columns[:2])
+        got = got.sort_values(keys).reset_index(drop=True)
+        want = want.sort_values(keys).reset_index(drop=True)
+        assert_same_rows(got, want)
+    assert len(spies["port"]) == 1
+    assert [s["kind"] for s in spies["port"][0].radix_spec] == ["dict", "int"]
+    assert pc.metrics["resilience.rung.compiled_aggregate"] == 1
 
 
 def test_null_join_keys_never_match(spies):
