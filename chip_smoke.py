@@ -17,7 +17,11 @@ and a select filtered on a DICT column (the compiled select: two transfers,
 phase times), TPC-H Q3 over ``tests/tpch.py
 generate(scale_rows=1_000_000)`` (the scale of ``bench.py``'s Q3 line, on
 its encoded columns; the compiled join->aggregate pipeline, one transfer
-and a plan-cache hit per warm run), and a star join of 6,000,000 fact rows
+and a plan-cache hit per warm run), TPC-H q5, q7, q8, q9, q10, q12, q14,
+q17 and q19 on all eight tables of those frames (the eager aggregate and
+the compiled rungs: each query's rungs, transfers and kernel launches,
+checked against the port on the CPU and, for q14 and q19, a float64
+oracle; no rung may step down), and a star join of 6,000,000 fact rows
 through that pipeline into the segment-sum kernel.  For each loaded frame
 it prints the encoded columns and the card memory they take, encoded and,
 for Q1's table, loaded PLAIN, and checks every encoded column's decoded
@@ -75,6 +79,19 @@ STAR_QUERY = ("SELECT d1_cat, SUM(f_val) AS s, COUNT(*) AS n "
               "WHERE d2_region = 'r2' AND f_qty > 3 "
               "GROUP BY d1_cat ORDER BY d1_cat")
 WARM_RUNS = 5
+#: TPC-H queries of the eager aggregate and the compiled rungs, run on the
+#: Q3 frames (all eight tables) by the `tpch_more` phase
+TPCH_MORE = (5, 7, 8, 9, 10, 12, 14, 17, 19)
+#: the rungs each answers on at these frames, as the reference's do (the
+#: eager aggregate counts none).  q17's join pipeline declines here in both
+#: engines: its filtered part keys are too sparse in 1..100,000 for a
+#: lookup table, so its outer sum answers on the eager rung
+TPCH_RUNGS = {14: ("compiled_join_aggregate",),
+              19: ("compiled_join_aggregate",),
+              17: ("compiled_aggregate",)}
+#: queries whose segment sums must reach the kernel in every run
+TPCH_KERNEL = (14, 17, 19)
+TPCH_REL = 1e-9  # float64 sums on the card and on the CPU
 SELECT_QUERY = ("SELECT l_returnflag, l_extendedprice * (1 - l_discount) AS rev "
                 "FROM lineitem WHERE l_discount > 0.09 "
                 "ORDER BY rev DESC LIMIT 100")  # bench.py's root select line
@@ -194,6 +211,80 @@ def star_oracle(tables):
     m = m[(m.d2_region == "r2") & (m.f_qty > 3)]
     out = m.groupby("d1_cat").agg(s=("f_val", "sum"), n=("f_val", "count"))
     return out.reset_index().sort_values("d1_cat").reset_index(drop=True)
+
+
+def q14_oracle(tables) -> float:
+    """TPC-H q14's promo revenue share in float64 pandas."""
+    li = tables["lineitem"]
+    li = li[(li.l_shipdate >= np.datetime64("1995-09-01"))
+            & (li.l_shipdate < np.datetime64("1995-10-01"))]
+    m = li.merge(tables["part"], left_on="l_partkey", right_on="p_partkey")
+    rev = m.l_extendedprice.to_numpy(np.float64) * (
+        1 - m.l_discount.to_numpy(np.float64))
+    promo = np.where(m.p_type.str.startswith("PROMO").to_numpy(), rev, 0.0)
+    return float(100.0 * promo.sum() / rev.sum())
+
+
+def q19_oracle(tables) -> float:
+    """TPC-H q19's discounted revenue in float64 pandas."""
+    m = tables["lineitem"].merge(tables["part"], left_on="l_partkey",
+                                 right_on="p_partkey")
+    common = m.l_shipmode.isin(["AIR", "REG AIR"]) & (
+        m.l_shipinstruct == "DELIVER IN PERSON")
+
+    def arm(brand, size, containers, qlo, qhi, smax):
+        return ((m.p_brand == brand)
+                & m.p_container.isin([f"{size} {c}" for c in containers])
+                & (m.l_quantity >= qlo) & (m.l_quantity <= qhi)
+                & (m.p_size >= 1) & (m.p_size <= smax))
+
+    sel = common & (arm("Brand#12", "SM", ("CASE", "BOX", "PACK", "PKG"), 1, 11, 5)
+                    | arm("Brand#23", "MED", ("BAG", "BOX", "PKG", "PACK"), 10, 20, 10)
+                    | arm("Brand#34", "LG", ("CASE", "BOX", "PACK", "PKG"), 20, 30, 15))
+    mm = m[sel]
+    return float((mm.l_extendedprice.to_numpy(np.float64)
+                  * (1 - mm.l_discount.to_numpy(np.float64))).sum())
+
+
+TPCH_ORACLES = {14: q14_oracle, 19: q19_oracle}
+
+
+def same_answer(got, want, label) -> float:
+    """`got` against `want` column by column: everything but floats
+    exactly, floats within TPCH_REL; returns the largest relative error."""
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        fail(f"{label} result {got.shape} {list(got.columns)}, expected "
+             f"{want.shape} {list(want.columns)}")
+    rel = 0.0
+    for name in want.columns:
+        g, w = got[name], want[name]
+        if w.dtype.kind == "f":
+            gv, wv = g.to_numpy(np.float64), w.to_numpy(np.float64)
+            if not np.array_equal(np.isnan(gv), np.isnan(wv)):
+                fail(f"{label} {name}: NULLs differ")
+            ok = ~np.isnan(wv)
+            if ok.any():
+                rel = max(rel, float(np.max(np.abs(gv[ok] - wv[ok])
+                                            / np.maximum(np.abs(wv[ok]),
+                                                         1e-300))))
+        elif g.tolist() != w.tolist() or g.dtype != w.dtype:
+            fail(f"{label} {name} differs")
+    if not rel <= TPCH_REL:
+        fail(f"{label} relative error {rel} > {TPCH_REL}")
+    return rel
+
+
+def rung_counts(c):
+    return {k: v for k, v in c.metrics.items()
+            if k.startswith("resilience.")}
+
+
+def check_not_degraded(c, label) -> None:
+    """No rung stepped down: a degradation would hide the card's path."""
+    bad = {k: v for k, v in c.metrics.items()
+           if k.startswith("resilience.degraded") and v}
+    if bad:
+        fail(f"{label}: a rung stepped down {bad}")
 
 
 def max_rel(got, want) -> float:
@@ -513,6 +604,127 @@ def check_kernel(segsum, gid, cols, domain, n_counts, label):
     return max_abs
 
 
+def like_table_ms(c, table: str, column: str, pattern: str):
+    """(median ms, entries) of building a LIKE lookup table over the host
+    dictionary of `table.column` (one regex match per distinct value), as
+    an evaluator does once per build."""
+    from dask_sql_tpu_torch.columnar.dtypes import SqlType
+    from dask_sql_tpu_torch.physical.compiled import _TraceEval
+    from dask_sql_tpu_torch.planner.expressions import ColumnRef, Literal
+
+    t = c.schema["root"].tables[table].table
+    idx = t.column_names.index(column)
+    args = (ColumnRef(idx, column, SqlType.VARCHAR),
+            Literal(pattern, SqlType.VARCHAR))
+    runs = []
+    for _ in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        _TraceEval(t)._pattern_lut("like", idx, args)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(runs)), len(t.columns[column].dictionary)
+
+
+def tpch_more(all_tables, card, segsum, transfers):
+    """The `tpch_more` phase: each query cold once and WARM_RUNS times warm
+    on the card, its rungs, transfers and segment-sum launches (the counts
+    set to 0 just before the query's runs and read just after), checked
+    against the port on the CPU and, for q14 and q19, a float64 oracle.
+    Returns {"launches": {query: n}, "max_abs_err": x}: the kernel is also
+    held against its plain version on a call q9 (eager) and q14 (join
+    pipeline) make."""
+    from dask_sql_tpu_torch import Context
+    from tests.tpch import QUERIES
+
+    t0 = time.perf_counter()
+    ct, hbm, load_s = load_tables(all_tables)
+    cpu = Context(device="cpu")
+    for name, frame in all_tables.items():
+        cpu.create_table(name, frame)
+    phase("tpch_more_load", card=card, tables=len(all_tables),
+          hbm_bytes=hbm, load_s=load_s,
+          setup_s=time.perf_counter() - t0,
+          lineitem_rows=len(all_tables["lineitem"]))
+    launches = {}
+    for q in TPCH_MORE:
+        sql = QUERIES[q]
+        cpu_before = rung_counts(cpu)
+        t0 = time.perf_counter()
+        want = cpu.sql(sql).compute()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        cpu_rungs = {k: v - cpu_before.get(k, 0)
+                     for k, v in rung_counts(cpu).items()
+                     if v != cpu_before.get(k, 0)}
+        oracle = TPCH_ORACLES.get(q)
+        oracle_want = oracle(all_tables) if oracle else None
+        rel = [0.0]
+
+        def check(got):
+            rel[0] = max(rel[0], same_answer(got, want, f"q{q}"))
+            if oracle_want is not None:
+                r = max_rel(got.iloc[:, 0], [oracle_want])
+                if not r <= TPCH_REL:
+                    fail(f"q{q} relative error {r} against the oracle")
+                rel[0] = max(rel[0], r)
+
+        before = rung_counts(ct)
+        reset_launches(segsum)
+        transfers["d2h"] = 0
+        t0 = time.perf_counter()
+        got = ct.sql(sql).compute()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        cold_d2h = transfers["d2h"]
+        check(got)
+        runs = []
+        for _ in range(WARM_RUNS):
+            transfers["d2h"] = 0
+            t0 = time.perf_counter()
+            got = ct.sql(sql).compute()
+            runs.append((time.perf_counter() - t0) * 1e3)
+            check(got)
+        launches[q] = segsum.LAUNCHES["segsum"]
+        rungs = {k: v - before.get(k, 0) for k, v in rung_counts(ct).items()
+                 if v != before.get(k, 0)}
+        expected = {f"resilience.rung.{r}": 1 + WARM_RUNS
+                    for r in TPCH_RUNGS.get(q, ())}
+        if rungs != expected:
+            fail(f"q{q} answered on rungs {rungs}, expected {expected}")
+        if {k: v * (1 + WARM_RUNS) for k, v in cpu_rungs.items()} != expected:
+            fail(f"q{q} on the CPU answered on rungs {cpu_rungs}")
+        if q in TPCH_KERNEL and launches[q] < 1 + WARM_RUNS:
+            fail(f"q{q} launched the segsum kernel {launches[q]} times in "
+                 f"{1 + WARM_RUNS} runs")
+        check_not_degraded(ct, f"q{q}")
+        phase("tpch_more", card=card, query=f"q{q}", rows=len(got),
+              cold_ms=cold_ms, ms=float(np.median(runs)), runs_ms=runs,
+              cpu_ms=cpu_ms, rungs=rungs, cold_d2h=cold_d2h,
+              d2h=transfers["d2h"], launches=launches[q],
+              launches_per_query=launches[q] / (1 + WARM_RUNS),
+              max_rel_err=rel[0], oracle=oracle is not None)
+    # the kernel against its plain version on calls the queries make
+    captured = {}
+    typed = segsum.segsum_typed
+
+    def capture(gid, columns, domain):
+        captured.setdefault(q, (gid, list(columns), domain))
+        return typed(gid, columns, domain)
+
+    segsum.segsum_typed = capture
+    try:
+        for q in (9, 14):
+            ct.sql(QUERIES[q]).compute()
+    finally:
+        segsum.segsum_typed = typed
+    err = 0.0
+    for q, (gid, cols, domain) in captured.items():
+        err = max(err, check_typed(segsum, gid, cols, domain, f"tpch_q{q}_call"))
+    like_ms, entries = like_table_ms(ct, "part", "p_name", "%green%")
+    phase("like_table", card=card, column="part.p_name", pattern="%green%",
+          entries=entries, ms=like_ms)
+    check_not_degraded(ct, "tpch_more")
+    return {"launches": launches, "max_abs_err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
@@ -652,6 +864,8 @@ def main() -> int:
           ms=float(np.median(plain_runs)), runs_ms=plain_runs,
           encoded_ms=float(np.median(enc_runs)), encoded_runs_ms=enc_runs)
     check_encodings(c, {"lineitem": df}, "q1_lineitem", q1_hbm, plain_hbm)
+    check_not_degraded(c, "q1")
+    check_not_degraded(cp, "q1_plain")
     del cp
 
     # 8. bench.py's root top-k select over the same 6M encoded rows, and a
@@ -705,6 +919,7 @@ def main() -> int:
           ms=float(np.median(dsel_runs)), runs_ms=dsel_runs,
           phases_ms=dsel_phases, d2h=2, codespace_pred=1,
           late_rows_per_query=100)
+    check_not_degraded(c, "select")
     del c, df, got
 
     # 9. TPC-H Q3 through the compiled join->aggregate pipeline, over the
@@ -713,8 +928,8 @@ def main() -> int:
     from tests.tpch import QUERIES, generate
 
     t0 = time.perf_counter()
-    tables = generate(scale_rows=Q3_ROWS, seed=7)
-    tables = {n: tables[n] for n in ("customer", "orders", "lineitem")}
+    all_tables = generate(scale_rows=Q3_ROWS, seed=7)
+    tables = {n: all_tables[n] for n in ("customer", "orders", "lineitem")}
     c3, q3_hbm, q3_load_s = load_tables(tables)
     q3_setup_s = time.perf_counter() - t0
     check_encodings(c3, tables, "q3_tables", q3_hbm)
@@ -764,7 +979,15 @@ def main() -> int:
           codespace_pred=c3.metrics["columnar.encoding.codespace_pred"],
           late_rows_per_query=q3_late,
           scan_decodes=c3.metrics["columnar.encoding.decode"])
+    check_not_degraded(c3, "q3")
     del c3, tables, got
+
+    # 10. TPC-H q5-q19 on the same frames, all eight tables: the eager
+    # aggregate (q5, q7, q8, q9, q10, q12) and the compiled rungs (q14,
+    # q17, q19), each held against the port on the CPU (plain kernels) and
+    # q14 and q19 against float64 pandas too
+    tpch_launches = tpch_more(all_tables, card, segsum, TRANSFER_STATS)
+    del all_tables
 
     # 10. a star join through the pipeline into the segment-sum kernel
     t0 = time.perf_counter()
@@ -820,6 +1043,7 @@ def main() -> int:
           rows_per_s=STAR_ROWS / (star_ms / 1e3), launches=star_launches,
           group_domain=star_domain, k=len(star_cols),
           max_rel_err=star_rel[0], kernel_max_abs_err=star_err)
+    check_not_degraded(cs, "join_star")
     del cs, star, captured, star_gid, star_cols
 
     rate = memory_rate(kind)
@@ -877,8 +1101,10 @@ def main() -> int:
         "launches_by_path": {"q1_sf1": launches["segsum"],
                              "q1_plain": plain_launches["segsum"],
                              "q3": q3_launches["segsum"],
-                             "join_star": star_launches["segsum"]},
-        "max_abs_err": max(typed_err, star_err),
+                             "join_star": star_launches["segsum"],
+                             **{f"tpch_q{q}": n for q, n in
+                                tpch_launches["launches"].items()}},
+        "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"]),
         "ms": t_ms,
         "plain_ms": t_plain_ms,
         "bound_ms": t_bound_ms,

@@ -155,6 +155,41 @@ class Column:
 
         return encodings.encoded_nbytes(self)
 
+    def compact_dictionary(self) -> "Column":
+        """The column with a sorted dictionary of unique strings, so that
+        code order is string order (min/max and sort keys compare codes).
+        A sorted dictionary (pandas ingest's ``np.unique``) returns as it
+        stands; any other (an Arrow dictionary, in insertion order) is
+        re-encoded to the values the codes use, sorted, as the reference
+        does (on the host)."""
+        if self.dictionary is None or _sorted_unique(self.dictionary):
+            return self
+        from ..utils import count_d2h
+
+        if self.device.type != "cpu":
+            count_d2h()
+        codes = self.data.cpu().numpy()
+        used = np.unique(codes)
+        used = used[(used >= 0) & (used < len(self.dictionary))]
+        sub = self.dictionary[used].astype(str)
+        order = np.argsort(sub, kind="stable")
+        remap = np.zeros(max(len(self.dictionary), 1), dtype=np.int32)
+        remap[used[order]] = np.arange(len(used), dtype=np.int32)
+        new_codes = remap[np.clip(codes, 0, len(remap) - 1)]
+        return replace(self, data=_host_tensor(new_codes).to(self.device),
+                       dictionary=sub[order].astype(object))
+
+    def to(self, device) -> "Column":
+        """The column with its buffers on `device`."""
+        if self.device == torch.device(device):
+            return self
+
+        def move(t):
+            return None if t is None else t.to(device)
+
+        return replace(self, data=move(self.data), validity=move(self.validity),
+                       enc_lengths=move(self.enc_lengths))
+
     def cast(self, target: SqlType) -> "Column":
         from . import casts
 
@@ -234,6 +269,27 @@ class Column:
             out[mask] = np.nan
             return out
         return data
+
+
+#: sortedness verdicts of host dictionaries, by id (the array is kept
+#: alive by a weak reference check, so a reused id cannot alias)
+_SORTED: dict = {}
+
+
+def _sorted_unique(dictionary: np.ndarray) -> bool:
+    """Whether a string dictionary is strictly ascending (sorted, unique);
+    the verdict is kept per array, since columns share their dictionary."""
+    import weakref
+
+    got = _SORTED.get(id(dictionary))
+    if got is not None and got[0]() is dictionary:
+        return got[1]
+    d = dictionary.astype(str)
+    ok = len(d) < 2 or bool(np.all(d[1:] > d[:-1]))
+    if len(_SORTED) > 4096:
+        _SORTED.clear()
+    _SORTED[id(dictionary)] = (weakref.ref(dictionary), ok)
+    return ok
 
 
 def _merge_mask(a: Optional[np.ndarray], b: Optional[np.ndarray]) -> Optional[np.ndarray]:

@@ -121,6 +121,14 @@ class Table:
         return Table({n: c.slice(start, stop) for n, c in self.columns.items()},
                      stop - start, self.device)
 
+    def to(self, device) -> "Table":
+        """The table with every buffer on `device` (identity when there)."""
+        device = normalize_device(device)
+        if device == self.device:
+            return self
+        return Table({n: c.to(device) for n, c in self.columns.items()},
+                     self._num_rows, device)
+
     def filter(self, mask: torch.Tensor) -> "Table":
         # one nonzero for the whole table, then a gather per column
         return self.take(torch.nonzero(mask).flatten())

@@ -26,6 +26,9 @@ DEFAULTS: Dict[str, Any] = {
     # segment-sum mode: auto | scatter | matmul | pallas (the last two pick
     # the hand-written kernel, ops/segsum.py choose_segsum_impl)
     "sql.compile.segsum": "auto",
+    # the degradation ladder (resilience/ladder.py): off runs each rung bare,
+    # so a degradable failure propagates instead of stepping down
+    "resilience.ladder.enabled": True,
     # load-time column encodings (columnar/encodings.py): auto | off
     "columnar.encoding": "auto",
     "columnar.encoding.min_rows": 1024,

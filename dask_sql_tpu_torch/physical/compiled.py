@@ -18,6 +18,7 @@ only the group table's rows decode, on the host.
 from __future__ import annotations
 
 import logging
+import re
 from dataclasses import replace
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -43,15 +44,19 @@ from ..columnar.encodings import (
     gather_codes,
 )
 from ..columnar.table import Table
+from ..ops import datetime as dt_ops
 from ..ops import segsum as segsum_ops
+from ..ops import strings as str_ops
 from ..ops.membership import dictionary_membership, sorted_membership
 from ..planner import plan as p
 from ..planner.expressions import (
     AggExpr,
+    CaseExpr,
     Cast,
     ColumnRef,
     Expr,
     InArrayExpr,
+    InListExpr,
     Literal,
     ScalarFunc,
     transform,
@@ -69,6 +74,13 @@ _NUMERIC_BINOPS = {
     "gt": torch.gt, "ge": torch.ge,
 }
 
+_MATH_UNARY = {
+    "abs": torch.abs, "neg": torch.neg, "sqrt": torch.sqrt, "exp": torch.exp,
+    "ln": torch.log, "log10": torch.log10, "log2": torch.log2,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+    "floor": torch.floor, "ceil": torch.ceil, "sign": torch.sign,
+}
+
 #: above this domain the device compacts to the present groups before the
 #: pull; below it the whole packed matrix rides one transfer
 HOST_PULL_DOMAIN = 1 << 16
@@ -78,17 +90,13 @@ class _Unsupported(Exception):
     pass
 
 
-class _RunAligned(_Unsupported):
-    """A run-length-encoded column reached a row-positional pipeline."""
-
-
 def check_no_rle(table) -> None:
     """Run-length-encoded columns are run-aligned (storage at rest), so the
     row-positional pipelines decline them and the eager scan decodes them
     once (raises _Unsupported)."""
     for c in table.columns.values():
         if c.encoding is Encoding.RLE:
-            raise _RunAligned("rle-encoded column in compiled pipeline")
+            raise _Unsupported("rle-encoded column in compiled pipeline")
 
 
 def has_encoded(table) -> bool:
@@ -120,7 +128,7 @@ def count_codespace_predicates(exprs, table) -> int:
                     if c is not None and isinstance(litarg, Literal):
                         n += 1
                         break
-            elif isinstance(sub, InArrayExpr):
+            elif isinstance(sub, (InListExpr, InArrayExpr)):
                 try:
                     if ev._dict_source(sub.arg) is not None:
                         n += 1
@@ -543,8 +551,9 @@ class _TraceEval:
         self.table = table
         self.names = table.column_names
         self.device = table.device
-        #: DICT value arrays on the device, by slot (kept with the pipeline)
-        self._luts: Dict[int, torch.Tensor] = {}
+        #: lookup tables on the device, kept with the pipeline: DICT value
+        #: arrays by slot, string predicates by (slot, op, literal)
+        self._luts: Dict[object, torch.Tensor] = {}
 
     def col(self, index: int) -> Column:
         return self.table.columns[self.names[index]]
@@ -575,11 +584,39 @@ class _TraceEval:
             if dst == SqlType.BOOLEAN:
                 return (d != 0, v)
             return (d.to(torch_dtype(sql_to_np(dst))), v)
+        if isinstance(expr, CaseExpr):
+            return self._case(expr, slots)
+        if isinstance(expr, InListExpr):
+            return self._in_list(expr, slots)
         if isinstance(expr, InArrayExpr):
             return self._in_array(expr, slots)
         if isinstance(expr, ScalarFunc):
             return self._call(expr, slots)
         raise _Unsupported(f"expr {type(expr).__name__}")
+
+    def _case(self, expr: CaseExpr, slots):
+        """CASE: the branches fold from the last WHEN to the first, each
+        taking the rows its condition holds for (a NULL condition does not
+        hold); no ELSE gives NULL."""
+        if expr.sql_type in STRING_TYPES:
+            raise _Unsupported("string-valued CASE")
+        out_d = torch.zeros((), dtype=torch_dtype(sql_to_np(expr.sql_type)),
+                            device=self.device)
+        out_v = torch.zeros((), dtype=torch.bool, device=self.device)
+        if expr.else_ is not None:
+            out_d, out_v = self.eval(expr.else_, slots)
+        for cond, val in reversed(expr.whens):
+            cd, cv = self.eval(cond, slots)
+            take = cd if cv is None else (cd & cv)
+            vd, vv = self.eval(val, slots)
+            out_d = _where(take, vd, out_d)
+            if vv is None and out_v is None:
+                out_v = None
+            else:
+                vv_ = torch.ones_like(take) if vv is None else vv
+                ov_ = torch.ones_like(take) if out_v is None else out_v
+                out_v = torch.where(take, vv_, ov_)
+        return (out_d, out_v)
 
     # -- compressed-domain column access ------------------------------------
     def _decode_slot(self, index: int, slots):
@@ -604,7 +641,7 @@ class _TraceEval:
         elif enc is Encoding.FOR:
             d = decode_for(d, c.sql_type, c.enc_ref, c.enc_scale)
         else:
-            raise _RunAligned("rle-encoded column in compiled pipeline")
+            raise _Unsupported("rle-encoded column in compiled pipeline")
         slots[key] = (d, v)
         return (d, v)
 
@@ -665,29 +702,51 @@ class _TraceEval:
             return (hit, valid)
         return None
 
-    def _dict_membership(self, expr, slots, values):
+    def _dict_membership(self, arg: Expr, slots, values):
         """IN over a numeric DICT column: the value list maps through the
         sorted dictionary on the host (absent values drop out) and the codes
-        are tested on the device.  None when the list is not numeric."""
-        c = self._dict_source(expr.arg)
+        are tested on the device.  (hit, validity), or None when `arg` is
+        not such a column or the list is not numeric."""
+        c = self._dict_source(arg)
         if c is None:
             return None
         code_list = []
         for v in values:
-            if isinstance(v, (bool, np.bool_)) or not isinstance(
-                    v, (int, float, np.integer, np.floating)):
+            if not _is_number(v):
                 return None
             i = int(np.searchsorted(c.enc_values, v))
             if i < len(c.enc_values) and c.enc_values[i] == v:
                 code_list.append(i)
-        codes, valid = slots[expr.arg.index]
+        codes, valid = slots[arg.index]
         if code_list:
             hit = sorted_membership(codes, np.asarray(code_list,
                                                       dtype=np.int32))
         else:
             hit = torch.zeros(codes.shape, dtype=torch.bool,
                               device=codes.device)
-        return (~hit if expr.negated else hit, valid)
+        return (hit, valid)
+
+    def _membership(self, arg: Expr, values, slots):
+        """(hit, validity) of ``arg IN values``: a string column tests its
+        codes against the dictionary's members, a numeric DICT column its
+        codes against the values mapped into code space, anything else its
+        values."""
+        src = self._string_source(arg)
+        if src is not None:
+            codes, valid = slots[arg.index]
+            return dictionary_membership(codes, src.dictionary, values), valid
+        got = self._dict_membership(arg, slots, values)
+        if got is not None:
+            return got
+        ad, valid = self.eval(arg, slots)
+        if (values.dtype.kind in "iuf" if isinstance(values, np.ndarray)
+                else all(_is_number(v) for v in values)):
+            # exact for int columns against float items
+            return sorted_membership(ad, np.asarray(values)), valid
+        hit = torch.zeros(ad.shape, dtype=torch.bool, device=ad.device)
+        for v in values:
+            hit = hit | (ad == torch.tensor(v, device=ad.device))
+        return hit, valid
 
     def _string_source(self, expr: Expr) -> Optional[Column]:
         if isinstance(expr, ColumnRef) and type(expr) is ColumnRef:
@@ -696,46 +755,102 @@ class _TraceEval:
                 return c
         return None
 
+    def _in_list(self, expr: InListExpr, slots):
+        """IN (literal, ...).  A NULL item makes every row without a hit
+        NULL (SQL's three-valued IN, as the reference's eager evaluator has
+        it; its fused evaluator drops NULL items, so there
+        ``x NOT IN (1, NULL)`` keeps rows)."""
+        if not all(isinstance(it, Literal) for it in expr.items):
+            raise _Unsupported("non-literal IN list")
+        values = [it.value for it in expr.items if it.value is not None]
+        hit, valid = self._membership(expr.arg, values, slots)
+        if len(values) < len(expr.items):
+            valid = hit if valid is None else (valid & hit)
+        return (~hit if expr.negated else hit, valid)
+
+    def _pattern_lut(self, op: str, index: int, args) -> torch.Tensor:
+        """The bool lookup table of `op` (eq, ne, like, ilike, similar)
+        against a literal over string slot `index`'s host dictionary: one
+        regex match per dictionary entry, kept with the evaluator (so a
+        cached pipeline builds it once)."""
+        pattern = args[1].value
+        esc = None
+        if len(args) > 2 and isinstance(args[2], Literal):
+            esc = args[2].value
+        key = ("str", index, op, pattern, esc)
+        lut = self._luts.get(key)
+        if lut is not None:
+            return lut
+        src = self.col(index)
+        d = src.dictionary if src.dictionary is not None \
+            else np.array([""], dtype=object)
+        if op in ("eq", "ne"):
+            hits = d.astype(str) == pattern
+        else:
+            rx = (str_ops.similar_to_regex(pattern, esc) if op == "similar"
+                  else str_ops.like_to_regex(pattern, esc))
+            match = re.compile(rx, re.IGNORECASE if op == "ilike" else 0).match
+            hits = np.array([match(str(x)) is not None for x in d], dtype=bool)
+        if not len(hits):
+            hits = np.zeros(1, dtype=bool)
+        lut = self._luts[key] = torch.from_numpy(hits).to(self.device)
+        return lut
+
     def _in_array(self, expr: InArrayExpr, slots):
-        src = self._string_source(expr.arg)
-        if src is not None:
-            codes, valid = slots[expr.arg.index]
-            hit = dictionary_membership(codes, src.dictionary, expr.values)
-            return (~hit if expr.negated else hit, valid)
-        got = self._dict_membership(expr, slots, list(np.asarray(expr.values)))
-        if got is not None:
-            return got
-        ad, av = self.eval(expr.arg, slots)
-        hit = sorted_membership(ad, expr.values)
-        return (~hit if expr.negated else hit, av)
+        hit, valid = self._membership(expr.arg, np.asarray(expr.values), slots)
+        return (~hit if expr.negated else hit, valid)
 
     def _call(self, expr: ScalarFunc, slots):
         op = expr.op
         args = expr.args
-        if op in ("eq", "ne") and len(args) == 2:
+        # string comparisons and patterns against a literal: a lookup table
+        # over the column's host dictionary, gathered by the codes
+        if op in ("eq", "ne", "like", "ilike", "similar") and len(args) >= 2:
             src = self._string_source(args[0])
             lit = args[1]
             if src is not None and isinstance(lit, Literal) \
                     and isinstance(lit.value, str):
-                d = src.dictionary if src.dictionary is not None \
-                    else np.array([""], dtype=object)
-                lut = torch.from_numpy(d.astype(str) == lit.value)
+                lut = self._pattern_lut(op, args[0].index, args)
                 codes, valid = slots[args[0].index]
-                hit = lut.to(codes.device)[torch.clamp(codes, 0, len(d) - 1)]
+                hit = lut.to(codes.device)[torch.clamp(codes, 0,
+                                                       lut.shape[0] - 1)]
                 return (~hit if op == "ne" else hit, valid)
         # numeric comparisons against DICT-encoded columns run on the codes
         if op in ("eq", "ne", "lt", "le", "gt", "ge") and len(args) == 2:
             got = self._encoded_compare(op, args, slots)
             if got is not None:
                 return got
+        if op in ("datetime_floor", "datetime_ceil"):
+            # the unit is a string literal: read from the plan, not evaluated
+            unit = args[1].value if isinstance(args[1], Literal) else None
+            if unit is None:
+                raise _Unsupported("dynamic truncation unit")
+            ad, av = self.eval(args[0], slots)
+            fn = dt_ops.truncate if op == "datetime_floor" else dt_ops.ceil_to
+            return (fn(str(unit), ad), av)
         vals = [self.eval(a, slots) for a in args]
         if op in _NUMERIC_BINOPS:
             (ad, av), (bd, bv) = vals
             if args[0].sql_type in STRING_TYPES or args[1].sql_type in STRING_TYPES:
                 raise _Unsupported(f"string {op}")
-            dt = torch.promote_types(ad.dtype, bd.dtype)
-            return (_NUMERIC_BINOPS[op](ad.to(dt), bd.to(dt)),
-                    _and_valid(av, bv))
+            ad, bd = _promote_pair(ad, bd)
+            return (_NUMERIC_BINOPS[op](ad, bd), _and_valid(av, bv))
+        if op in ("div", "mod"):
+            # integers: division truncates toward zero and the remainder
+            # takes the dividend's sign; a zero divisor gives NULL
+            (ad, av), (bd, bv) = vals
+            ad, bd = _promote_pair(ad, bd)
+            if ad.is_floating_point() or ad.dtype == torch.bool:
+                out = ad / bd if op == "div" else torch.fmod(ad, bd)
+                return (out, _and_valid(av, bv))
+            safe = torch.where(bd == 0, torch.ones_like(bd), bd)
+            if op == "div":
+                q = torch.div(torch.abs(ad), torch.abs(safe),
+                              rounding_mode="floor")
+                out = torch.where((ad < 0) ^ (bd < 0), -q, q)
+            else:
+                out = torch.fmod(ad, safe)
+            return (out, _and_valid(av, bv, bd != 0))
         if op in ("and", "or"):
             (ad, av), (bd, bv) = vals
             a_t = ad if av is None else (ad & av)
@@ -752,7 +867,72 @@ class _TraceEval:
         if op == "not":
             (ad, av) = vals[0]
             return (~ad, av)
+        if op in ("is_null", "is_not_null"):
+            (ad, av) = vals[0]
+            base = (torch.zeros(ad.shape, dtype=torch.bool, device=ad.device)
+                    if av is None else ~av)
+            if ad.is_floating_point():
+                base = base | torch.isnan(ad)
+            return (base if op == "is_null" else ~base, None)
+        if op in ("is_true", "is_false", "is_not_true", "is_not_false"):
+            (ad, av) = vals[0]
+            av_ = torch.ones_like(ad) if av is None else av
+            t = ad & av_
+            f = ~ad & av_
+            out = {"is_true": t, "is_false": f,
+                   "is_not_true": ~t, "is_not_false": ~f}[op]
+            return (out, None)
+        if op in _MATH_UNARY:
+            (ad, av) = vals[0]
+            x = ad if op in ("abs", "neg", "sign") else ad.to(torch.float64)
+            return (_MATH_UNARY[op](x), av)
+        if op.startswith("extract_"):
+            (ad, av) = vals[0]
+            return (dt_ops.extract(op[8:], ad), av)
+        if op in ("datetime_add", "datetime_sub_interval"):
+            (ad, av), (bd, bv) = vals
+            if op == "datetime_sub_interval":
+                bd = -bd
+            if args[1].sql_type == SqlType.INTERVAL_YEAR_MONTH:
+                return (dt_ops.add_months(ad, bd), _and_valid(av, bv))
+            return (ad + bd, _and_valid(av, bv))
+        if op == "datetime_sub":
+            (ad, av), (bd, bv) = vals
+            return (ad - bd, _and_valid(av, bv))
+        if op == "int_to_interval_days":
+            (ad, av) = vals[0]
+            return (ad.to(torch.int64) * dt_ops.NS_PER_DAY, av)
+        if op == "coalesce":
+            # fold from the last fallback toward the first argument; an
+            # always-valid argument resets the chain to all-valid
+            out_d, out_v = vals[-1]
+            for d, v in reversed(vals[:-1]):
+                if v is None:
+                    out_d, out_v = d, None
+                    continue
+                base_valid = torch.ones_like(v) if out_v is None else out_v
+                out_d = _where(v, d, out_d)
+                out_v = v | base_valid
+            return (out_d, out_v)
         raise _Unsupported(f"op {op}")
+
+
+def _is_number(v) -> bool:
+    return isinstance(v, (int, float, np.integer, np.floating)) \
+        and not isinstance(v, (bool, np.bool_))
+
+
+def _promote_pair(a: torch.Tensor, b: torch.Tensor):
+    """Both operands in their promoted dtype.  Explicit, because torch lets
+    a 0-dim operand (a literal) promote less than a full tensor, where the
+    reference promotes by dtype alone."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt), b.to(dt)
+
+
+def _where(cond, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = _promote_pair(a, b)
+    return torch.where(cond, a, b)
 
 
 def _and_valid(*vs):
@@ -1003,43 +1183,30 @@ def _scan_chain_pipeline(rel, chain, executor):
     return compiled, table
 
 
-def try_compiled_aggregate(rel: p.Aggregate, executor) -> Table:
-    """Run an Aggregate subtree as one fused pipeline.  Raises
-    NotImplementedError, naming the reason, for a plan it does not take.
+def try_compiled_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
+    """Run an Aggregate over a scan chain as one fused pipeline; None when
+    the plan is not a scan chain or the pipeline declines it (a decline of
+    a chain is counted in ``metrics["compiled_aggregate.declined"]``), and
+    the next rung answers.
 
-    A scan under filters and projections is read in place, its filters
+    The scan under filters and projections is read in place, its filters
     deferred as a mask and its encoded columns as codes; each run counts
     the rows it decodes on the host in
-    ``metrics["columnar.encoding.late_rows"]``.  Any other input (a join
-    that the join pipeline declined), or a chain the pipeline declines (an
-    RLE column, counted in ``metrics["compiled_aggregate.declined"]``),
-    runs through the eager plugins first, and the pipeline reduces the
-    table they produce as its scan."""
+    ``metrics["columnar.encoding.late_rows"]``."""
     if not executor.config.get("sql.compile", True):
-        raise NotImplementedError(
-            "sql.compile is off, and the eager aggregate is not in the port yet")
-    metrics = executor.context.metrics
+        return None
     chain = _extract_chain(rel)
-    if chain is not None:
-        try:
-            compiled, table = _scan_chain_pipeline(rel, chain, executor)
-        except _RunAligned as e:
-            logger.info("compiled aggregate declined the scan chain: %s", e)
-            metrics.inc("compiled_aggregate.declined")
-        except _Unsupported as e:
-            raise NotImplementedError(
-                f"compiled aggregate declined the plan: {e}") from e
-        else:
-            result = compiled.run(table)
-            if compiled.has_encoded:
-                # late materialization: only the group table's rows decode
-                metrics.inc("columnar.encoding.late_rows", result.num_rows)
-            metrics.inc("resilience.rung.compiled_aggregate")
-            return result
-    table = executor.execute(rel.input)
+    if chain is None:
+        return None
+    metrics = executor.context.metrics
     try:
-        compiled = CompiledAggregate(rel, table, [], list(rel.group_exprs),
-                                     list(rel.agg_exprs), executor.config)
-        return compiled.run(table)
+        compiled, table = _scan_chain_pipeline(rel, chain, executor)
+        result = compiled.run(table)
     except _Unsupported as e:
-        raise NotImplementedError(f"compiled aggregate declined the plan: {e}") from e
+        logger.info("compiled aggregate declined the scan chain: %s", e)
+        metrics.inc("compiled_aggregate.declined")
+        return None
+    if compiled.has_encoded:
+        # late materialization: only the group table's rows decode
+        metrics.inc("columnar.encoding.late_rows", result.num_rows)
+    return result

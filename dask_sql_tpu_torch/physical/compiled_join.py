@@ -230,9 +230,6 @@ class CompiledJoinAggregate:
         # same table versions by the pipeline cache
         self.luts: List[Tuple[int, torch.Tensor]] = []
         for j, bt in zip(ext.joins, build_tables):
-            if bt.device != probe_table.device:
-                # an aggregate's result lives on the host
-                raise _Unsupported("build side on another device")
             kc = executor.eval_expr(j["rkey"], bt)
             if kc.sql_type in STRING_TYPES:
                 raise _Unsupported("string join key")
@@ -550,7 +547,10 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
             return None
         # build sides run through the eager converters (filtered scans,
         # nested joins, anything), compacted
-        build_tables = [executor.execute(j["plan"]) for j in ext.joins]
+        # an aggregate's group table lives on the host: it moves to the
+        # probe's device
+        build_tables = [executor.execute(j["plan"]).to(probe_table.device)
+                        for j in ext.joins]
         key = (
             tuple(uids),
             ext.scan.schema_name, ext.scan.table_name,
@@ -578,8 +578,8 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
         if built_here and compiled.codespace_preds:
             ctx.metrics.inc("columnar.encoding.codespace_pred",
                             compiled.codespace_preds)
-        ctx.metrics.inc("compiled_join.run")
         result = compiled.run(probe_table, build_tables)
+        ctx.metrics.inc("compiled_join.run")
         if compiled.has_encoded:
             ctx.metrics.inc("columnar.encoding.late_rows", result.num_rows)
         return result

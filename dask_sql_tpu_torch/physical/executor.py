@@ -1,9 +1,10 @@
 """Physical executor: walks the logical plan and produces Tables.
 
-Counterpart of `dask_sql_tpu/physical/executor.py` without the degradation
-ladder: the plan root first tries the compiled root select
-(`compiled_select.py`), then each plan node goes to the plugin registered
-for its node type.
+Counterpart of `dask_sql_tpu/physical/executor.py` on one device: the plan
+root first tries the compiled root select (`compiled_select.py`) as a rung
+of the degradation ladder (`resilience/ladder.py`), then the interpreted
+walk, where each plan node goes to the plugin registered for its node
+type.
 """
 from __future__ import annotations
 
@@ -32,16 +33,16 @@ class Executor:
     def execute_root(self, rel: LogicalPlan) -> Table:
         """Entry for the plan ROOT, whose result goes straight to the host:
         a root select chain runs as the compiled select (two programs, two
-        transfers; counted in ``metrics["resilience.rung.compiled_select"]``,
-        as the reference's ladder counts its rung), anything else as the
-        eager walk."""
+        transfers), the `compiled_select` rung of the ladder; anything else,
+        or a degradable failure there, takes the interpreted walk."""
+        from ..resilience import ladder
         from .compiled_select import try_compiled_select
 
-        out = try_compiled_select(rel, self)
+        out = ladder.attempt(self, "compiled_select",
+                             lambda: try_compiled_select(rel, self), rel=rel)
         if out is not None:
-            self.context.metrics.inc("resilience.rung.compiled_select")
             return out
-        return self.execute(rel)
+        return ladder.execute_interpreted(self, rel)
 
     def execute(self, rel: LogicalPlan) -> Table:
         key = id(rel)

@@ -40,10 +40,11 @@ class JoinPlugin(BaseRelPlugin):
             raise NotImplementedError(
                 f"join type {rel.join_type} is not in the port yet")
         left, right = self.assert_inputs(rel, 2, executor)
-        if left.device != right.device:
-            raise NotImplementedError(
-                f"join of a table on {left.device} with one on {right.device} "
-                "(an aggregate's host result) is not in the port yet")
+        # an aggregate's group table lives on the host: it joins on the
+        # device of the other side
+        if left.device.type == "cpu":
+            left = left.to(right.device)
+        right = right.to(left.device)
         nleft = len(rel.left.schema)
         if rel.on:
             lkeys = [executor.eval_expr(lk, left) for lk, _ in rel.on]

@@ -2,9 +2,12 @@
 
 Counterpart of `dask_sql_tpu/physical/rex/convert.py`.  Column references
 pass through; every other expression is evaluated by the pipeline's
-evaluator (`physical/compiled.py` `_TraceEval`: literals, casts, arithmetic,
-comparisons, AND/OR/NOT), so the eager operators and the fused aggregate
-share one set of semantics.
+evaluator (`physical/compiled.py` `_TraceEval`: literals, casts,
+arithmetic and division, comparisons, AND/OR/NOT, CASE, IN lists, LIKE,
+the IS predicates, math, EXTRACT and datetime arithmetic, COALESCE), so the
+eager operators and the fused pipelines share one set of semantics.
+String-valued expressions other than column references are not in the
+port yet.
 """
 from __future__ import annotations
 

@@ -1,14 +1,16 @@
-"""Where the time of TPC-H Q1 at SF1 (or of Q3, or of the root select) goes
-in the PyTorch port, on one CUDA card.
+"""Where the time of TPC-H Q1 at SF1 (or of Q3, q9, q12, q14, or of the root
+select) goes in the PyTorch port, on one CUDA card.
 
 Run from the root of a checkout on a machine with the card:
 
-    python3 profile_q1.py [--query q1|q3|select]
+    python3 profile_q1.py [--query q1|q3|q9|q12|q14|select]
 
 For Q1 (the default) it loads 6,000,000 synthetic ``lineitem`` rows (the
 generator and query of ``chip_smoke.py``); for Q3 the customer, orders and
 lineitem tables of ``tests/tpch.py generate(scale_rows=1_000_000)``, the
-scale of ``bench.py``'s Q3 line; for ``select`` the same 6,000,000 rows and
+scale of ``bench.py``'s Q3 line; for q9 (the eager aggregate), q12 (eager
+joins under an eager aggregate) and q14 (the join pipeline) all eight
+tables of that generator; for ``select`` the same 6,000,000 rows and
 ``bench.py``'s root top-k select.  Tables load with the column encodings
 the reference picks.  It warms the query up, then prints JSON
 lines, each phase named after the query: the host time of
@@ -127,14 +129,16 @@ def load(query: str):
     from tests.tpch import QUERIES, generate
 
     tables = generate(scale_rows=Q3_ROWS, seed=7)
-    for name in ("customer", "orders", "lineitem"):
+    names = ("customer", "orders", "lineitem") if query == "q3" else tables
+    for name in names:
         c.create_table(name, tables[name])
-    return c, QUERIES[3], Q3_ROWS
+    return c, QUERIES[int(query[1:])], Q3_ROWS
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--query", choices=("q1", "q3", "select"),
+    parser.add_argument("--query",
+                        choices=("q1", "q3", "q9", "q12", "q14", "select"),
                         default="q1")
     q = parser.parse_args().query
     if not torch.cuda.is_available():

@@ -48,6 +48,13 @@ c.sql("SELECT l_returnflag, l_extendedprice * (1 - l_discount) AS rev "
       "FROM li WHERE l_discount > 0.09 ORDER BY rev DESC LIMIT 100").compute()
 assert c.metrics["columnar.encoding.codespace_pred"] >= 1, dict(c.metrics)
 assert c.metrics["resilience.rung.compiled_select"] == 1, dict(c.metrics)
+# q9 (the eager aggregate over a LIKE filter and EXTRACT) and q14 (CASE
+# over LIKE in the join pipeline) with every TPC-H table
+for t in ("region", "nation", "supplier", "part", "partsupp"):
+    c.create_table(t, tables[t])
+assert len(c.sql(QUERIES[9]).compute()) > 0
+assert len(c.sql(QUERIES[14]).compute()) == 1
+assert c.metrics["resilience.rung.compiled_join_aggregate"] == 2, dict(c.metrics)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dask_sql_tpu"))
 assert not bad, bad
