@@ -5,8 +5,12 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
     python3 chip_smoke.py
 
 It builds every kernel of the port from ``dask_sql_tpu_torch/csrc`` (one
-``nvcc`` per source, started together), holds each kernel against its plain
-PyTorch version on the card, and drives these paths through
+``nvcc`` per source, started together) and, beside them, the native C++
+planner from ``native/*.cpp`` (``g++``, into ``dask_sql_tpu_torch/_build``),
+holds each kernel against its plain PyTorch version on the card, checks
+that the float64 scatter of large group domains gives the same bits on
+every run (q15 compares two sums computed apart), and drives these paths
+through
 ``Context(device="cuda")``, each checked against a float64 pandas/numpy
 oracle: TPC-H Q1 at SF1 (6,000,000 synthetic ``lineitem`` rows, loaded with
 the column encodings the reference picks: DICT ``l_quantity`` and
@@ -17,20 +21,25 @@ and a select filtered on a DICT column (the compiled select: two transfers,
 phase times), TPC-H Q3 over ``tests/tpch.py
 generate(scale_rows=1_000_000)`` (the scale of ``bench.py``'s Q3 line, on
 its encoded columns; the compiled join->aggregate pipeline, one transfer
-and a plan-cache hit per warm run), TPC-H q5, q7, q8, q9, q10, q12, q14,
-q17 and q19 on all eight tables of those frames (the eager aggregate and
-the compiled rungs: each query's rungs, transfers and kernel launches,
-checked against the port on the CPU and, for q14 and q19, a float64
-oracle; no rung may step down), and a star join of 6,000,000 fact rows
+and a plan-cache hit per warm run), every other TPC-H query (q2, q4-q22)
+on all eight tables of those frames (the eager aggregate, the compiled
+rungs, the outer, semi, anti and mark joins, subqueries and SUBSTRING:
+each query's rungs, transfers and kernel launches, checked against the
+port on the CPU and, for q14 and q19, a float64 oracle; no rung may step
+down), and a star join of 6,000,000 fact rows
 through that pipeline into the segment-sum kernel.  For each loaded frame
 it prints the encoded columns and the card memory they take, encoded and,
 for Q1's table, loaded PLAIN, and checks every encoded column's decoded
 buffer against the host's PLAIN values exactly.  It times each query
-cold and warm, Q1's planning cold and from the plan cache, and the kernel,
+cold and warm, Q1's planning cold with the native planner and with the
+Python one (it fails when the native planner did not plan) and from the
+plan cache, Q1 with three new date literals (one plan family: the first
+builds the fused pipeline, the next two count ``families.hit``, one
+transfer each, each against its float64 oracle), and the kernel,
 its plain version and the PyTorch library call that computes the same
 function, at the typed shape Q1 gives the kernel and at the ``[k, n]``
 stacked shape of earlier work; the kernel is also held against its plain
-version on the very call the star join makes.  The kernel is timed on the card alone (``ms``, behind a spin kernel),
+version on the very calls the star join and q4, q9, q14 and q22 make.  The kernel is timed on the card alone (``ms``, behind a spin kernel),
 with the host issuing each call in the loop (``unspun_ms``, the way the plain
 version and the library call are timed), and on the host (``host_us`` to
 issue one call).  Each phase prints one line.  The second-to-last lines
@@ -79,18 +88,33 @@ STAR_QUERY = ("SELECT d1_cat, SUM(f_val) AS s, COUNT(*) AS n "
               "WHERE d2_region = 'r2' AND f_qty > 3 "
               "GROUP BY d1_cat ORDER BY d1_cat")
 WARM_RUNS = 5
-#: TPC-H queries of the eager aggregate and the compiled rungs, run on the
-#: Q3 frames (all eight tables) by the `tpch_more` phase
-TPCH_MORE = (5, 7, 8, 9, 10, 12, 14, 17, 19)
-#: the rungs each answers on at these frames, as the reference's do (the
-#: eager aggregate counts none).  q17's join pipeline declines here in both
-#: engines: its filtered part keys are too sparse in 1..100,000 for a
-#: lookup table, so its outer sum answers on the eager rung
-TPCH_RUNGS = {14: ("compiled_join_aggregate",),
-              19: ("compiled_join_aggregate",),
-              17: ("compiled_aggregate",)}
-#: queries whose segment sums must reach the kernel in every run
-TPCH_KERNEL = (14, 17, 19)
+REPEATS = 10  # runs of one segment sum that must give the same bits
+#: every other TPC-H query, run on the Q3 frames (all eight tables) by the
+#: `tpch_more` phase: the eager aggregate, the compiled rungs, the outer,
+#: semi, anti and mark joins, subqueries and SUBSTRING
+TPCH_MORE = (2, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18, 19,
+             20, 21, 22)
+#: the rungs each answers on at these frames, and how often a query takes
+#: each (the eager aggregate counts none), as the port on the CPU answers
+#: them.  q17's join pipeline declines here: its filtered part keys are too
+#: sparse in 1..100,000 for a lookup table, so its outer sum answers on the
+#: eager rung
+TPCH_RUNGS = {2: {"compiled_join_aggregate": 1},
+              6: {"compiled_aggregate": 1},
+              11: {"compiled_join_aggregate": 2},
+              14: {"compiled_join_aggregate": 1},
+              15: {"compiled_aggregate": 2},
+              17: {"compiled_aggregate": 1},
+              18: {"compiled_aggregate": 1},
+              19: {"compiled_join_aggregate": 1}}
+#: queries whose segment sums must reach the kernel in every run (a group
+#: domain of at most 2048 in an aggregate over tables on the card; q15's
+#: small one reduces the host group table of its revenue view)
+TPCH_KERNEL = (4, 6, 11, 13, 14, 17, 19, 22)
+#: queries whose kernel calls are held against the plain version
+TPCH_CALLS = (4, 9, 14, 22)
+#: Q1's date literals of the `families` phase: one family, three members
+FAMILY_DATES = ("1998-08-01", "1997-06-30", "1995-03-15")
 TPCH_REL = 1e-9  # float64 sums on the card and on the CPU
 SELECT_QUERY = ("SELECT l_returnflag, l_extendedprice * (1 - l_discount) AS rev "
                 "FROM lineitem WHERE l_discount > 0.09 "
@@ -125,9 +149,9 @@ def gen_lineitem(n: int, seed: int = 0):
     )
 
 
-def q1_oracle(df):
+def q1_oracle(df, date: str = "1998-09-02"):
     """Q1 in float64 numpy/pandas, from the same frame."""
-    sel = df[df.l_shipdate <= np.datetime64("1998-09-02")]
+    sel = df[df.l_shipdate <= np.datetime64(date)]
     price = sel.l_extendedprice.to_numpy(np.float64)
     disc = sel.l_discount.to_numpy(np.float64)
     tax = sel.l_tax.to_numpy(np.float64)
@@ -379,6 +403,7 @@ def run_select(c, sql, transfers, check, label):
     times, each on the compiled select rung with two transfers (one when
     nothing survives) and checked by `check(result)`.  Returns
     (cold ms, warm ms list, per-phase median ms)."""
+    from dask_sql_tpu_torch import families
     from dask_sql_tpu_torch.physical import compiled_select
 
     def one(times=None):
@@ -400,10 +425,15 @@ def run_select(c, sql, transfers, check, label):
     # synchronized between them
     pipe = next(reversed(compiled_select._cache.values()))
     table = c.schema["root"].tables["lineitem"].table
+    # the query's family parameters, lifted as the select rung lifts them
+    scan, upper, proj = compiled_select._extract(c.sql(sql)._plan)[:3]
+    pz = families.pipeline_parameterizer(c.config)
+    for e in list(upper) + list(scan.filters) + list(proj.exprs):
+        pz.rewrite(e)
     laps = []
     for _ in range(WARM_RUNS):
         times = {}
-        pipe.run(table.select(pipe.scan_names), times)
+        pipe.run(table.select(pipe.scan_names), pz.params, times)
         laps.append(times)
     phases = {k: float(np.median([t[k] for t in laps])) for k in laps[0]}
     return cold_ms, runs, phases
@@ -604,6 +634,52 @@ def check_kernel(segsum, gid, cols, domain, n_counts, label):
     return max_abs
 
 
+def repeatability(segsum, card) -> None:
+    """The float64 scatter of the group domains above the kernel's cutoff
+    must give the same bits on every run: q15 keeps the supplier whose
+    revenue equals the largest revenue, two sums computed apart, so a sum
+    that moves in its last bits loses the row.  `SortedSegments` (the sort
+    included) runs REPEATS times at q15's call shape (one float64 column
+    over 10,000 suppliers) and at a skewed one (most rows at id 0, as the
+    unselected probe rows of a join pipeline) and fails on any bit that
+    differs from its first run; it is timed beside ``index_add_``, whose
+    runs that moved are reported, as are the kernel's at domains 12 and
+    2048, not checked."""
+    def moved(fn):
+        first = fn()
+        return sum(not torch.equal(fn(), first) for _ in range(REPEATS))
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for label, n, domain, skew in (("q15_shape", 1_000_000, 10_000, 0.0),
+                                   ("skewed", 1_000_000, 250_000, 0.9)):
+        gid = torch.randint(0, domain, (n,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        gid[torch.rand(n, generator=g, device="cuda") < skew] = 0
+        x = torch.rand(n, generator=g, device="cuda", dtype=torch.float64) * 1e5
+        sorted_sum = lambda: segsum.SortedSegments(gid, domain).sum(x)  # noqa: E731
+        index_add = lambda: torch.zeros(  # noqa: E731
+            domain, dtype=torch.float64, device="cuda").index_add_(0, gid, x)
+        sorted_moved = moved(sorted_sum)
+        if sorted_moved:
+            fail(f"SortedSegments {label} changed its bits in {sorted_moved} "
+                 f"of {REPEATS} runs")
+        phase("repeatability", card=card, case=label, n=n, domain=domain,
+              skew=skew, repeats=REPEATS, sorted_runs_moved=sorted_moved,
+              sorted_ms=cuda_ms(sorted_sum, 5),
+              index_add_runs_moved=moved(index_add),
+              index_add_ms=cuda_ms(index_add, 5),
+              max_abs_diff=float((sorted_sum() - index_add()).abs().max()))
+    for domain in (12, 2048):
+        gid = torch.randint(0, domain, (1_000_000,), generator=g,
+                            device="cuda", dtype=torch.int32)
+        x = torch.rand(1_000_000, generator=g, device="cuda",
+                       dtype=torch.float64) * 1e5
+        phase("repeatability", card=card, case=f"kernel_domain_{domain}",
+              n=1_000_000, domain=domain, repeats=REPEATS,
+              kernel_runs_moved=moved(
+                  lambda: segsum.segsum_typed(gid, [(x, None)], domain)))
+
+
 def like_table_ms(c, table: str, column: str, pattern: str):
     """(median ms, entries) of building a LIKE lookup table over the host
     dictionary of `table.column` (one regex match per distinct value), as
@@ -619,7 +695,8 @@ def like_table_ms(c, table: str, column: str, pattern: str):
     runs = []
     for _ in range(WARM_RUNS):
         t0 = time.perf_counter()
-        _TraceEval(t)._pattern_lut("like", idx, args)
+        _TraceEval(t)._pattern_lut("like", ("col", idx),
+                                   t.columns[column].dictionary, args)
         torch.cuda.synchronize()
         runs.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(runs)), len(t.columns[column].dictionary)
@@ -631,8 +708,8 @@ def tpch_more(all_tables, card, segsum, transfers):
     set to 0 just before the query's runs and read just after), checked
     against the port on the CPU and, for q14 and q19, a float64 oracle.
     Returns {"launches": {query: n}, "max_abs_err": x}: the kernel is also
-    held against its plain version on a call q9 (eager) and q14 (join
-    pipeline) make."""
+    held against its plain version on a call q4, q9, q22 (eager) and q14
+    (join pipeline) make."""
     from dask_sql_tpu_torch import Context
     from tests.tpch import QUERIES
 
@@ -685,8 +762,8 @@ def tpch_more(all_tables, card, segsum, transfers):
         launches[q] = segsum.LAUNCHES["segsum"]
         rungs = {k: v - before.get(k, 0) for k, v in rung_counts(ct).items()
                  if v != before.get(k, 0)}
-        expected = {f"resilience.rung.{r}": 1 + WARM_RUNS
-                    for r in TPCH_RUNGS.get(q, ())}
+        expected = {f"resilience.rung.{r}": n * (1 + WARM_RUNS)
+                    for r, n in TPCH_RUNGS.get(q, {}).items()}
         if rungs != expected:
             fail(f"q{q} answered on rungs {rungs}, expected {expected}")
         if {k: v * (1 + WARM_RUNS) for k, v in cpu_rungs.items()} != expected:
@@ -706,18 +783,20 @@ def tpch_more(all_tables, card, segsum, transfers):
     typed = segsum.segsum_typed
 
     def capture(gid, columns, domain):
-        captured.setdefault(q, (gid, list(columns), domain))
+        captured.setdefault(q, []).append((gid, list(columns), domain))
         return typed(gid, columns, domain)
 
     segsum.segsum_typed = capture
     try:
-        for q in (9, 14):
+        for q in TPCH_CALLS:
             ct.sql(QUERIES[q]).compute()
     finally:
         segsum.segsum_typed = typed
     err = 0.0
-    for q, (gid, cols, domain) in captured.items():
-        err = max(err, check_typed(segsum, gid, cols, domain, f"tpch_q{q}_call"))
+    for q, calls in captured.items():
+        for i, (gid, cols, domain) in enumerate(calls):
+            err = max(err, check_typed(segsum, gid, cols, domain,
+                                       f"tpch_q{q}_call{i}"))
     like_ms, entries = like_table_ms(ct, "part", "p_name", "%green%")
     phase("like_table", card=card, column="part.p_name", pattern="%green%",
           entries=entries, ms=like_ms)
@@ -738,10 +817,17 @@ def main() -> int:
     phase("card", nvidia_smi=card, kind=kind, count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda)
 
-    # 2. build: every kernel source at once
+    # 2. build: every kernel source at once, and the native planner beside
+    # them
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
-    built = _build.build()
-    phase("build", seconds=time.perf_counter() - t0, compiled=built)
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(_build.native_library)
+        built = _build.build()
+        native_path = native.result()
+    phase("build", seconds=time.perf_counter() - t0, compiled=built,
+          native_planner=native_path.name)
 
     # 3. each kernel against its plain version, at the main path's shapes
     q1_domain, q1_k, q1_counts = 12, 13, 6
@@ -785,6 +871,7 @@ def main() -> int:
         pass
     phase("segsum_check", case="max_domain", domain=segsum.KERNEL_MAX_DOMAIN)
     del g_, c_
+    repeatability(segsum, card)
 
     # 4. Q1 at SF1 through the port's entry points, on the card, over the
     # columns the reference loads (each path runs with the launch counts
@@ -824,21 +911,71 @@ def main() -> int:
     phase("q1_time", card=card, ms=q1_ms, runs_ms=runs,
           rows_per_s=N_ROWS / (q1_ms / 1e3))
 
-    # 6. Q1's planning: cold (parse, bind, optimize) and from the plan cache
-    cold_plan, warm_plan = [], []
-    for _ in range(WARM_RUNS):
-        c._plan_cache.clear()
-        t0 = time.perf_counter()
-        c.sql(QUERY)
-        cold_plan.append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
-        c.sql(QUERY)
-        warm_plan.append((time.perf_counter() - t0) * 1e3)
+    # 6. Q1's planning: cold with the native planner (parse, bind, the rule
+    # loop and join reordering in C++), cold with the Python planner, and
+    # from the plan cache
+    python_plan = {"sql.native.binder": "off"}
+    binders = ("planner.native.plan", "planner.native.bind",
+               "planner.python.bind")
+    cold_plan, python_cold_plan, warm_plan = [], [], []
+    ran = {}
+    for options, runs_ in ((None, cold_plan), (python_plan, python_cold_plan)):
+        before = {k: c.metrics[k] for k in binders}
+        for _ in range(WARM_RUNS):
+            c._plan_cache.clear()
+            t0 = time.perf_counter()
+            c.sql(QUERY, config_options=options)
+            runs_.append((time.perf_counter() - t0) * 1e3)
+            if options is None:
+                t0 = time.perf_counter()
+                c.sql(QUERY)
+                warm_plan.append((time.perf_counter() - t0) * 1e3)
+        ran["python" if options else "native"] = {
+            k: c.metrics[k] - before[k] for k in binders if c.metrics[k] != before[k]}
+    if ran["native"] != {"planner.native.plan": WARM_RUNS}:
+        fail(f"the native planner did not plan Q1: {ran['native']}")
+    if ran["python"] != {"planner.python.bind": WARM_RUNS}:
+        fail(f"sql.native.binder = off did not plan in Python: {ran['python']}")
     if c.metrics["planner.optimize.fallback"]:
         fail("the optimizer fell back to an unoptimized plan")
     phase("plan", card=card, query="q1", cold_ms=float(np.median(cold_plan)),
+          python_cold_ms=float(np.median(python_cold_plan)),
           warm_ms=float(np.median(warm_plan)), cold_runs_ms=cold_plan,
-          warm_runs_ms=warm_plan)
+          python_cold_runs_ms=python_cold_plan, warm_runs_ms=warm_plan,
+          binders=ran)
+
+    # 6b. plan families: Q1 with three new date literals.  The first builds
+    # the fused pipeline of the family, the next two reuse it
+    # (``families.hit``), each with one transfer and its own answer
+    from dask_sql_tpu_torch.physical import compiled as compiled_agg
+
+    compiled_agg._cache.clear()
+    family_runs = []
+    for i, date in enumerate(FAMILY_DATES):
+        sql = QUERY.replace("DATE '1998-09-02'", f"DATE '{date}'")
+        fam_want = q1_oracle(df, date)
+        hits = c.metrics["families.hit"]
+        TRANSFER_STATS["d2h"] = 0
+        t0 = time.perf_counter()
+        got = c.sql(sql).compute()
+        ms = (time.perf_counter() - t0) * 1e3
+        if TRANSFER_STATS["d2h"] != 1:
+            fail(f"Q1 on {date} made {TRANSFER_STATS['d2h']} transfers")
+        if c.metrics["families.hit"] - hits != (1 if i else 0):
+            fail(f"Q1 on {date}: families.hit moved "
+                 f"{c.metrics['families.hit'] - hits}, expected {1 if i else 0}")
+        rel = check_q1(got, fam_want, f"Q1 on {date}")
+        warm = warm_runs(c, sql, TRANSFER_STATS,
+                         lambda g, w=fam_want, d=date: check_q1(g, w, d))
+        family_runs.append({"date": date, "first_ms": ms,
+                            "warm_ms": float(np.median(warm)),
+                            "pipeline": "hit" if i else "built",
+                            "max_rel_err": rel})
+    if len(compiled_agg._cache) != 1:
+        fail(f"the family built {len(compiled_agg._cache)} pipelines")
+    phase("families", card=card, query="q1", runs=family_runs,
+          parameterized=c.metrics["families.parameterized"],
+          hits=c.metrics["families.hit"])
 
     # 7. the same Q1 over PLAIN columns, timed beside the encoded one in
     # turns (encoded, plain, ...)

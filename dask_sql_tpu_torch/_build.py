@@ -1,10 +1,15 @@
-"""Build and bind the port's CUDA kernels.
+"""Build and bind the port's CUDA kernels and its native planner.
 
 Each source under ``csrc/`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, in ``_build/`` next to this file
 (listed in ``.gitignore``), and loads with ``ctypes``.  A library is built at
 first use and named by a hash of its source and flags, so an edited source
 rebuilds.  `build()` starts one ``nvcc`` per missing library, all at once.
+
+The native planner (the repo's ``native/*.cpp``: tokenizer, parser, binder
+and core optimizer) compiles with ``g++`` and the flags of
+``native/Makefile`` into the same directory (`native_library`), under a
+file lock so that concurrent processes build it once.
 """
 from __future__ import annotations
 
@@ -20,6 +25,10 @@ from typing import Dict, Iterable, Optional
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
+#: the native planner's sources, shared with the JAX package (read only)
+NATIVE_DIR = _HERE.parent / "native"
+NATIVE_SOURCES = ("tokenizer.cpp", "parser.cpp", "binder.cpp")
+GXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-shared"]
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -106,3 +115,46 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
         return lib
+
+
+def native_library_path() -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    for name in NATIVE_SOURCES:
+        h.update(name.encode())
+        h.update((NATIVE_DIR / name).read_bytes())
+    return BUILD_DIR / f"libdsql_native-{h.hexdigest()[:16]}.so"
+
+
+def native_library() -> Path:
+    """Path of the native planner library, compiled first when missing
+    (about 20 s of ``g++``).  A file lock makes concurrent processes wait
+    for one build; raises RuntimeError when the sources are absent or
+    ``g++`` fails."""
+    import fcntl
+
+    missing = [n for n in NATIVE_SOURCES if not (NATIVE_DIR / n).exists()]
+    if missing:
+        raise RuntimeError(f"native planner sources missing: {missing}")
+    target = native_library_path()
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / ".native.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if target.exists():
+            return target
+        gxx = shutil.which("g++") or shutil.which("c++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: the native planner is not built")
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [gxx, *GXX_FLAGS, "-o", str(tmp),
+               *(str(NATIVE_DIR / n) for n in NATIVE_SOURCES)]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"g++ failed for the native planner (rc {proc.returncode}):\n"
+                f"{proc.stdout}")
+        os.replace(tmp, target)
+    return target

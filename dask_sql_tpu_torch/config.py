@@ -12,6 +12,8 @@ from typing import Any, Dict, Optional
 
 DEFAULTS: Dict[str, Any] = {
     "sql.identifier.case_sensitive": True,
+    # the native C++ planner (planner/native_bridge.py): auto | on | off
+    "sql.native.binder": "auto",
     "sql.optimize": True,
     "sql.predicate_pushdown": True,
     "sql.dynamic_partition_pruning": True,
@@ -26,6 +28,9 @@ DEFAULTS: Dict[str, Any] = {
     # segment-sum mode: auto | scatter | matmul | pallas (the last two pick
     # the hand-written kernel, ops/segsum.py choose_segsum_impl)
     "sql.compile.segsum": "auto",
+    # plan families (families/): literals lift into runtime parameters and
+    # the compiled pipelines' caches key on the parameterized expressions
+    "families.enabled": True,
     # the degradation ladder (resilience/ladder.py): off runs each rung bare,
     # so a degradable failure propagates instead of stepping down
     "resilience.ladder.enabled": True,

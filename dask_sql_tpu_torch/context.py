@@ -3,12 +3,14 @@
 Counterpart of `dask_sql_tpu/context.py`, lean: `create_table`, `sql` and a
 lazy frame whose `compute()` returns pandas.  Tables live on the context's
 device, which is the CUDA card unless the caller asks for the CPU.  Plans
-come from the Python parser and binder, then the optimizer (the structural
-rule loop, join reordering and dynamic partition pruning), as the
-reference plans with its native planner off; a plan cache keyed by the SQL
-text, the catalog's table uids and the config lets a repeated query skip
-all of that.  The serving, result-cache, admission and observability tiers
-of the reference are not ported yet.
+come as the reference makes them: the native C++ planner (parse, bind, the
+structural rule loop and join reordering; `planner/native_bridge.py`),
+with the Python parser and binder as its fallback, then the rest of the
+optimizer (dynamic partition pruning), then plan-family parameterization
+(`families/`).  A plan cache keyed by the SQL text, the catalog's table
+uids and the config lets a repeated query skip all of that.  The serving,
+result-cache, admission and observability tiers of the reference are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -101,6 +103,8 @@ class Context:
         self.metrics = Metrics()
         #: plan-cache key -> optimized plan (LRU, `_PLAN_CACHE_CAP` entries)
         self._plan_cache: "OrderedDict[Tuple, Any]" = OrderedDict()
+        #: (catalog key, native catalog bytes) of the last native plan
+        self._catalog_buf_cache: Optional[Tuple[Tuple, Optional[bytes]]] = None
 
     def create_table(self, table_name: str, input_table: Any,
                      schema_name: Optional[str] = None) -> None:
@@ -148,7 +152,7 @@ class Context:
                 statements = parse_sql(sql)
                 if len(statements) != 1:
                     raise NotImplementedError("one statement per call in the port")
-                plan = self._get_ral(statements[0])
+                plan = self._get_ral(statements[0], sql_text=sql)
                 if isinstance(plan, plan_nodes.CustomNode):
                     raise NotImplementedError(
                         f"{type(plan).__name__} statements are not in the port yet")
@@ -188,29 +192,100 @@ class Context:
                 for name, dc in self.schema[schema_name].tables.items())))
         return parts
 
-    def _get_ral(self, stmt):
+    def _get_ral(self, stmt, sql_text: Optional[str] = None):
         """AST -> bound plan -> optimized plan, as the reference's
-        `_get_ral` with its native planner off.  An optimizer failure falls
-        back to the unoptimized plan, counted in
-        ``metrics["planner.optimize.fallback"]``."""
+        `_get_ral`.  With ``sql.native.binder`` ``auto`` (the default) or
+        ``on`` and the statement's text at hand, the native planner runs
+        parse, bind, the structural rule loop and join reordering in one
+        call (``planner.native.plan``), or parse and bind alone when
+        ``sql.optimize`` is off or the planner declines
+        (``planner.native.bind``); ``on`` raises where ``auto`` falls back
+        on a native parser rejection.  The Python binder answers otherwise
+        (``planner.python.bind``).  An optimizer failure falls back to the
+        unoptimized plan (``planner.optimize.fallback``).  Last, with
+        ``families.enabled``, the plan's literals lift into its family
+        (``families.parameterized`` counts plans with parameters)."""
         catalog = self._prepare_catalog()
         case_sensitive = bool(self.config.get("sql.identifier.case_sensitive", True))
         catalog.case_sensitive = case_sensitive
-        plan = Binder(catalog, case_sensitive=case_sensitive).bind_statement(stmt)
-        if self.config.get("sql.optimize", True):
+        plan = None
+        core_optimized = False
+        native_mode = str(self.config.get("sql.native.binder", "auto")).lower()
+        want_opt = bool(self.config.get("sql.optimize", True))
+        if sql_text is not None and native_mode in ("auto", "on", "true"):
+            from .planner.native_bridge import native_bind, native_plan
+
+            cat_buf = self._encoded_catalog(catalog)
+            strict = native_mode != "auto"
+            if want_opt:
+                plan = native_plan(
+                    sql_text, catalog, cat_buf=cat_buf,
+                    predicate_pushdown=bool(
+                        self.config.get("sql.predicate_pushdown", True)),
+                    strict=strict,
+                    fact_dimension_ratio=float(self.config.get(
+                        "sql.optimizer.fact_dimension_ratio", 0.7)),
+                    max_fact_tables=int(self.config.get(
+                        "sql.optimizer.max_fact_tables", 2)),
+                    preserve_user_order=bool(self.config.get(
+                        "sql.optimizer.preserve_user_order", True)),
+                    filter_selectivity=float(self.config.get(
+                        "sql.optimizer.filter_selectivity", 1.0)))
+                core_optimized = plan is not None
+                if core_optimized:
+                    self.metrics.inc("planner.native.plan")
+            if plan is None:
+                plan = native_bind(sql_text, catalog, cat_buf=cat_buf,
+                                   strict=strict)
+                if plan is not None:
+                    self.metrics.inc("planner.native.bind")
+        if plan is None:
+            plan = Binder(catalog, case_sensitive=case_sensitive).bind_statement(stmt)
+            self.metrics.inc("planner.python.bind")
+        if want_opt:
             from .planner.optimizer.driver import optimize_core, optimize_post
             from .resilience.errors import QueryError
 
             try:
-                plan = optimize_core(plan, self.config, catalog)
-                plan = optimize_post(plan, self.config, catalog, context=self)
+                if not core_optimized:
+                    plan = optimize_core(plan, self.config, catalog)
+                plan = optimize_post(plan, self.config, catalog, context=self,
+                                     skip_reorder=core_optimized)
             except QueryError:
                 raise
             except Exception:
                 self.metrics.inc("planner.optimize.fallback")
                 logger.warning("Optimization failed; using unoptimized plan",
                                exc_info=True)
+        if not isinstance(plan, plan_nodes.CustomNode):
+            from . import families
+
+            if families.enabled(self.config):
+                info = families.family_of(plan, self.config,
+                                          metrics=self.metrics)
+                if info is not None and info.n_params:
+                    self.metrics.inc("families.parameterized")
         return plan
+
+    def _encoded_catalog(self, catalog: Catalog) -> Optional[bytes]:
+        """Catalog bytes for the native planner, kept until a table is
+        registered again (keyed by the table uids and the catalog's row
+        counts, which the native join reorder reads)."""
+        key = (catalog.case_sensitive, catalog.current_schema, tuple(
+            (sname, tname, dc.uid, dc.table.num_rows)
+            for sname, cont in sorted(self.schema.items())
+            for tname, dc in sorted(cont.tables.items())))
+        cached = self._catalog_buf_cache
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        from .planner.native_bridge import encode_catalog
+
+        try:
+            buf = encode_catalog(catalog)
+        except KeyError:
+            buf = None
+        self._catalog_buf_cache = (key, buf)
+        return buf
 
     def _prepare_catalog(self) -> Catalog:
         catalog = Catalog(self.schema_name)
@@ -225,9 +300,11 @@ class Context:
                           col.sql_type in (SqlType.FLOAT, SqlType.DOUBLE))
                     for name, col in table.columns.items()
                 ]
+                # an empty table carries no row count, as in the reference
                 cschema.tables[table_name] = CatalogTable(
                     table_name, schema_name, fields,
-                    Statistics(float(table.num_rows)))
+                    Statistics(float(table.num_rows) if table.num_rows
+                               else None))
         return catalog
 
     def get_table_data(self, schema_name: str, table_name: str) -> Table:

@@ -6,9 +6,9 @@ Keys become dense group ids by a mixed radix of their codes
 aggregate is then a masked segment reduction.  Float and bool sums and
 counts go through `ops.segsum` under the policy of the compiled pipelines
 (`choose_segsum_impl`): the hand-written kernel on CUDA where the group
-domain fits it, a float64 ``index_add_`` above, the plain version on the
-CPU.  Integer sums stay exact in int64 (``index_add_``), min and max are
-``scatter_reduce``.
+domain fits it, a float64 scatter (`segsum.SortedSegments`) above, the plain
+version on the CPU.  Integer sums stay exact in int64 (``index_add_``),
+min and max are ``scatter_reduce``.
 """
 from __future__ import annotations
 
@@ -215,14 +215,14 @@ def _float_sums(gid, columns, num_groups: int, mode: Optional[str]):
         return torch.zeros(num_groups, len(columns), dtype=torch.float64,
                            device=device)
     if mode == "scatter":
+        segments = segsum_ops.SortedSegments(gid, num_groups)
         zero = torch.zeros((), dtype=torch.float64, device=device)
         outs = []
         for data, mask in columns:
             x = data.to(torch.float64)
             if mask is not None:
                 x = torch.where(mask, x, zero)
-            outs.append(torch.zeros(num_groups, dtype=torch.float64,
-                                    device=device).index_add_(0, gid, x))
+            outs.append(segments.sum(x))
         return torch.stack(outs, dim=1)
     n = gid.shape[0]
     cols = [(d.expand(n).contiguous(),

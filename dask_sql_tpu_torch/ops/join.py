@@ -1,11 +1,12 @@
-"""Inner equijoin kernels: a value-indexed lookup table where the build
-keys are unique dense integers, else sort + searchsorted.
+"""Equijoin kernels: a value-indexed lookup table where the build keys are
+unique dense integers, else sort + searchsorted.
 
-Counterpart of the inner-join part of `dask_sql_tpu/ops/join.py`
-(`join_key_gids`, `dense_unique_lut`, `inner_join_indices`,
-`take_with_nulls`), as plain functions on tensors on their own device.
-Match expansion has a data-dependent size, so the host learns the match
-count (one sync) before the gathers.
+Counterpart of `dask_sql_tpu/ops/join.py` on one device (`join_key_gids`,
+`dense_unique_lut`, `inner_join_indices`, `left_join_indices`,
+`semi_join_mask`, `full_join_indices`, `take_with_nulls`), as plain
+functions on tensors on their own device.  Match expansion has a
+data-dependent size, so the host learns the match count (one sync) before
+the gathers.
 
 NULL semantics: SQL equijoin keys never match NULL; NULL rows get sentinel
 ids that no real key takes.
@@ -198,14 +199,70 @@ def inner_join_indices(lgid: torch.Tensor, rgid: torch.Tensor
     return li, ri
 
 
-def _probe(lgid: torch.Tensor, rgid: torch.Tensor):
-    """Sort the right ids once; each left row finds its match range by two
-    binary searches, then the ranges expand to pairs."""
-    rs = torch.sort(rgid, stable=True)
-    r_sorted, r_order = rs.values, rs.indices
+def left_join_indices(lgid: torch.Tensor, rgid: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Left outer pairs, left-major: a left row without a match appears
+    once, with right index -1."""
+    dense = _dense_match(lgid, rgid)
+    if dense is not None:
+        # unique build keys: every left row appears exactly once
+        matched, ri_cand = dense
+        li = torch.arange(lgid.shape[0], dtype=torch.int64, device=lgid.device)
+        return li, torch.where(matched, ri_cand, -1)
+    r_order, start, counts = _probe_phase(lgid, rgid)
+    out_counts = torch.clamp(counts, min=1)
+    offsets = torch.cumsum(out_counts, 0) - out_counts
+    (total,) = host_ints(out_counts.sum()) if out_counts.shape[0] else (0,)
+    li = torch.repeat_interleave(
+        torch.arange(lgid.shape[0], dtype=torch.int64, device=lgid.device),
+        out_counts, output_size=total)
+    pos_in_row = torch.arange(total, dtype=torch.int64,
+                              device=lgid.device) - offsets[li]
+    matched = counts[li] > 0
+    ri_raw = r_order[torch.clamp(start[li] + pos_in_row, 0,
+                                 max(int(rgid.shape[0]) - 1, 0))] \
+        if rgid.shape[0] else torch.zeros_like(li)
+    return li, torch.where(matched, ri_raw, -1)
+
+
+def semi_join_mask(lgid: torch.Tensor, rgid: torch.Tensor,
+                   anti: bool = False) -> torch.Tensor:
+    """Per left row: has it a match on the right (its negation when
+    `anti`)?  NULL sentinels match nothing."""
+    dense = _dense_match(lgid, rgid)
+    if dense is not None:
+        matched, _ = dense
+        return ~matched if anti else matched
+    r_sorted = torch.sort(rgid).values
     start = torch.searchsorted(r_sorted, lgid, side="left")
     end = torch.searchsorted(r_sorted, lgid, side="right")
-    counts = end - start
+    matched = (end - start) > 0
+    return ~matched if anti else matched
+
+
+def full_join_indices(lgid: torch.Tensor, rgid: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full outer pairs: the left outer pairs, then each right row without
+    a match once, with left index -1."""
+    li, ri = left_join_indices(lgid, rgid)
+    extra_r = torch.nonzero(~semi_join_mask(rgid, lgid)).flatten()
+    li = torch.cat([li, torch.full((extra_r.shape[0],), -1, dtype=torch.int64,
+                                   device=li.device)])
+    return li, torch.cat([ri, extra_r])
+
+
+def _probe_phase(lgid: torch.Tensor, rgid: torch.Tensor):
+    """Sort the right ids once (stable); each left row finds its match
+    range by two binary searches.  Returns (right order, start, count)."""
+    rs = torch.sort(rgid, stable=True)
+    start = torch.searchsorted(rs.values, lgid, side="left")
+    end = torch.searchsorted(rs.values, lgid, side="right")
+    return rs.indices, start, end - start
+
+
+def _probe(lgid: torch.Tensor, rgid: torch.Tensor):
+    """Inner pairs by the sorted probe: the match ranges expand to pairs."""
+    r_order, start, counts = _probe_phase(lgid, rgid)
     offsets = torch.cumsum(counts, 0) - counts
     (total,) = host_ints(counts.sum()) if counts.shape[0] else (0,)
     li = torch.repeat_interleave(

@@ -64,6 +64,30 @@ def segsum_plain(gid: torch.Tensor, contribs: torch.Tensor, domain: int) -> torc
     return out.index_add_(0, gid, contribs.to(torch.float64))
 
 
+class SortedSegments:
+    """The float64 scatter of group domains above the kernel's cutoff: the
+    ids sorted once (stably), then each column summed group by group by
+    ``torch.segment_reduce``, the same bits on every run.  ``index_add_``
+    on CUDA adds with atomics in whatever order the threads arrive, so its
+    float sums move in their last bits from run to run, and q15's revenue
+    then matches no row of ``(SELECT MAX(total_revenue) ...)``;
+    ``index_put_`` with ``accumulate`` is repeatable but gives each group
+    to one warp, which a skewed id (every unselected row at 0) serializes.
+    Ids outside [0, domain) add nothing.  On the CPU each group adds its
+    rows in row order, as ``index_add_`` does."""
+
+    def __init__(self, gid: torch.Tensor, domain: int):
+        ids, self.perm = torch.sort(gid, stable=True)
+        bounds = torch.arange(domain + 1, dtype=ids.dtype, device=ids.device)
+        self.offsets = torch.searchsorted(ids, bounds)
+        self.n = gid.shape[0]
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``[n]`` values (or a scalar, broadcast) -> ``[domain]`` sums."""
+        return torch.segment_reduce(x.expand(self.n)[self.perm], "sum",
+                                    offsets=self.offsets, unsafe=True)
+
+
 def segsum_typed_plain(gid: torch.Tensor, columns: Sequence[Column],
                        domain: int) -> torch.Tensor:
     """The plain version of `segsum_typed`: each column in float64, rows
@@ -235,7 +259,7 @@ def choose_segsum_impl(config, domain: int, device: torch.device) -> str:
     """'kernel' | 'scatter' | 'plain' from config + device + domain.
 
     auto: the kernel on CUDA up to `KERNEL_DOMAIN_CUTOFF` groups, a float64
-    scatter (``index_add_``) above it, the plain version on the CPU.
+    scatter (`SortedSegments`) above it, the plain version on the CPU.
     ``pallas`` and ``matmul`` ask for the kernel wherever its shared-memory
     partial fits; ``scatter`` asks for the scatter.  Counts are exact and
     integer sums use int64 scatter in every mode."""

@@ -1,10 +1,11 @@
-"""SQL string patterns as Python regular expressions.
+"""SQL string patterns as Python regular expressions, and SUBSTRING.
 
 Copied from `like_to_regex` and `similar_to_regex` of
-`dask_sql_tpu/ops/strings.py` (pure `re`).  The evaluator matches the
-pattern against a column's host dictionary once and gathers the answer by
+`dask_sql_tpu/ops/strings.py` (pure `re`), and the per-value SUBSTRING of
+`dask_sql_tpu/physical/rex/operations.py` `_op_substring`.  The evaluator
+applies them to a column's host dictionary once and gathers the answer by
 the codes on the device (`physical/compiled.py` `_TraceEval`); the rest of
-that module (string-valued operations) is not in the port yet.
+the reference's string operations is not in the port yet.
 """
 from __future__ import annotations
 
@@ -52,3 +53,14 @@ def similar_to_regex(pattern: str, escape: Optional[str] = None) -> str:
             out.append(ch)  # keep regex metacharacters
         i += 1
     return "^" + "".join(out) + "$"
+
+
+def substring(x: str, start: int, length: Optional[int] = None) -> str:
+    """SQL SUBSTRING(x FROM start [FOR length]): 1-based start, a
+    non-positive start counts from the end (as the reference), a negative
+    length gives the empty string."""
+    begin = max(start - 1, 0) if start > 0 else \
+        max(len(x) + start, 0) if start < 0 else 0
+    if length is None:
+        return x[begin:]
+    return x[begin: begin + max(length, 0)] if length >= 0 else ""

@@ -55,10 +55,15 @@ from ..planner.expressions import (
     Cast,
     ColumnRef,
     Expr,
+    ExistsExpr,
     InArrayExpr,
     InListExpr,
+    InParamExpr,
+    InSubqueryExpr,
     Literal,
+    ParamRef,
     ScalarFunc,
+    ScalarSubqueryExpr,
     transform,
     walk,
 )
@@ -80,6 +85,14 @@ _MATH_UNARY = {
     "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
     "floor": torch.floor, "ceil": torch.ceil, "sign": torch.sign,
 }
+
+#: the slots key of a run's parameter values (families/parameterize.py): a
+#: tuple of host numpy values, one per ParamRef / InParamExpr index
+PARAMS_SLOT = "__params__"
+
+#: the slots key prefix of a subquery's result (`rex/convert.py` runs the
+#: subquery plans and hands their results to the evaluator by id)
+SUBQUERY_SLOT = "__subquery__"
 
 #: above this domain the device compacts to the present groups before the
 #: pull; below it the whole packed matrix rides one transfer
@@ -125,7 +138,8 @@ def count_codespace_predicates(exprs, table) -> int:
                         c = ev._dict_source(colarg)
                     except (IndexError, KeyError):
                         c = None
-                    if c is not None and isinstance(litarg, Literal):
+                    if c is not None and isinstance(litarg,
+                                                    (Literal, ParamRef)):
                         n += 1
                         break
             elif isinstance(sub, (InListExpr, InArrayExpr)):
@@ -135,6 +149,19 @@ def count_codespace_predicates(exprs, table) -> int:
                 except (IndexError, KeyError):
                     pass
     return n
+
+
+def check_no_subquery(exprs) -> None:
+    """The fused pipelines decline a subquery expression (raises
+    _Unsupported) before they are cached, as the reference's evaluator
+    does at trace time; the eager operators run the subquery plans."""
+    for e in exprs:
+        if e is None:
+            continue
+        for sub in walk(e):
+            if isinstance(sub, (ScalarSubqueryExpr, InSubqueryExpr,
+                                ExistsExpr)):
+                raise _Unsupported(f"expr {type(sub).__name__}")
 
 
 def check_agg_static_support(agg_exprs):
@@ -211,9 +238,10 @@ class SegmentReducer:
     (a count is its bool mask; a float32 or float64 sum is its data under
     its mask, other floats cast to float32), with float64 output: counts
     exact, float error bounded by MATMUL_FLOAT_REL_ERR_BOUND.  'scatter'
-    reduces each one on its own with ``index_add_`` (float64 sums, integer
-    counts).  Integer sums always use an exact int64 ``index_add_``;
-    min/max use ``scatter_reduce``.
+    reduces each one on its own: float64 sums group by group over ids
+    sorted once (`ops.segsum.SortedSegments`, the same bits on every run),
+    integer counts with ``index_add_``.  Integer sums always use an exact
+    int64 ``index_add_``; min/max use ``scatter_reduce``.
 
     Usage: register reductions (count / sum_float / sum_int / seg_min /
     seg_max), call finish(), then resolve handles via get()."""
@@ -228,14 +256,17 @@ class SegmentReducer:
         self._fdedup: Dict[Tuple[int, int], Tuple] = {}
         self._cnt_dedup: Dict[int, Tuple] = {}
         self._out: Optional[torch.Tensor] = None
+        self._segments: Optional[segsum_ops.SortedSegments] = None
         # id()-keyed dedup is only sound while the keyed tensors stay alive
         self._keepalive: List = []
 
-    def _zeros(self, dtype):
-        return torch.zeros(self.domain, dtype=dtype, device=self.gid.device)
-
     def _scatter(self, x: torch.Tensor) -> torch.Tensor:
-        return self._zeros(x.dtype).index_add_(0, self.gid, x)
+        if not x.is_floating_point():  # integer adds are exact in any order
+            return torch.zeros(self.domain, dtype=x.dtype,
+                               device=x.device).index_add_(0, self.gid, x)
+        if self._segments is None:
+            self._segments = segsum_ops.SortedSegments(self.gid, self.domain)
+        return self._segments.sum(x)
 
     @property
     def _batched(self) -> bool:
@@ -545,14 +576,22 @@ class _TraceEval:
     their codes: a comparison or IN of a DICT column against literals runs
     on the codes, and any other read decodes (`_decode_slot`).  Literals
     become 0-dim tensors on the table's device and broadcast.  `table` is
-    a Table or a `_TableMeta`."""
+    a Table or a `_TableMeta`.
 
-    def __init__(self, table):
+    `eager` marks the evaluator of the eager operators (`rex/convert.py`),
+    which also takes SUBSTRING with constant offsets over a string column
+    (a new dictionary, the codes mapped through it) and the results of
+    subquery plans it is handed in the slots; the fused pipelines decline
+    both, as the reference's do."""
+
+    def __init__(self, table, eager: bool = False):
         self.table = table
         self.names = table.column_names
         self.device = table.device
+        self.eager = eager
         #: lookup tables on the device, kept with the pipeline: DICT value
-        #: arrays by slot, string predicates by (slot, op, literal)
+        #: arrays by slot, string predicates by (operand, op, literal),
+        #: SUBSTRING maps by (operand, start, length)
         self._luts: Dict[object, torch.Tensor] = {}
 
     def col(self, index: int) -> Column:
@@ -561,6 +600,20 @@ class _TraceEval:
     def eval(self, expr: Expr, slots):
         if isinstance(expr, ColumnRef) and type(expr) is ColumnRef:
             return self._decode_slot(expr.index, slots)
+        if isinstance(expr, ParamRef):
+            # a runtime parameter of the family: the host value moves to
+            # the device as the literal it stands for would
+            v = np.array(slots[PARAMS_SLOT][expr.index])  # 0-dim, owned
+            return torch.from_numpy(v).to(self.device), None
+        if isinstance(expr, InParamExpr):
+            return self._in_param(expr, slots)
+        if isinstance(expr, (ScalarSubqueryExpr, InSubqueryExpr, ExistsExpr)):
+            # the eager converter ran the subquery plan and left its result
+            # (data, validity) here; a fused pipeline has none and declines
+            got = slots.get((SUBQUERY_SLOT, id(expr)))
+            if got is None:
+                raise _Unsupported(f"expr {type(expr).__name__}")
+            return got
         if isinstance(expr, Literal):
             if expr.value is None:
                 return (torch.zeros((), dtype=torch.float64, device=self.device),
@@ -656,29 +709,30 @@ class _TraceEval:
         return None
 
     def _encoded_compare(self, op: str, args, slots):
-        """``dict_col CMP literal`` rewritten into CODE space.  The
-        dictionary is sorted, so the predicate becomes a bound on the codes,
-        found on the host by `dict_literal_bounds`.  Both sides are taken
+        """``dict_col CMP literal`` (or a family parameter) rewritten into
+        CODE space.  The dictionary is sorted, so the predicate becomes a
+        bound on the codes, found on the host by `dict_literal_bounds`; a
+        parameter's value is a host scalar, so its bound is a host search
+        each run and moves nothing off the device.  Both sides are taken
         in the dtype the value-space compare would use (torch's promotion of
         the column's and the literal's dtypes), so the answer is the same
-        bit for bit.  None when the shape does not match, or when that
-        dtype would merge dictionary values or the literal is NaN (the
-        caller compares values)."""
+        bit for bit, for a parameter and for the literal baked in.  None
+        when the shape does not match, or when that dtype would merge
+        dictionary values or the literal is NaN (the caller compares
+        values)."""
         a, b = args
         for colarg, litarg, o in ((a, b, op), (b, a, FLIP_CMP[op])):
             c = self._dict_source(colarg)
             if c is None:
                 continue
-            if not (isinstance(litarg, Literal)
-                    and not isinstance(litarg.value, bool)
-                    and isinstance(litarg.value, (int, float, np.integer,
-                                                  np.floating))):
+            value = _scalar_operand(litarg, slots)
+            if value is None:
                 continue
             lit_dt = torch_dtype(sql_to_np(litarg.sql_type))
             cmp_dt = numpy_dtype(torch.promote_types(
                 torch_dtype(c.enc_values.dtype), lit_dt))
             try:
-                lit = np.asarray(litarg.value,
+                lit = np.asarray(value,
                                  dtype=numpy_dtype(lit_dt)).astype(cmp_dt)
             except (OverflowError, ValueError):
                 return None
@@ -731,10 +785,10 @@ class _TraceEval:
         codes against the dictionary's members, a numeric DICT column its
         codes against the values mapped into code space, anything else its
         values."""
-        src = self._string_source(arg)
+        src = self.string_operand(arg, slots)
         if src is not None:
-            codes, valid = slots[arg.index]
-            return dictionary_membership(codes, src.dictionary, values), valid
+            codes, valid, dictionary, _ = src
+            return dictionary_membership(codes, dictionary, values), valid
         got = self._dict_membership(arg, slots, values)
         if got is not None:
             return got
@@ -748,12 +802,51 @@ class _TraceEval:
             hit = hit | (ad == torch.tensor(v, device=ad.device))
         return hit, valid
 
-    def _string_source(self, expr: Expr) -> Optional[Column]:
+    def string_operand(self, expr: Expr, slots):
+        """``(codes, validity, dictionary, key)`` of a string-valued operand
+        (a string column, or in the eager evaluator SUBSTRING of one with
+        constant offsets), or None.  `key` names the operand for the
+        evaluator's lookup tables."""
         if isinstance(expr, ColumnRef) and type(expr) is ColumnRef:
             c = self.col(expr.index)
-            if c.sql_type in STRING_TYPES:
-                return c
+            if c.sql_type not in STRING_TYPES:
+                return None
+            codes, valid = slots[expr.index]
+            return codes, valid, c.dictionary, ("col", expr.index)
+        if self.eager and isinstance(expr, ScalarFunc) \
+                and expr.op == "substring":
+            return self._substring(expr, slots)
         return None
+
+    def _substring(self, expr: ScalarFunc, slots):
+        """SUBSTRING(s FROM start [FOR length]) with constant offsets: the
+        host dictionary maps through the substring and re-encodes (sorted,
+        unique), and the codes gather through that map on the device."""
+        offsets = expr.args[1:]
+        if not offsets or not all(
+                isinstance(a, Literal) and _is_number(a.value)
+                for a in offsets):
+            raise _Unsupported("SUBSTRING with computed offsets")
+        src = self.string_operand(expr.args[0], slots)
+        if src is None:
+            raise _Unsupported("SUBSTRING of a computed string")
+        codes, valid, dictionary, skey = src
+        start = int(offsets[0].value)
+        length = int(offsets[1].value) if len(offsets) > 1 else None
+        key = ("substring", skey, start, length)
+        got = self._luts.get(key)
+        if got is None:
+            d = dictionary if dictionary is not None and len(dictionary) \
+                else np.array([""], dtype=object)
+            mapped = np.array([str_ops.substring(str(x), start, length)
+                               for x in d], dtype=object)
+            uniq, inverse = np.unique(mapped.astype(str), return_inverse=True)
+            lut = torch.from_numpy(inverse.astype(np.int32)).to(self.device)
+            got = self._luts[key] = (lut, uniq.astype(object))
+        lut, new_dictionary = got
+        new_codes = lut.to(codes.device)[torch.clamp(codes, 0,
+                                                     lut.shape[0] - 1)]
+        return new_codes, valid, new_dictionary, key
 
     def _in_list(self, expr: InListExpr, slots):
         """IN (literal, ...).  A NULL item makes every row without a hit
@@ -768,21 +861,20 @@ class _TraceEval:
             valid = hit if valid is None else (valid & hit)
         return (~hit if expr.negated else hit, valid)
 
-    def _pattern_lut(self, op: str, index: int, args) -> torch.Tensor:
+    def _pattern_lut(self, op: str, skey, dictionary, args) -> torch.Tensor:
         """The bool lookup table of `op` (eq, ne, like, ilike, similar)
-        against a literal over string slot `index`'s host dictionary: one
-        regex match per dictionary entry, kept with the evaluator (so a
-        cached pipeline builds it once)."""
+        against a literal over a string operand's host dictionary (`skey`
+        names the operand): one regex match per dictionary entry, kept with
+        the evaluator (so a cached pipeline builds it once)."""
         pattern = args[1].value
         esc = None
         if len(args) > 2 and isinstance(args[2], Literal):
             esc = args[2].value
-        key = ("str", index, op, pattern, esc)
+        key = ("str", skey, op, pattern, esc)
         lut = self._luts.get(key)
         if lut is not None:
             return lut
-        src = self.col(index)
-        d = src.dictionary if src.dictionary is not None \
+        d = dictionary if dictionary is not None \
             else np.array([""], dtype=object)
         if op in ("eq", "ne"):
             hits = d.astype(str) == pattern
@@ -800,18 +892,26 @@ class _TraceEval:
         hit, valid = self._membership(expr.arg, np.asarray(expr.values), slots)
         return (~hit if expr.negated else hit, valid)
 
+    def _in_param(self, expr: InParamExpr, slots):
+        """IN against a family's parameter vector (sorted, padded to its
+        pow2 bucket by repeating the maximum): the same membership as the
+        literal list, so lists of one bucket share a pipeline."""
+        values = np.asarray(slots[PARAMS_SLOT][expr.index])
+        hit, valid = self._membership(expr.arg, values, slots)
+        return (~hit if expr.negated else hit, valid)
+
     def _call(self, expr: ScalarFunc, slots):
         op = expr.op
         args = expr.args
         # string comparisons and patterns against a literal: a lookup table
         # over the column's host dictionary, gathered by the codes
-        if op in ("eq", "ne", "like", "ilike", "similar") and len(args) >= 2:
-            src = self._string_source(args[0])
-            lit = args[1]
-            if src is not None and isinstance(lit, Literal) \
-                    and isinstance(lit.value, str):
-                lut = self._pattern_lut(op, args[0].index, args)
-                codes, valid = slots[args[0].index]
+        if op in ("eq", "ne", "like", "ilike", "similar") and len(args) >= 2 \
+                and isinstance(args[1], Literal) \
+                and isinstance(args[1].value, str):
+            src = self.string_operand(args[0], slots)
+            if src is not None:
+                codes, valid, dictionary, skey = src
+                lut = self._pattern_lut(op, skey, dictionary, args)
                 hit = lut.to(codes.device)[torch.clamp(codes, 0,
                                                        lut.shape[0] - 1)]
                 return (~hit if op == "ne" else hit, valid)
@@ -922,6 +1022,17 @@ def _is_number(v) -> bool:
         and not isinstance(v, (bool, np.bool_))
 
 
+def _scalar_operand(expr: Expr, slots):
+    """The host value of a numeric literal or family parameter (not a
+    boolean), or None."""
+    if isinstance(expr, Literal):
+        return expr.value if _is_number(expr.value) else None
+    if isinstance(expr, ParamRef) and PARAMS_SLOT in slots:
+        v = np.asarray(slots[PARAMS_SLOT][expr.index])
+        return v[()] if v.ndim == 0 and v.dtype.kind in "iuf" else None
+    return None
+
+
 def _promote_pair(a: torch.Tensor, b: torch.Tensor):
     """Both operands in their promoted dtype.  Explicit, because torch lets
     a 0-dim operand (a literal) promote less than a full tensor, where the
@@ -1007,6 +1118,9 @@ class CompiledAggregate:
         self.group_exprs = group_exprs
         self.agg_exprs = agg_exprs
         check_no_rle(table)
+        check_no_subquery(list(filters) + [
+            x for a in agg_exprs
+            for x in list(a.args) + [a.filter]])
         ev = _TraceEval(table)
 
         # radix group-id plan: dictionary/bool/small-int group keys
@@ -1066,12 +1180,13 @@ class CompiledAggregate:
         #: the evaluator over the table's metadata, kept with the pipeline
         self._ev = _TraceEval(_TableMeta(table))
 
-    def _prelude(self, ev: _TraceEval, table: Table):
+    def _prelude(self, ev: _TraceEval, table: Table, params: Tuple):
         """Slot table, deferred filter-mask fold and the radix group id.
         Returns ``(slots, sel, gid, nr)``."""
         datas = [table.columns[n].data for n in table.column_names]
         valids = [table.columns[n].validity for n in table.column_names]
-        slots = {i: (datas[i], valids[i]) for i in range(len(datas))}
+        slots: Dict = {i: (datas[i], valids[i]) for i in range(len(datas))}
+        slots[PARAMS_SLOT] = tuple(params)
         nr = table.num_rows
         mask = None
         for f in self.filters:
@@ -1100,9 +1215,10 @@ class CompiledAggregate:
             sel = mask.expand(nr) if mask.dim() == 0 else mask
         return slots, sel, gid, nr
 
-    def run(self, table: Table) -> Table:
+    def run(self, table: Table, params: Tuple = ()) -> Table:
+        """One query over `table`, with its family's parameter values."""
         ev = self._ev
-        slots, sel, gid, nr = self._prelude(ev, table)
+        slots, sel, gid, nr = self._prelude(ev, table, params)
         reducer = SegmentReducer(gid, self.domain, self.segsum_mode, nr)
         hit_h = reducer.count(sel)
         outs = segment_agg_outputs(ev, slots, self.agg_exprs, sel, gid,
@@ -1140,22 +1256,42 @@ def singleflight_get_or_build(cache: "OrderedDict", key: Tuple, build):
     return build(), True
 
 
+def evict(cache: "OrderedDict", compiled) -> None:
+    """Drop a pipeline that declined at run time from its cache, so the
+    next query of its family builds (and declines) anew rather than
+    counting a family hit, as a pipeline the reference cannot trace is
+    never cached."""
+    if compiled is None:
+        return
+    for key in [k for k, v in cache.items() if v is compiled]:
+        del cache[key]
+
+
 #: LRU of scan-chain pipelines, keyed by the table version and the plan
 _CACHE_CAP = 32
 _cache: "OrderedDict[tuple, CompiledAggregate]" = OrderedDict()
 
 
 def _scan_chain_pipeline(rel, chain, executor):
-    """(pipeline, table) for an aggregate over a scan chain, the pipeline
-    from the cache or built and cached (a build counts its code-space
-    predicates in ``metrics["columnar.encoding.codespace_pred"]``); raises
-    _Unsupported when the pipeline declines the chain."""
+    """(pipeline, table, params) for an aggregate over a scan chain, the
+    pipeline from the cache or built and cached (a build counts its
+    code-space predicates in ``metrics["columnar.encoding.codespace_pred"]``,
+    a reuse with parameters ``families.hit``); raises _Unsupported when the
+    pipeline declines the chain.  The filters' and the aggregate
+    arguments' literals lift into parameters first, so the key, and the
+    pipeline, serve the whole family."""
+    from .. import families
+
     scan, filters, group_exprs, agg_exprs = chain
     ctx = executor.context
     table = executor.get_table(scan.schema_name, scan.table_name)
     if scan.projection is not None:
         table = table.select(scan.projection)
     dc = ctx.schema[scan.schema_name].tables[scan.table_name]
+    pz = families.pipeline_parameterizer(executor.config)
+    filters = [pz.rewrite(f) for f in filters]
+    agg_exprs = [pz.rewrite_agg(a) for a in agg_exprs]
+    params = pz.params
     key = (
         dc.uid,
         scan.schema_name, scan.table_name,
@@ -1177,10 +1313,12 @@ def _scan_chain_pipeline(rel, chain, executor):
         return obj
 
     compiled, built_here = singleflight_get_or_build(_cache, key, build)
+    if not built_here and params:
+        ctx.metrics.inc("families.hit")
     if built_here and compiled.codespace_preds:
         ctx.metrics.inc("columnar.encoding.codespace_pred",
                         compiled.codespace_preds)
-    return compiled, table
+    return compiled, table, params
 
 
 def try_compiled_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
@@ -1199,12 +1337,14 @@ def try_compiled_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     if chain is None:
         return None
     metrics = executor.context.metrics
+    compiled = None
     try:
-        compiled, table = _scan_chain_pipeline(rel, chain, executor)
-        result = compiled.run(table)
+        compiled, table, params = _scan_chain_pipeline(rel, chain, executor)
+        result = compiled.run(table, params)
     except _Unsupported as e:
         logger.info("compiled aggregate declined the scan chain: %s", e)
         metrics.inc("compiled_aggregate.declined")
+        evict(_cache, compiled)
         return None
     if compiled.has_encoded:
         # late materialization: only the group table's rows decode

@@ -22,8 +22,9 @@ key values of a pointer id riding along.  The probe table's encoded
 columns are read as codes (code-space filters, DICT and FOR group keys as
 radix digits, decode where an expression reads values); an RLE probe
 column makes the pipeline decline.  Left out of the reference's version:
-literal parameterization (`families/`), the lazy parquet scan, the
-distributed plan and observability.
+the lazy parquet scan, the distributed plan and observability.  The probe
+side's literals lift into the family's parameters (`families/`), so one
+pipeline serves every literal of a family.
 """
 from __future__ import annotations
 
@@ -49,7 +50,9 @@ from ..planner.expressions import (
     transform,
     walk,
 )
+from .. import families
 from .compiled import (
+    PARAMS_SLOT,
     SegmentReducer,
     _ColMeta,
     _TableMeta,
@@ -57,7 +60,9 @@ from .compiled import (
     _Unsupported,
     check_agg_static_support,
     check_no_rle,
+    check_no_subquery,
     count_codespace_predicates,
+    evict,
     has_encoded,
     decode_agg_columns,
     decode_radix_keys,
@@ -214,6 +219,8 @@ class CompiledJoinAggregate:
         self.n_joins = len(ext.joins)
         check_agg_static_support(agg_exprs)
         check_no_rle(probe_table)
+        check_no_subquery(list(ext.conjuncts) + [
+            x for a in agg_exprs for x in list(a.args) + [a.filter]])
         #: compressed-domain accounting: the probe scan reads encoded bytes
         self.has_encoded = has_encoded(probe_table)
 
@@ -385,13 +392,17 @@ class CompiledJoinAggregate:
             inb = (idx >= 0) & (idx < size)
         return torch.where(inb, lut[torch.clamp(idx, 0, size - 1)], -1)
 
-    def run(self, probe_table: Table, build_tables: List[Table]) -> Table:
+    def run(self, probe_table: Table, build_tables: List[Table],
+            params: Tuple = ()) -> Table:
+        """One query over the probe and build tables, with its family's
+        parameter values."""
         ev = self._ev
         n_rows = probe_table.num_rows
         device = probe_table.device
-        slots: Dict[int, Tuple] = {
+        slots: Dict = {
             i: (c.data, c.validity)
             for i, c in enumerate(probe_table.columns.values())}
+        slots[PARAMS_SLOT] = tuple(params)
         mask = torch.ones(n_rows, dtype=torch.bool, device=device)
         ri_safe: List[torch.Tensor] = []
         for k in range(self.n_joins):
@@ -519,6 +530,7 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     ext, group_exprs, agg_exprs = extraction
     ctx = executor.context
     decline_key = None
+    compiled = None
     try:
         dc = ctx.schema[ext.scan.schema_name].tables.get(ext.scan.table_name)
         if dc is None:
@@ -539,6 +551,14 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
             return None
         # plan-only checks before any build side runs
         check_agg_static_support(agg_exprs)
+        # the probe side's conjuncts and the aggregate arguments take their
+        # literals as the family's parameters; build-side literals stay
+        # baked (they shape the build tables and their lookup tables) and
+        # key the cache through the build plans' reprs
+        pz = families.pipeline_parameterizer(executor.config)
+        ext.conjuncts = [pz.rewrite(e) for e in ext.conjuncts]
+        agg_exprs = [pz.rewrite_agg(a) for a in agg_exprs]
+        params = pz.params
         probe_table = executor.get_table(ext.scan.schema_name,
                                          ext.scan.table_name)
         if ext.scan.projection is not None:
@@ -575,10 +595,12 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
             return obj
 
         compiled, built_here = singleflight_get_or_build(_cache, key, build)
+        if not built_here and params:
+            ctx.metrics.inc("families.hit")
         if built_here and compiled.codespace_preds:
             ctx.metrics.inc("columnar.encoding.codespace_pred",
                             compiled.codespace_preds)
-        result = compiled.run(probe_table, build_tables)
+        result = compiled.run(probe_table, build_tables, params)
         ctx.metrics.inc("compiled_join.run")
         if compiled.has_encoded:
             ctx.metrics.inc("columnar.encoding.late_rows", result.num_rows)
@@ -586,6 +608,7 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     except _Unsupported as e:
         logger.info("compiled join pipeline declined the plan: %s", e)
         ctx.metrics.inc("compiled_join.declined")
+        evict(_cache, compiled)
         if decline_key is not None:
             if len(_declined) >= _DECLINED_CAP:
                 _declined.clear()

@@ -19,10 +19,11 @@ a plan ROOT goes to the host anyway, so the chain runs as:
 
 PyTorch runs eagerly: the two programs are torch ops, and a pipeline is
 checked at construction by running both over one row, so an expression the
-evaluator does not take declines before the pipeline is cached.  Left out
-of the reference's version: literal parameterization (`families/`), the
-family batcher, the lazy parquet and sharded scans, and the fused PREDICT
-seam.
+evaluator does not take declines before the pipeline is cached.  Filter
+and projection literals lift into the family's parameters (`families/`),
+so one pipeline serves every literal of a family.  Left out of the
+reference's version: the family batcher, the lazy parquet and sharded
+scans, and the fused PREDICT seam.
 """
 from __future__ import annotations
 
@@ -39,8 +40,10 @@ from ..columnar.dtypes import STRING_TYPES, SqlType, sql_to_np
 from ..columnar.table import Table
 from ..planner import plan as p
 from ..planner.expressions import ColumnRef
+from .. import families
 from ..utils import count_d2h
 from .compiled import (
+    PARAMS_SLOT,
     _TableMeta,
     _TraceEval,
     _Unsupported,
@@ -119,7 +122,8 @@ class CompiledSelect:
     the table's metadata, and `run` takes the table of each query."""
 
     def __init__(self, table: Table, upper_filters, scan_filters, proj,
-                 proj_exprs, sort_keys, sort_fetch, limit, inner_limit):
+                 proj_exprs, sort_keys, sort_fetch, limit, inner_limit,
+                 params: Tuple = ()):
         self.sort_keys = sort_keys
         self.sort_fetch = sort_fetch
         self.limit = limit
@@ -163,14 +167,15 @@ class CompiledSelect:
         # both programs over one row: what the evaluator does not take
         # declines now, before the pipeline is cached
         datas, valids = _buffers(table.slice(0, 1))
-        mask, ordinal = self._mask(datas, valids)
-        self._gather(datas, valids, mask, ordinal, 1)
+        mask, ordinal = self._mask(datas, valids, params)
+        self._gather(datas, valids, mask, ordinal, 1, params)
 
     # -- the two device programs -------------------------------------------
-    def _mask(self, datas, valids):
+    def _mask(self, datas, valids, params: Tuple):
         """(row mask, running survivor count) over every row."""
         ev = self._ev
-        slots = {i: (datas[i], valids[i]) for i in range(len(datas))}
+        slots: Dict = {i: (datas[i], valids[i]) for i in range(len(datas))}
+        slots[PARAMS_SLOT] = tuple(params)
         nr = datas[0].shape[0] if datas else 0
         device = ev.device
 
@@ -204,12 +209,13 @@ class CompiledSelect:
         mask = as_rows(mask)
         return mask, torch.cumsum(mask, 0)
 
-    def _gather(self, datas, valids, mask, ordinal, bucket: int):
+    def _gather(self, datas, valids, mask, ordinal, bucket: int,
+                params: Tuple):
         """The packed [2 x outputs, bucket] float64 matrix of the first
         `bucket` survivors: each output's values, then its validity."""
         ev = self._ev
         idx = sized_nonzero(mask, ordinal, bucket)
-        slots: Dict = {}
+        slots: Dict = {PARAMS_SLOT: tuple(params)}
         for i in range(len(datas)):
             v = valids[i]
             slots[i] = (datas[i][idx], None if v is None else v[idx])
@@ -226,15 +232,16 @@ class CompiledSelect:
         return pack_flat(flat, self._tags)
 
     # -- one query ----------------------------------------------------------
-    def run(self, table: Table, times: Optional[Dict[str, float]] = None
-            ) -> Table:
-        """One query over `table`.  With `times`, the device is synchronized
+    def run(self, table: Table, params: Tuple = (),
+            times: Optional[Dict[str, float]] = None) -> Table:
+        """One query over `table`, with its family's parameter values.
+        With `times`, the device is synchronized
         after each phase and its milliseconds recorded under ``mask``,
         ``count_d2h``, ``gather``, ``d2h``, ``decode`` (the packed rows to
         host columns) and ``host_sort`` (ORDER BY and the window)."""
         clock = _PhaseClock(times, table.device)
         datas, valids = _buffers(table)
-        mask, ordinal = self._mask(datas, valids)
+        mask, ordinal = self._mask(datas, valids, params)
         clock.lap("mask")
         count_d2h()
         count = int(ordinal[-1])  # one scalar pull
@@ -245,7 +252,8 @@ class CompiledSelect:
         host = None
         if count:
             bucket = 1 << (count - 1).bit_length()
-            packed = self._gather(datas, valids, mask, ordinal, bucket)
+            packed = self._gather(datas, valids, mask, ordinal, bucket,
+                                  params)
             clock.lap("gather")
             count_d2h()
             host = packed.cpu().numpy()
@@ -382,12 +390,20 @@ def try_compiled_select(root, executor) -> Optional[Table]:
         if resolved is None:
             return None
         dc, table = resolved
+        # filter and projection literals lift into the family's parameters;
+        # LIMIT and sort-fetch windows stay in the key (they steer the pull
+        # and the host window), so each window is its own family
+        pz = families.pipeline_parameterizer(executor.config)
+        p_upper = [pz.rewrite(f) for f in upper_filters]
+        p_scan_flts = [pz.rewrite(f) for f in scan.filters]
+        p_exprs = [pz.rewrite(e) for e in proj.exprs]
+        params = pz.params
         key = (
             dc.uid,
             tuple(scan.projection or ()),
-            tuple(str(f) for f in upper_filters),
-            tuple(str(f) for f in scan.filters),
-            tuple(str(e) for e in proj.exprs),
+            tuple(str(f) for f in p_upper),
+            tuple(str(f) for f in p_scan_flts),
+            tuple(str(e) for e in p_exprs),
             tuple((f.name, f.sql_type) for f in proj.schema),
             tuple(str(k.expr) + str(k.ascending) + str(k.nulls_first)
                   for k in sort_keys) if sort_keys else None,
@@ -399,19 +415,21 @@ def try_compiled_select(root, executor) -> Optional[Table]:
         ctx = executor.context
 
         def build():
-            obj = CompiledSelect(table, upper_filters, scan.filters, proj,
-                                 proj.exprs, sort_keys, sort_fetch, limit,
-                                 inner_limit)
+            obj = CompiledSelect(table, p_upper, p_scan_flts, proj, p_exprs,
+                                 sort_keys, sort_fetch, limit, inner_limit,
+                                 params)
             _cache[key] = obj
             while len(_cache) > _CACHE_CAP:
                 _cache.popitem(last=False)
             return obj
 
         compiled, built_here = singleflight_get_or_build(_cache, key, build)
+        if not built_here and params:
+            ctx.metrics.inc("families.hit")
         if built_here and compiled.codespace_preds:
             ctx.metrics.inc("columnar.encoding.codespace_pred",
                             compiled.codespace_preds)
-        result = compiled.run(table)
+        result = compiled.run(table, params)
         if compiled.has_encoded:
             # late materialization: only the survivors decoded, at the root
             ctx.metrics.inc("columnar.encoding.late_rows", result.num_rows)

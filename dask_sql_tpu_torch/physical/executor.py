@@ -21,7 +21,7 @@ class Executor:
 
     def __init__(self, context):
         self.context = context
-        self.rex = RexConverter()
+        self.rex = RexConverter(self)
         self._memo: Dict[int, Table] = {}
 
     @classmethod

@@ -5,9 +5,9 @@ note on the native tokenizer differ.
 
 Role parity: the tokenizer underneath the reference's Rust `DaskParser`
 (src/parser.rs wraps sqlparser-rs's tokenizer).  Hand-written here; a C++
-tokenizer with the same token stream contract lives in `native/`, which the
-reference uses when built (`dask_sql_tpu/planner/native_bridge.py`) and the
-port does not.
+tokenizer with the same token stream contract lives in `native/`; the port
+builds it into its `_build/` directory and uses it through
+`planner/native_bridge.py`.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """SQL parser: tokens -> AST.
 
-Copied from `dask_sql_tpu/planner/parser.py`, without the native-planner hooks.
+Copied from `dask_sql_tpu/planner/parser.py`; only import paths differ.
 
 Role parity: reference `src/parser.rs` (`DaskParser::parse_sql`, parser.rs:400) —
 standard SQL plus the dask dialect statements (`CREATE MODEL/EXPERIMENT`,
@@ -12,11 +12,14 @@ expression parsing.
 """
 from __future__ import annotations
 
+import logging
 from typing import Any, Dict, List, Optional, Tuple
 
 from . import sqlast as a
 from ..resilience.errors import ParseError
 from .lexer import Token, TokenType, tokenize
+
+logger = logging.getLogger(__name__)
 
 
 class ParsingException(ParseError):
@@ -46,8 +49,21 @@ _DATETIME_UNITS = {
 class Parser:
     def __init__(self, sql: str):
         self.sql = sql
-        self.tokens = tokenize(sql)
+        self.tokens = self._tokenize(sql)
         self.pos = 0
+
+    @staticmethod
+    def _tokenize(sql: str):
+        # native (C++) lexer when built, identical-contract Python fallback
+        try:
+            from .native_bridge import native_tokenize
+
+            tokens = native_tokenize(sql)
+            if tokens is not None:
+                return tokens
+        except Exception:  # dsql: allow-broad-except — fall back on any native issue
+            pass
+        return tokenize(sql)
 
     # -- token helpers ------------------------------------------------------
     def peek(self, offset: int = 0) -> Token:
@@ -1139,5 +1155,25 @@ def _parse_number(text: str):
 
 
 def parse_sql(sql: str) -> List[a.Statement]:
-    """Parse one or more ;-separated statements (reference DaskParser::parse_sql)."""
+    """Parse one or more ;-separated statements (reference DaskParser::parse_sql).
+
+    Queries go through the native (C++) parser when the library is built
+    (native/parser.cpp emits a flat AST buffer that decodes to the same
+    sqlast objects); DDL/ML statements and any native miss fall back to the
+    Python parser.  DSQL_NATIVE_PARSER=0 disables the native path.
+    """
+    import os
+
+    if os.environ.get("DSQL_NATIVE_PARSER", "1") != "0":
+        try:
+            from .native_bridge import native_parse
+
+            stmts = native_parse(sql)
+            if stmts is not None:
+                return stmts
+        except ParsingException:
+            raise
+        except Exception:  # noqa: BLE001 - any native issue -> Python path
+            logger.debug("native parse failed; using Python parser",
+                         exc_info=True)
     return Parser(sql).parse_statements()

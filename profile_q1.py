@@ -1,16 +1,16 @@
-"""Where the time of TPC-H Q1 at SF1 (or of Q3, q9, q12, q14, or of the root
-select) goes in the PyTorch port, on one CUDA card.
+"""Where the time of TPC-H Q1 at SF1 (or of another TPC-H query, or of the
+root select) goes in the PyTorch port, on one CUDA card.
 
 Run from the root of a checkout on a machine with the card:
 
-    python3 profile_q1.py [--query q1|q3|q9|q12|q14|select]
+    python3 profile_q1.py [--query q1|q2|...|q22|select]
 
 For Q1 (the default) it loads 6,000,000 synthetic ``lineitem`` rows (the
 generator and query of ``chip_smoke.py``); for Q3 the customer, orders and
 lineitem tables of ``tests/tpch.py generate(scale_rows=1_000_000)``, the
-scale of ``bench.py``'s Q3 line; for q9 (the eager aggregate), q12 (eager
-joins under an eager aggregate) and q14 (the join pipeline) all eight
-tables of that generator; for ``select`` the same 6,000,000 rows and
+scale of ``bench.py``'s Q3 line; for every other TPC-H query (q9 the
+eager aggregate, q12 eager joins under it, q14 the join pipeline, q21 the
+semi and anti joins) all eight tables of that generator; for ``select`` the same 6,000,000 rows and
 ``bench.py``'s root top-k select.  Tables load with the column encodings
 the reference picks.  It warms the query up, then prints JSON
 lines, each phase named after the query: the host time of
@@ -138,7 +138,7 @@ def load(query: str):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--query",
-                        choices=("q1", "q3", "q9", "q12", "q14", "select"),
+                        choices=[f"q{i}" for i in range(1, 23)] + ["select"],
                         default="q1")
     q = parser.parse_args().query
     if not torch.cuda.is_available():

@@ -1,6 +1,8 @@
 """The port stands alone: neither `dask_sql_tpu_torch` nor its scripts for
 the card (`chip_smoke.py`, `profile_q1.py`) import JAX or the JAX package,
-and the port's entry points refuse to run on the CPU unless asked to."""
+even as it plans through its own build of the native planner and runs the
+outer, semi and anti joins, subqueries and SUBSTRING; and the port's entry
+points refuse to run on the CPU unless asked to."""
 import os
 import subprocess
 import sys
@@ -55,6 +57,16 @@ for t in ("region", "nation", "supplier", "part", "partsupp"):
 assert len(c.sql(QUERIES[9]).compute()) > 0
 assert len(c.sql(QUERIES[14]).compute()) == 1
 assert c.metrics["resilience.rung.compiled_join_aggregate"] == 2, dict(c.metrics)
+# q13 (a LEFT join with an ON residual) and q22 (SUBSTRING, a scalar
+# subquery, an anti join), every plan from the native planner built out of
+# native/*.cpp
+assert len(c.sql(QUERIES[13]).compute()) > 0
+assert list(c.sql(QUERIES[22]).compute().columns) == [
+    "cntrycode", "numcust", "totacctbal"]
+assert c.metrics["planner.python.bind"] == 0, dict(c.metrics)
+assert c.metrics["planner.native.plan"] >= 8, dict(c.metrics)
+from dask_sql_tpu_torch.planner import native_bridge
+assert native_bridge.get_lib() is not None
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dask_sql_tpu"))
 assert not bad, bad

@@ -78,13 +78,16 @@ def test_plan_cache_hits_and_misses_on_reregistration():
 
 
 def test_optimizer_fallback_is_counted(monkeypatch):
-    """A failing rule leaves the unoptimized plan and counts the fallback."""
+    """A failing rule leaves the plan as it was before the Python optimizer
+    (the native planner's, or the unoptimized one) and counts the
+    fallback."""
     from dask_sql_tpu_torch.planner.optimizer import driver
 
-    def broken(plan, config, catalog):
+    def broken(plan, config, catalog, **kwargs):
         raise RuntimeError("rule failure")
 
     monkeypatch.setattr(driver, "optimize_core", broken)
+    monkeypatch.setattr(driver, "optimize_post", broken)
     tables = generate(500, seed=4)
     c = Context(device="cpu")
     c.create_table("lineitem", tables["lineitem"])

@@ -46,9 +46,9 @@ def spies(monkeypatch):
         hits["ref"].append(self)
         return ref_run(self, params)
 
-    def port_spy(self, probe_table, build_tables):
+    def port_spy(self, probe_table, build_tables, params=()):
         hits["port"].append(self)
-        return port_run(self, probe_table, build_tables)
+        return port_run(self, probe_table, build_tables, params)
 
     monkeypatch.setattr(ref_cj.CompiledJoinAggregate, "run", ref_spy)
     monkeypatch.setattr(port_cj.CompiledJoinAggregate, "run", port_spy)

@@ -210,6 +210,45 @@ def test_split_hi_lo_bit_exact():
                                   np.asarray(want_lo).view(np.uint32))
 
 
+@pytest.mark.parametrize("seed,n,domain,skew", [
+    (21, 5000, 10_000, 0.0),  # q15's shape: more groups than rows
+    (22, 4001, 37, 0.0),
+    (23, 4001, 2500, 0.9),    # most rows at id 0, as unselected probe rows
+    (24, 0, 5, 0.0),
+])
+def test_sorted_segments_add_in_row_order(seed, n, domain, skew):
+    # every group's rows add in row order, so the float64 sums equal numpy's
+    # unbuffered np.add.at bit for bit, and the reference's segment sum
+    # within float64 rounding; one sort serves every column
+    import jax
+
+    rng = np.random.RandomState(seed)
+    gid = rng.randint(0, domain, n).astype(np.int32)
+    gid[rng.rand(n) < skew] = 0
+    xs = [rng.rand(n) * 1e5, rng.rand(n) - 0.5]
+    segments = port.SortedSegments(torch.from_numpy(gid), domain)
+    for x in xs:
+        got = segments.sum(torch.from_numpy(x))
+        want = np.zeros(domain)
+        np.add.at(want, gid, x)
+        assert got.dtype == torch.float64
+        np.testing.assert_array_equal(got.numpy(), want)
+        ref_sum = np.asarray(jax.ops.segment_sum(
+            jnp.asarray(x), jnp.asarray(gid), num_segments=domain))
+        np.testing.assert_allclose(got.numpy(), ref_sum, rtol=1e-12)
+    # a scalar broadcasts to every row
+    ones = segments.sum(torch.tensor(1.0, dtype=torch.float64))
+    np.testing.assert_array_equal(ones.numpy(),
+                                  np.bincount(gid, minlength=domain))
+
+
+def test_sorted_segments_ids_outside_domain():
+    gid = torch.tensor([0, 3, -1, 2, 7, 3], dtype=torch.int32)
+    x = torch.tensor([1.0, 2.0, 4.0, 8.0, 16.0, 32.0], dtype=torch.float64)
+    got = port.SortedSegments(gid, 4).sum(x)
+    np.testing.assert_array_equal(got.numpy(), [1.0, 0.0, 8.0, 34.0])
+
+
 @pytest.mark.parametrize("mode,device,domain,want", [
     ("auto", "cuda", 12, "kernel"),
     ("auto", "cuda", 2048, "kernel"),
