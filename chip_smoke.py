@@ -8,9 +8,12 @@ It builds every kernel of the port from ``dask_sql_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together) and, beside them, the native C++
 planner from ``native/*.cpp`` (``g++``, into ``dask_sql_tpu_torch/_build``),
 holds each kernel against its plain PyTorch version on the card, checks
-that the float64 scatter of large group domains gives the same bits on
-every run (q15 compares two sums computed apart), and drives these paths
-through
+that the segment-sum kernel (at domains 12 and 2048, uniform and skewed,
+staged or loaded from misaligned copies) and the float64 scatter of large
+group domains give the same bits on every run, and that TPC-H q15 on
+``generate(scale_rows=200_000)`` (2,000 suppliers: both of its revenue
+sums, computed apart, on the kernel) keeps its row with the same bits in
+every run, and drives these paths through
 ``Context(device="cuda")``, each checked against a float64 pandas/numpy
 oracle: TPC-H Q1 at SF1 (6,000,000 synthetic ``lineitem`` rows, loaded with
 the column encodings the reference picks: DICT ``l_quantity`` and
@@ -26,8 +29,14 @@ on all eight tables of those frames (the eager aggregate, the compiled
 rungs, the outer, semi, anti and mark joins, subqueries and SUBSTRING:
 each query's rungs, transfers and kernel launches, checked against the
 port on the CPU and, for q14 and q19, a float64 oracle; no rung may step
-down), and a star join of 6,000,000 fact rows
-through that pipeline into the segment-sum kernel.  For each loaded frame
+down), a star join of 6,000,000 fact rows
+through that pipeline into the segment-sum kernel, and (phase ``tpcds``)
+all 99 TPC-DS queries on ``tests/tpcds.py generate(scale_rows=1_000_000)``
+(24 tables, 1,000,000 ``store_sales`` rows; the set operations, window
+functions and string-valued expressions), each cold and warm, against
+the port on the CPU on the same frames, on its rungs, with per query the
+warm ms, transfers, kernel launches and the set-operation and window
+nodes that ran.  For each loaded frame
 it prints the encoded columns and the card memory they take, encoded and,
 for Q1's table, loaded PLAIN, and checks every encoded column's decoded
 buffer against the host's PLAIN values exactly.  It times each query
@@ -39,7 +48,9 @@ transfer each, each against its float64 oracle), and the kernel,
 its plain version and the PyTorch library call that computes the same
 function, at the typed shape Q1 gives the kernel and at the ``[k, n]``
 stacked shape of earlier work; the kernel is also held against its plain
-version on the very calls the star join and q4, q9, q14 and q22 make.  The kernel is timed on the card alone (``ms``, behind a spin kernel),
+version on the very calls the star join, q4, q9, q14 and q22 and the
+TPC-DS queries above a Union (q5, q77) and window queries that aggregate
+make.  The kernel is timed on the card alone (``ms``, behind a spin kernel),
 with the host issuing each call in the loop (``unspun_ms``, the way the plain
 version and the library call are timed), and on the host (``host_us`` to
 issue one call).  Each phase prints one line.  The second-to-last lines
@@ -119,6 +130,20 @@ TPCH_REL = 1e-9  # float64 sums on the card and on the CPU
 SELECT_QUERY = ("SELECT l_returnflag, l_extendedprice * (1 - l_discount) AS rev "
                 "FROM lineitem WHERE l_discount > 0.09 "
                 "ORDER BY rev DESC LIMIT 100")  # bench.py's root select line
+#: TPC-DS on the card: `tests/tpcds.py generate(scale_rows=...)`, all 24
+#: tables (1,000,000 store_sales rows), every query cold once and warm
+#: TPCDS_WARM_RUNS times (fewer than WARM_RUNS, for the time limit)
+TPCDS_ROWS = 1_000_000
+TPCDS_WARM_RUNS = 3
+#: TPC-DS queries whose kernel calls are held against the plain version:
+#: aggregates above a Union (ROLLUP), and window queries that aggregate
+TPCDS_UNION_CALLS = (5, 77)
+TPCDS_WINDOW_CALLS = (12, 20, 98, 36, 86)
+#: the plan nodes of this slice counted per TPC-DS query
+SLICE_NODES = ("Union", "Distinct", "Intersect", "Except", "Window")
+#: q15 on the kernel route: at this scale its 2,000 suppliers put both of
+#: its revenue sums on the segment-sum kernel
+Q15_KERNEL_ROWS = 200_000
 DICT_SELECT_QUERY = ("SELECT l_shipdate, l_quantity, l_extendedprice "
                      "FROM lineitem WHERE l_quantity < 10 "
                      "ORDER BY l_extendedprice DESC LIMIT 100")
@@ -276,26 +301,35 @@ TPCH_ORACLES = {14: q14_oracle, 19: q19_oracle}
 def same_answer(got, want, label) -> float:
     """`got` against `want` column by column: everything but floats
     exactly, floats within TPCH_REL; returns the largest relative error."""
+    agree, rel = answers_agree(got, want)
+    if not agree:
+        fail(f"{label} result differs: {got.shape} {list(got.columns)} "
+             f"against {want.shape} {list(want.columns)}, largest relative "
+             f"float error {rel}")
+    return rel
+
+
+def answers_agree(got, want):
+    """(agree, largest relative float error): the same columns and rows
+    in the same order, everything but floats exactly (dtypes too), floats
+    within TPCH_REL and NULL where `want` is."""
     if list(got.columns) != list(want.columns) or len(got) != len(want):
-        fail(f"{label} result {got.shape} {list(got.columns)}, expected "
-             f"{want.shape} {list(want.columns)}")
+        return False, 0.0
     rel = 0.0
     for name in want.columns:
         g, w = got[name], want[name]
         if w.dtype.kind == "f":
             gv, wv = g.to_numpy(np.float64), w.to_numpy(np.float64)
             if not np.array_equal(np.isnan(gv), np.isnan(wv)):
-                fail(f"{label} {name}: NULLs differ")
+                return False, rel
             ok = ~np.isnan(wv)
             if ok.any():
                 rel = max(rel, float(np.max(np.abs(gv[ok] - wv[ok])
                                             / np.maximum(np.abs(wv[ok]),
                                                          1e-300))))
         elif g.tolist() != w.tolist() or g.dtype != w.dtype:
-            fail(f"{label} {name} differs")
-    if not rel <= TPCH_REL:
-        fail(f"{label} relative error {rel} > {TPCH_REL}")
-    return rel
+            return False, rel
+    return rel <= TPCH_REL, rel
 
 
 def rung_counts(c):
@@ -609,9 +643,9 @@ def check_typed(segsum, gid, columns, domain, label):
     if not rel <= REL_BOUND:
         fail(f"segsum {label}: relative error {rel} > {REL_BOUND}")
     max_abs = float(err.max()) if err.numel() else 0.0
-    kc, replicas, blocks = segsum.launch_geometry(gid, columns, domain)
+    kc, warps, blocks = segsum.launch_geometry(gid, columns, domain)
     phase("segsum_check", case=label, n=int(gid.shape[0]), domain=domain, k=k,
-          replicas=replicas, blocks=blocks, chunks=-(-k // kc),
+          warps=warps, blocks=blocks, chunks=-(-k // kc),
           max_abs_err=max_abs, max_rel_err=rel)
     return max_abs
 
@@ -635,16 +669,17 @@ def check_kernel(segsum, gid, cols, domain, n_counts, label):
 
 
 def repeatability(segsum, card) -> None:
-    """The float64 scatter of the group domains above the kernel's cutoff
-    must give the same bits on every run: q15 keeps the supplier whose
-    revenue equals the largest revenue, two sums computed apart, so a sum
-    that moves in its last bits loses the row.  `SortedSegments` (the sort
-    included) runs REPEATS times at q15's call shape (one float64 column
-    over 10,000 suppliers) and at a skewed one (most rows at id 0, as the
-    unselected probe rows of a join pipeline) and fails on any bit that
-    differs from its first run; it is timed beside ``index_add_``, whose
-    runs that moved are reported, as are the kernel's at domains 12 and
-    2048, not checked."""
+    """Segment sums must give the same bits on every run: q15 keeps the
+    supplier whose revenue equals the largest revenue, two sums computed
+    apart, so a sum that moves in its last bits loses the row.  Each check
+    runs REPEATS times and fails on any bit that differs from its first
+    run: the kernel on Q1's typed columns at domains 12 and 2048, uniform
+    and skewed (90% of rows at id 0), and over copies of the same columns
+    that start off a 16-byte boundary (global loads instead of the staged
+    ring: the same bits); `SortedSegments` (the sort included) at q15's
+    call shape above the kernel's cutoff (one float64 column over 10,000
+    suppliers) and skewed.  ``index_add_``, timed beside the sorted
+    scatter, is reported, not checked."""
     def moved(fn):
         first = fn()
         return sum(not torch.equal(fn(), first) for _ in range(REPEATS))
@@ -669,15 +704,73 @@ def repeatability(segsum, card) -> None:
               index_add_runs_moved=moved(index_add),
               index_add_ms=cuda_ms(index_add, 5),
               max_abs_diff=float((sorted_sum() - index_add()).abs().max()))
-    for domain in (12, 2048):
-        gid = torch.randint(0, domain, (1_000_000,), generator=g,
-                            device="cuda", dtype=torch.int32)
-        x = torch.rand(1_000_000, generator=g, device="cuda",
-                       dtype=torch.float64) * 1e5
+    for domain, skew in ((12, 0.0), (2048, 0.0), (12, 0.9), (2048, 0.9)):
+        n = 1_000_003
+        gid, cols = typed_inputs(n, domain, seed=8)
+        gid[torch.rand(n, generator=g, device="cuda") < skew] = 0
+        kernel = lambda: segsum.segsum_typed(gid, cols, domain)  # noqa: E731
+        runs_moved = moved(kernel)
+        mgid = misaligned(gid)
+        mcols = [(misaligned(d), None if m is None else misaligned(m))
+                 for d, m in cols]
+        aligned_equal = torch.equal(segsum.segsum_typed(mgid, mcols, domain),
+                                    kernel())
+        if runs_moved or not aligned_equal:
+            fail(f"the segsum kernel at domain {domain}, skew {skew}: bits "
+                 f"moved in {runs_moved} of {REPEATS} runs, misaligned "
+                 f"copies equal: {aligned_equal}")
         phase("repeatability", card=card, case=f"kernel_domain_{domain}",
-              n=1_000_000, domain=domain, repeats=REPEATS,
-              kernel_runs_moved=moved(
-                  lambda: segsum.segsum_typed(gid, [(x, None)], domain)))
+              n=n, domain=domain, skew=skew, k=len(cols), repeats=REPEATS,
+              kernel_runs_moved=runs_moved,
+              misaligned_copies_equal=aligned_equal)
+
+
+def q15_on_the_kernel(card, segsum, transfers):
+    """TPC-H q15 where both of its revenue sums take the kernel: its row
+    (the supplier whose revenue equals MAX(total_revenue)) in each of
+    REPEATS runs, the same bits every run, the kernel launched in each."""
+    from tests.tpch import QUERIES, generate
+
+    frames = generate(scale_rows=Q15_KERNEL_ROWS, seed=7)
+    suppliers = len(frames["supplier"])
+    if suppliers > segsum.KERNEL_DOMAIN_CUTOFF:
+        fail(f"q15's {suppliers} suppliers pass the kernel's cutoff")
+    c, _, _ = load_tables(frames)
+    cpu = cpu_context(frames)
+    want = cpu.sql(QUERIES[15]).compute()
+    reset_launches(segsum)
+    first, runs = None, []
+    for _ in range(REPEATS):
+        transfers["d2h"] = 0
+        t0 = time.perf_counter()
+        got = c.sql(QUERIES[15]).compute()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        if len(got) != 1:
+            fail(f"q15 on the kernel route returned {len(got)} rows")
+        if first is None:
+            first = got
+            rel = same_answer(got, want, "q15 on the kernel route")
+        elif not got.equals(first):
+            fail("q15 on the kernel route changed its answer between runs")
+    launches = segsum.LAUNCHES["segsum"]
+    if launches < REPEATS:
+        fail(f"q15 launched the segsum kernel {launches} times in "
+             f"{REPEATS} runs")
+    check_not_degraded(c, "q15_kernel")
+    phase("q15_kernel", card=card, scale_rows=Q15_KERNEL_ROWS,
+          suppliers=suppliers, runs=REPEATS, rows=1, same_bits=True,
+          launches=launches, ms=float(np.median(runs)), max_rel_err=rel)
+    return launches
+
+
+def cpu_context(frames):
+    """The port on the CPU with `frames` registered: the card's yardstick."""
+    from dask_sql_tpu_torch import Context
+
+    cpu = Context(device="cpu")
+    for name, frame in frames.items():
+        cpu.create_table(name, frame)
+    return cpu
 
 
 def like_table_ms(c, table: str, column: str, pattern: str):
@@ -710,14 +803,11 @@ def tpch_more(all_tables, card, segsum, transfers):
     Returns {"launches": {query: n}, "max_abs_err": x}: the kernel is also
     held against its plain version on a call q4, q9, q22 (eager) and q14
     (join pipeline) make."""
-    from dask_sql_tpu_torch import Context
     from tests.tpch import QUERIES
 
     t0 = time.perf_counter()
     ct, hbm, load_s = load_tables(all_tables)
-    cpu = Context(device="cpu")
-    for name, frame in all_tables.items():
-        cpu.create_table(name, frame)
+    cpu = cpu_context(all_tables)
     phase("tpch_more_load", card=card, tables=len(all_tables),
           hbm_bytes=hbm, load_s=load_s,
           setup_s=time.perf_counter() - t0,
@@ -804,6 +894,146 @@ def tpch_more(all_tables, card, segsum, transfers):
     return {"launches": launches, "max_abs_err": err}
 
 
+def rows_sorted(df):
+    """`df` with its rows in one canonical order: sorted by every column,
+    floats by their first 9 significant digits (so that sums equal within
+    the bound sort alike), NULLs last."""
+    keys = {}
+    for i, name in enumerate(df.columns):
+        col = df[name]
+        if col.dtype.kind == "f":
+            col = col.map(lambda v: v if np.isnan(v) else float(f"{v:.9e}"))
+        keys[f"k{i}"] = col.astype(str) if col.dtype == object else col
+    import pandas as pd
+
+    order = pd.DataFrame(keys).sort_values(list(keys), na_position="last",
+                                           kind="stable").index
+    return df.loc[order].reset_index(drop=True)
+
+
+def tpcds(card, segsum, transfers):
+    """The `tpcds` phase: every TPC-DS query on `tests/tpcds.py
+    generate(scale_rows=TPCDS_ROWS)` loaded on the card with the
+    reference's encodings, cold once and TPCDS_WARM_RUNS times warm, each
+    answer held against the port on the CPU on the same frames (in order,
+    floats within TPCH_REL; where ties at an ORDER BY put rows in another
+    order, the LIMIT-stripped query's rows as a multiset), on the CPU run's
+    rungs, with `resilience.degraded` at 0.  Per query: warm ms, counted
+    transfers, kernel launches and the slice's plan nodes that ran.  The
+    kernel is held against its plain version on the calls of queries above
+    a Union and of window queries that aggregate."""
+    from collections import Counter
+
+    from dask_sql_tpu_torch.physical.executor import Executor
+    from dask_sql_tpu_torch.physical.rel.logical import window as window_rel
+    from tests.ds_oracle import strip_top_limit
+    from tests.tpcds import generate
+    from tests.tpcds_queries import QUERIES
+
+    t0 = time.perf_counter()
+    frames = generate(scale_rows=TPCDS_ROWS, seed=42)
+    gen_s = time.perf_counter() - t0
+    ct, hbm, load_s = load_tables(frames)
+    cpu = cpu_context(frames)
+    phase("tpcds_load", card=card, tables=len(frames),
+          rows={n: len(f) for n, f in frames.items() if len(f) >= 100_000},
+          host_bytes=int(sum(f.memory_usage(deep=True).sum()
+                             for f in frames.values())),
+          hbm_bytes=hbm, gen_s=gen_s, load_s=load_s,
+          setup_s=time.perf_counter() - t0)
+    ran = Counter()
+    for kind in SLICE_NODES:
+        plugin = Executor._plugins[kind]
+
+        def counted(rel, executor, kind=kind, convert=plugin.convert):
+            ran[kind] += 1
+            return convert(rel, executor)
+
+        plugin.convert = counted
+    launches, cpu_s = {}, 0.0
+    try:
+        for q in sorted(QUERIES):
+            sql = QUERIES[q]
+            cpu_before = rung_counts(cpu)
+            t0 = time.perf_counter()
+            want = cpu.sql(sql).compute()
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            cpu_s += cpu_ms / 1e3
+            cpu_rungs = {k: v - cpu_before.get(k, 0)
+                         for k, v in rung_counts(cpu).items()
+                         if v != cpu_before.get(k, 0)}
+            before = rung_counts(ct)
+            reset_launches(segsum)
+            ran.clear()
+            runs, rel, compared = [], 0.0, "in_order"
+            for i in range(1 + TPCDS_WARM_RUNS):
+                transfers["d2h"] = 0
+                t0 = time.perf_counter()
+                got = ct.sql(sql).compute()
+                runs.append((time.perf_counter() - t0) * 1e3)
+                agree, r = answers_agree(got, want)
+                if not agree and compared == "in_order":
+                    # ties at an ORDER BY may sort alike-valued rows apart
+                    stripped = strip_top_limit(sql)
+                    agree, r = answers_agree(
+                        rows_sorted(ct.sql(stripped).compute()),
+                        rows_sorted(cpu.sql(stripped).compute()))
+                    agree = agree and len(got) == len(want)
+                    compared = "multiset"
+                if not agree:
+                    fail(f"TPC-DS q{q} on the card differs from the port on "
+                         f"the CPU (largest relative error {r})")
+                rel = max(rel, r)
+            launches[q] = segsum.LAUNCHES["segsum"]
+            rungs = {k: v - before.get(k, 0) for k, v in rung_counts(ct).items()
+                     if v != before.get(k, 0)}
+            expected = {k: v * (1 + TPCDS_WARM_RUNS)
+                        for k, v in cpu_rungs.items()}
+            if rungs != expected:
+                fail(f"TPC-DS q{q} answered on rungs {rungs}, the CPU on "
+                     f"{expected}")
+            check_not_degraded(ct, f"tpcds q{q}")
+            runs_per_query = 1 + TPCDS_WARM_RUNS
+            phase("tpcds", card=card, query=f"q{q}", rows=len(got),
+                  cold_ms=runs[0], ms=float(np.median(runs[1:])),
+                  runs_ms=runs[1:], cpu_ms=cpu_ms, d2h=transfers["d2h"],
+                  launches=launches[q] // runs_per_query, rungs=rungs,
+                  nodes={k: v // runs_per_query for k, v in ran.items()},
+                  compared=compared, max_rel_err=rel)
+    finally:
+        for kind in SLICE_NODES:
+            del Executor._plugins[kind].convert
+    # the kernel against its plain version on calls the queries make
+    captured = {}
+    typed = segsum.segsum_typed
+
+    def capture(gid, columns, domain):
+        captured.setdefault(q, []).append((gid, list(columns), domain))
+        return typed(gid, columns, domain)
+
+    segsum.segsum_typed = capture
+    try:
+        for q in TPCDS_UNION_CALLS + TPCDS_WINDOW_CALLS:
+            ct.sql(QUERIES[q]).compute()
+    finally:
+        segsum.segsum_typed = typed
+    for group in (TPCDS_UNION_CALLS, TPCDS_WINDOW_CALLS):
+        if not any(captured.get(q) for q in group):
+            fail(f"no TPC-DS query of {group} called the segsum kernel")
+    err = 0.0
+    for q, calls in captured.items():
+        for i, (gid, cols, domain) in enumerate(calls):
+            err = max(err, check_typed(segsum, gid, cols, domain,
+                                       f"tpcds_q{q}_call{i}"))
+    check_not_degraded(ct, "tpcds")
+    phase("tpcds_summary", card=card, queries=len(launches),
+          kernel_queries=sorted(q for q, n in launches.items() if n),
+          checked_calls={f"q{q}": len(v) for q, v in captured.items()},
+          sparse_table_bytes=window_rel.SPARSE_TABLE_BYTES["max"],
+          cpu_s=cpu_s, kernel_max_abs_err=err)
+    return {"launches": launches, "max_abs_err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
@@ -851,6 +1081,9 @@ def main() -> int:
             ("typed_domain_4096_mixed_chunks", 1_000_000, 4096, False),
             ("typed_ragged_stray_ids", 1_000_003, 12, True),
             ("typed_40_columns", 100_003, 12, True),
+            # one partial a block, the ids split among its warps
+            ("typed_max_domain_split", 1_000_000, segsum.KERNEL_MAX_DOMAIN,
+             False),
             ("typed_empty", 0, 12, False)):
         g_, c_ = typed_inputs(n, domain, seed=4, stray_ids=stray)
         if label == "typed_misaligned_views":
@@ -1125,6 +1358,7 @@ def main() -> int:
     # q14 and q19 against float64 pandas too
     tpch_launches = tpch_more(all_tables, card, segsum, TRANSFER_STATS)
     del all_tables
+    q15_launches = q15_on_the_kernel(card, segsum, TRANSFER_STATS)
 
     # 10. a star join through the pipeline into the segment-sum kernel
     t0 = time.perf_counter()
@@ -1183,6 +1417,10 @@ def main() -> int:
     check_not_degraded(cs, "join_star")
     del cs, star, captured, star_gid, star_cols
 
+    # 11. TPC-DS: the set operations, window functions and the rest of
+    # the evaluator on all 24 tables
+    tpcds_launches = tpcds(card, segsum, TRANSFER_STATS)
+
     rate = memory_rate(kind)
     # the typed call Q1 makes: 11 columns read in place
     tk = len(tcols)
@@ -1202,9 +1440,9 @@ def main() -> int:
     t_bytes_ms = t_bytes / rate * 1e3
     t_ops_ms = typed_adds(tgid, tcols, q1_domain) / FP64_RATE * 1e3
     t_bound_ms = max(t_bytes_ms, t_ops_ms)
-    kc, replicas, blocks = segsum.launch_geometry(tgid, tcols, q1_domain)
+    kc, warps, blocks = segsum.launch_geometry(tgid, tcols, q1_domain)
     phase("segsum_time", shape="typed_q1", card=card, n=N_ROWS,
-          domain=q1_domain, k=tk, replicas=replicas, blocks=blocks, ms=t_ms,
+          domain=q1_domain, k=tk, warps=warps, blocks=blocks, ms=t_ms,
           host_us=t_host_us, unspun_ms=t_unspun_ms, plain_ms=t_plain_ms,
           library_ms=t_library_ms, bound_us=t_bound_ms * 1e3, bytes=t_bytes,
           share_of_bound=t_bound_ms / t_ms)
@@ -1221,10 +1459,10 @@ def main() -> int:
     bytes_ms = n_bytes / rate * 1e3
     ops_ms = N_ROWS * q1_k / FP64_RATE * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    kc, replicas, blocks = segsum.launch_geometry(
+    kc, warps, blocks = segsum.launch_geometry(
         gid, [(c, None) for c in cols.unbind(0)], q1_domain)
     phase("segsum_time", shape="stacked_q1", card=card, n=N_ROWS,
-          domain=q1_domain, k=q1_k, replicas=replicas, blocks=blocks,
+          domain=q1_domain, k=q1_k, warps=warps, blocks=blocks,
           ms=kernel_ms, host_us=host_us, unspun_ms=unspun_ms,
           plain_ms=plain_ms, library_ms=library_ms, bound_us=bound_ms * 1e3,
           bytes=n_bytes, share_of_bound=bound_ms / kernel_ms)
@@ -1240,8 +1478,12 @@ def main() -> int:
                              "q3": q3_launches["segsum"],
                              "join_star": star_launches["segsum"],
                              **{f"tpch_q{q}": n for q, n in
-                                tpch_launches["launches"].items()}},
-        "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"]),
+                                tpch_launches["launches"].items()},
+                             "tpch_q15_kernel_route": q15_launches,
+                             **{f"tpcds_q{q}": n for q, n in
+                                tpcds_launches["launches"].items()}},
+        "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"],
+                           tpcds_launches["max_abs_err"]),
         "ms": t_ms,
         "plain_ms": t_plain_ms,
         "bound_ms": t_bound_ms,

@@ -32,16 +32,32 @@
 //           and every row of a call whose buffers are not 16-byte aligned
 //           (a view can start anywhere), load one by one from global
 //           memory here.
-//           Float adds go into R replicas of the block's [domain, floats]
-//           float64 partial, interleaved so that lane l adds into replica
-//           l % R at part[(g * floats + j) * R + l % R]: lanes of a warp
-//           that hit one cell hit neighbouring words, and only warps of one
-//           block can collide in the compare-and-swap loop a shared float64
-//           atomicAdd compiles to.  Counts add as 32-bit integers into one
-//           [domain, counts] copy: the compiler aggregates a warp's adds to
-//           one address (ATOMS.POPC.INC), which replicas would defeat.  At
-//           the end each block sums its replicas in a fixed order into the
-//           [blocks, domain, k] float64 scratch.
+//           Every float64 partial cell has one owner, and that owner
+//           adds in an order fixed by the call's shape, so the sums are
+//           the same bits on every run (q15 compares two sums computed
+//           apart).  Each consumer warp owns its own [domain, floats]
+//           float64 partial.  For each of a thread's 4 rows the lanes that
+//           hold the same id find each other (__match_any_sync) and merge
+//           their values along the list of those lanes in lane order, by
+//           pointer jumping (a fixed tree of shuffles); the first lane of
+//           the list then adds the merged value into the warp's partial
+//           with a plain load, add and store.  No float atomic is left.
+//           Which rows a warp takes, which tiles a block takes and the grid
+//           are fixed by the plan; rows that load from global memory (the
+//           tail past the last full tile, or a call whose buffers are not
+//           16-byte aligned) keep the same rows-to-thread map as staged
+//           rows.  Counts add as 32-bit integers into one [domain, counts]
+//           copy a block with shared atomics: integer adds are exact in
+//           any order.  At the end each block sums its warps' partials in
+//           warp order into the [blocks, domain, k] float64 scratch.  Eight
+//           warp partials of one float column at domain 2048 take 128 KB,
+//           so the plan takes as many columns a block as fit in shared
+//           memory (one, at that domain), and the grid's column chunks
+//           cover the rest.  Above 3516 groups (asked for only outside the
+//           default policy) not even one column's eight partials fit: the
+//           block then keeps one partial, every consumer warp reads every
+//           row of the block's tiles, and warp w adds only the ids g with
+//           g % 8 == w, so each cell still has one owner.
 //   pass 2  one warp per output cell: lane l sums blocks l, l + 32, ... in
 //           order, then a fixed shuffle tree; nothing nondeterministic of
 //           its own.
@@ -56,7 +72,7 @@
 // 38 bytes a row, 228 MB, about 68 us at the 3.35 TB/s of an H100 SXM.
 //
 // The launch is planned here alone: dsql_segsum_plan picks the columns a
-// block sums, the replicas, the shared-memory layout and the grid for the
+// block sums, the shared-memory layout and the grid for the
 // shape of a call; the caller keeps that plan and hands it to every
 // dsql_segsum_typed of the same shape.
 //
@@ -71,21 +87,24 @@
 namespace {
 
 constexpr int kConsumers = 256;             // 8 consumer warps
+constexpr int kWarps = kConsumers / 32;     // float partials a block
 constexpr int kThreads = kConsumers + 32;   // and one producer warp
 constexpr int kMaxCols = 32;                // descriptors a launch carries
 constexpr int kMaxBufs = 1 + 2 * kMaxCols;  // ids, data and masks
 constexpr int kStages = 2;
 constexpr int kMaxTile = 4 * kConsumers;    // rows: one group a consumer
-constexpr int kTileStep = 64;               // tiles are multiples of this
+// tiles are multiples of this, so a tile's groups of 4 rows fill whole warps
+constexpr int kTileStep = 128;
 constexpr int kBatch = 4;  // columns whose loads a thread issues together
 constexpr int kCombineThreads = 256;
 // shared memory a block may take so that two stay resident on an SM
 // (228 KB an SM, less 1 KB a block and the static arrays below)
 constexpr int kPairBytes = 110 * 1024;
 constexpr int kMaxBytes = 227 * 1024 - 4096;  // one block an SM
-// shared memory the float partial's replicas may take, so that a ring of
-// two tiles of kMaxTile rows still fits beside them in kPairBytes
-constexpr int kReplicaBytes = 48 * 1024;
+// the largest domain: one column's float partial (a single copy, the
+// domain split among the warps) beside a ring of kTileStep rows of its
+// widest row (id, float64 data, mask: 13 bytes)
+constexpr int kMaxDomain = (kMaxBytes - 2 * kTileStep * 13) / 8;
 constexpr int kPlanInts = 16;  // ints the caller keeps a Plan in
 
 enum ColumnType : int { kFloat32 = 0, kFloat64 = 1, kBool = 2 };
@@ -119,8 +138,9 @@ __host__ __device__ inline int row_bytes_of(int type) {
 // Shared-memory layout of a launch, the same on the host and the device.
 struct Layout {
   int row_bytes;       // most bytes a row of a chunk's distinct buffers
-  int partial_bytes;   // most a chunk's partials take: replicas of the
-                       // [domain, floats] float partial, then the counts
+  int partial_bytes;   // most a chunk's partials take: the [domain,
+                       // floats] float partial (kWarps copies unless the
+                       // domain is split), then the counts
   int tile;            // rows a stage holds; 0: nothing staged
   int smem;            // dynamic shared memory a block
 };
@@ -131,9 +151,14 @@ __host__ __device__ inline int align128(int x) { return (x + 127) & ~127; }
 // and mask_buf[c] name column c's buffers: one id for one buffer (the same
 // memory read as the same type), a mask id below 0 for no mask.  The
 // kernel finds the same distinct buffers by their pointers.
+__host__ __device__ inline int float_bytes(int domain, int floats,
+                                           bool split) {
+  return align128(domain * floats * (split ? 1 : kWarps) * 8);
+}
+
 Layout layout_of(int domain, int k, const int64_t* data_buf,
                  const int64_t* mask_buf, const int* types, int kc,
-                 int replicas) {
+                 bool split) {
   Layout l = {0, 0, 0, 0};
   for (int c0 = 0; c0 < k; c0 += kc) {
     const int c1 = c0 + kc < k ? c0 + kc : k;
@@ -154,7 +179,8 @@ Layout layout_of(int domain, int k, const int64_t* data_buf,
         }
       }
     }
-    const int partial = align128(domain * (floats * replicas * 8 + counts * 4));
+    const int partial =
+        float_bytes(domain, floats, split) + align128(domain * counts * 4);
     l.partial_bytes = partial > l.partial_bytes ? partial : l.partial_bytes;
     l.row_bytes = bytes > l.row_bytes ? bytes : l.row_bytes;
   }
@@ -174,7 +200,8 @@ Layout layout_of(int domain, int k, const int64_t* data_buf,
 // The plan of a call, made by dsql_segsum_plan and read by the kernel.
 struct Plan {
   int kc;        // columns a chunk: blockIdx.y of a launch
-  int replicas;  // copies of the float partial, a power of two <= 32
+  int warps;     // copies of the float partial a block: one a consumer
+                 // warp, or 1 where the domain is split among the warps
   int blocks;    // blocks of pass 1: gridDim.x and the scratch's rows
   int group;     // columns a launch: a multiple of kc, at most kMaxCols
   Layout lay;
@@ -283,16 +310,76 @@ __device__ __forceinline__ void load_rows(const Desc& d, int64_t r0, int64_t n,
   on = on_bits(m);
 }
 
-// Adds the 4 rows of one group, ids g, into the block's partials; `st` is
-// the stage holding them, or null to load them from global memory.
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSteps = 5;  // pointer-jumping steps over 32 lanes
+
+// The merge of row slot t's lanes: src[s] is the lane whose running sum a
+// lane adds at step s (-1: none), `steps` the warp's step count, `lead`
+// whether this lane is the first of the lanes sharing its id.
+struct Merge {
+  int src[kMaxSteps];
+  int steps;
+  bool lead;
+};
+
+// The lanes holding the same key (ids in [0, domain); -1 for the others)
+// form a list in lane order.  Pointer jumping over that list: at step s
+// each lane adds the running sum of the lane 2^s places further down its
+// list, so after ceil(log2(list length)) steps the list's first lane holds
+// the list's sum, added in a tree fixed by which lanes hold which id.
+__device__ __forceinline__ Merge merge_plan(int key, int lane) {
+  Merge m;
+  const unsigned peers = __match_any_sync(kFull, key);
+  const unsigned above = peers & ~((2u << lane) - 1u);  // 2u << 31 is 0
+  int nxt = above ? __ffs(above) - 1 : -1;
+  // the longest list of lanes holding a live id sets the steps
+  const int longest =
+      (int)__reduce_max_sync(kFull, key >= 0 ? (unsigned)__popc(peers) : 0u);
+  m.steps = longest > 1 ? 32 - __clz(longest - 1) : 0;
+  m.lead = (peers & ((1u << lane) - 1u)) == 0;
+#pragma unroll
+  for (int s = 0; s < kMaxSteps; ++s) {
+    m.src[s] = nxt;
+    if (s < m.steps) {
+      const int far = __shfl_sync(kFull, nxt, nxt >= 0 ? nxt : lane);
+      nxt = nxt >= 0 ? far : -1;
+    }
+  }
+  return m;
+}
+
+// The sum of x over this lane's list (its first lane gets the whole sum).
+__device__ __forceinline__ double merged(double x, const Merge& m, int lane) {
+#pragma unroll
+  for (int s = 0; s < kMaxSteps; ++s) {
+    if (s >= m.steps) break;
+    const double y = __shfl_sync(kFull, x, m.src[s] >= 0 ? m.src[s] : lane);
+    if (m.src[s] >= 0) x += y;
+  }
+  return x;
+}
+
+// Adds the 4 rows of one group, ids g, into the warp's float partial
+// `wpart` and the block's counts; `st` is the stage holding them, or null
+// to load them from global memory.  Every lane of the warp calls it
+// together (rows past the end carry id -1).  With `owner` >= 0 (a split
+// domain) the warp adds only the ids g with g % kWarps == owner.
 __device__ __forceinline__ void add_group(
-    double* part, unsigned* cnt, const Desc* desc, int kcb, int floats,
-    int counts, int replicas, int copy, const int (&g)[4], int domain,
-    const char* st, int q, int64_t r0, int64_t n) {
-  unsigned live = 0;  // rows whose id lies in [0, domain)
+    double* wpart, unsigned* cnt, const Desc* desc, int kcb, int floats,
+    int counts, const int (&g)[4], int domain, const char* st, int q,
+    int64_t r0, int64_t n, int lane, int owner) {
+  unsigned live = 0;  // rows whose id lies in [0, domain), and is the warp's
 #pragma unroll
   for (int t = 0; t < 4; ++t)
-    if ((unsigned)g[t] < (unsigned)domain) live |= 1u << t;
+    if ((unsigned)g[t] < (unsigned)domain &&
+        (owner < 0 || g[t] % kWarps == owner))
+      live |= 1u << t;
+  Merge mp[4];
+  if (floats > 0) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+      mp[t] = merge_plan((live >> t) & 1u ? g[t] : -1, lane);
+  }
   for (int j0 = 0; j0 < kcb; j0 += kBatch) {
     double v[kBatch][4];
     unsigned on[kBatch];
@@ -308,17 +395,22 @@ __device__ __forceinline__ void add_group(
     }
 #pragma unroll
     for (int b = 0; b < kBatch; ++b) {
+      if (j0 + b >= kcb) continue;
       const unsigned add = on[b] & live;
-      if (add == 0) continue;
       const Desc& d = desc[j0 + b];
+      if (d.type == kBool) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          if (add & (1u << t)) atomicAdd(cnt + g[t] * counts + d.slot, 1u);
+        continue;
+      }
+      if (!__any_sync(kFull, add != 0)) continue;  // warp-uniform
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        if (!(add & (1u << t))) continue;
-        if (d.type == kBool)
-          atomicAdd(cnt + g[t] * counts + d.slot, 1u);
-        else
-          atomicAdd(part + ((g[t] * floats + d.slot) * replicas + copy),
-                    v[b][t]);
+        const double x = merged((add >> t) & 1u ? v[b][t] : 0.0, mp[t], lane);
+        if (mp[t].lead && ((live >> t) & 1u))
+          wpart[g[t] * floats + d.slot] += x;
+        __syncwarp();
       }
     }
   }
@@ -327,11 +419,12 @@ __device__ __forceinline__ void add_group(
 // Pass 1.  Chunk blockIdx.y holds columns c0 = blockIdx.y * kc ... of this
 // launch's ng; scratch is [gridDim.x, domain, k] over all k columns of the
 // call, of which this launch holds g0 ....
-__global__ void __launch_bounds__(kThreads)
+// two blocks an SM where shared memory allows: at most 113 registers
+__global__ void __launch_bounds__(kThreads, 2)
 segsum_partials(const int32_t* __restrict__ gid, int64_t n, int domain,
                 const __grid_constant__ Columns cols, int ng, int g0, int k,
                 const Plan plan, double* __restrict__ scratch) {
-  const int kc = plan.kc, replicas = plan.replicas;
+  const int kc = plan.kc;
   const Layout lay = plan.lay;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ Desc desc[kMaxCols];
@@ -347,7 +440,7 @@ segsum_partials(const int32_t* __restrict__ gid, int64_t n, int domain,
   if (threadIdx.x == 0) {
     // the chunk's distinct buffers and where each lies in a stage
     int nb = 0, off = 0, floats = 0, counts = 0;
-    bool ok = aligned16(gid) && tile > 0;
+    bool ok = aligned16(gid);
     bufs[nb++] = {reinterpret_cast<const char*>(gid), 4, 0};
     off += tile * 4;
     for (int j = 0; j < kcb; ++j) {
@@ -392,17 +485,21 @@ segsum_partials(const int32_t* __restrict__ gid, int64_t n, int domain,
   const int words = lay.partial_bytes / 8;
   for (int i = threadIdx.x; i < words; i += kThreads) part[i] = 0.0;
   __syncthreads();
-  // the chunk's [domain, floats] float partial in replicas, then its
+  // kWarps copies of the chunk's [domain, floats] float partial, one a
+  // consumer warp (or one copy, whose ids the warps split), then its
   // [domain, counts] counts
   const int floats = nfloats, counts = ncounts;
-  unsigned* cnt = reinterpret_cast<unsigned*>(
-      smem + (size_t)domain * floats * replicas * 8);
+  const bool split = plan.warps == 1;
+  unsigned* cnt =
+      reinterpret_cast<unsigned*>(smem + float_bytes(domain, floats, split));
 
-  const int64_t tiles = staged ? n / tile : 0;
+  // full tiles go round the grid's blocks in a fixed order, staged or not,
+  // so that a row meets the same thread whatever the buffers' alignment
+  const int64_t tiles = n / tile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp == kConsumers / 32) {
+  if (warp == kWarps) {
     // producer: one lane keeps both stages in flight
-    if (lane == 0) {
+    if (staged && lane == 0) {
       int it = 0;
       for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
         const int s = it % kStages;
@@ -417,50 +514,74 @@ segsum_partials(const int32_t* __restrict__ gid, int64_t n, int domain,
       }
     }
   } else {
-    const int copy = lane & (replicas - 1);
+    // a split domain: every warp reads every row of the block's tiles
+    // and adds the ids it owns into the one partial
+    double* wpart = split ? part : part + (size_t)warp * domain * floats;
+    const int owner = split ? warp : -1;
+    const int q0 = split ? lane : threadIdx.x;
+    const int qstep = split ? 32 : kConsumers;
     int it = 0;
     for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
       const int s = it % kStages;
-      mbar_wait(&full[s], (it / kStages) & 1);
-      const char* st = ring + (size_t)s * stage_bytes;
-      for (int q = threadIdx.x; q < tile / 4; q += kConsumers) {
-        const int4 x = reinterpret_cast<const int4*>(st)[q];
-        const int g[4] = {x.x, x.y, x.z, x.w};
-        add_group(part, cnt, desc, kcb, floats, counts, replicas,
-                  copy, g, domain, st, q, 0, 0);
+      const char* st = nullptr;
+      if (staged) {
+        mbar_wait(&full[s], (it / kStages) & 1);
+        st = ring + (size_t)s * stage_bytes;
       }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
-    }
-    // rows past the staged tiles, one by one from global memory
-    const int64_t groups = (n + 3) >> 2;
-    for (int64_t q = tiles * (tile / 4) + (int64_t)blockIdx.x * kConsumers +
-                     threadIdx.x;
-         q < groups; q += (int64_t)gridDim.x * kConsumers) {
-      const int64_t r0 = q * 4;
-      int g[4];
+      // tile / 4 is a multiple of 32: a warp's lanes run this loop together
+      for (int q = q0; q < tile / 4; q += qstep) {
+        const int64_t r0 = t * tile + 4 * (int64_t)q;
+        int g[4];
+        if (st != nullptr) {
+          const int4 x = reinterpret_cast<const int4*>(st)[q];
+          g[0] = x.x; g[1] = x.y; g[2] = x.z; g[3] = x.w;
+        } else {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) g[u] = r0 + u < n ? __ldg(gid + r0 + u) : -1;
-      add_group(part, cnt, desc, kcb, floats, counts, replicas, copy,
-                g, domain, nullptr, 0, r0, n);
+          for (int u = 0; u < 4; ++u) g[u] = __ldg(gid + r0 + u);
+        }
+        add_group(wpart, cnt, desc, kcb, floats, counts, g, domain, st, q,
+                  r0, n, lane, owner);
+      }
+      if (staged) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    }
+    // rows past the full tiles, one by one from global memory: a block
+    // takes kConsumers groups of 4 at a time, 32 a warp (all of them each
+    // warp where the domain is split); the loop runs warp by warp, lanes
+    // past the end holding id -1
+    const int64_t groups = (n + 3) >> 2;
+    for (int64_t chunk = tiles * (tile / 4) + (int64_t)blockIdx.x * kConsumers;
+         chunk < groups; chunk += (int64_t)gridDim.x * kConsumers) {
+      for (int sub = split ? 0 : warp; sub < (split ? kWarps : warp + 1);
+           ++sub) {
+        const int64_t r0 = (chunk + sub * 32 + lane) * 4;
+        int g[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          g[u] = r0 + u < n ? __ldg(gid + r0 + u) : -1;
+        add_group(wpart, cnt, desc, kcb, floats, counts, g, domain, nullptr,
+                  0, r0, n, lane, owner);
+      }
     }
   }
   __syncthreads();
 
-  // each warp folds the replicas of its cells in a fixed order
+  // each cell sums the warps' partials in warp order
   const int cells = domain * kcb;
-  for (int cell = warp; cell < cells; cell += kThreads / 32) {
+  for (int cell = threadIdx.x; cell < cells; cell += kThreads) {
     const int grp = cell / kcb, j = cell - grp * kcb;
     const Desc& d = desc[j];
     double sum;
     if (d.type == kBool) {
       sum = (double)cnt[grp * counts + d.slot];
     } else {
-      const double* slot = part + (grp * floats + d.slot) * replicas;
-      sum = warp_sum(lane < replicas ? slot[lane] : 0.0);
+      sum = part[grp * floats + d.slot];
+      for (int w = 1; w < plan.warps; ++w)
+        sum += part[((size_t)w * domain + grp) * floats + d.slot];
     }
-    if (lane == 0)
-      scratch[((int64_t)blockIdx.x * domain + grp) * k + g0 + c0 + j] = sum;
+    scratch[((int64_t)blockIdx.x * domain + grp) * k + g0 + c0 + j] = sum;
   }
 }
 
@@ -480,27 +601,32 @@ __global__ void segsum_combine(const double* __restrict__ scratch, int nb,
 }  // namespace
 
 // The plan of a call of k columns over n rows and `domain` groups, on the
-// current device: columns a chunk, replicas, shared-memory layout and grid.
+// current device: columns a chunk, shared-memory layout and grid.
 // data_buf and mask_buf name each column's buffers as layout_of says;
 // types[c] as in dsql_segsum_typed.  Writes kPlanInts ints to `plan`, of
-// which the first three are kc, replicas and blocks.  Returns -1 for a
-// shape the kernel does not take (k < 1, domain < 1, or one column of
-// float64 partials over the domain larger than shared memory), else a
-// cudaError_t.
+// which the first three are kc, warps and blocks.  Returns -1 for a shape
+// the kernel does not take (k < 1, domain < 1, or one column's warp
+// partials over the domain larger than shared memory), else a cudaError_t.
 extern "C" int dsql_segsum_plan(int64_t n, int domain, int k,
                                 const int64_t* data_buf,
                                 const int64_t* mask_buf, const int* types,
                                 int* plan) {
-  if (k < 1 || domain < 1 || domain > kMaxBytes / 8) return -1;
+  if (k < 1 || domain < 1 || domain > kMaxDomain) return -1;
   Plan p = {};
-  p.kc = kMaxBytes / (8 * domain);
-  p.kc = p.kc < k ? p.kc : k;
-  p.kc = p.kc < kMaxCols ? p.kc : kMaxCols;
-  p.replicas = 32;
-  while (p.replicas > 1 && p.replicas * domain * p.kc * 8 > kReplicaBytes)
-    p.replicas /= 2;
+  // as many columns a chunk as leave room for a ring of kTileStep rows,
+  // with a partial a warp; where not even one column fits, one partial
+  // whose ids the warps split
+  for (int split = 0; split < 2; ++split) {
+    p.warps = split ? 1 : kWarps;
+    for (p.kc = k < kMaxCols ? k : kMaxCols; p.kc >= 1; --p.kc) {
+      p.lay = layout_of(domain, k, data_buf, mask_buf, types, p.kc,
+                        split != 0);
+      if (p.lay.tile > 0) break;
+    }
+    if (p.kc >= 1) break;
+  }
+  if (p.kc < 1) return -1;
   p.group = kMaxCols / p.kc * p.kc;
-  p.lay = layout_of(domain, k, data_buf, mask_buf, types, p.kc, p.replicas);
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess)

@@ -15,13 +15,13 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from ..columnar.column import Column
 from ..columnar.dtypes import DATETIME_TYPES, STRING_TYPES, promote, sql_to_np
 from ..utils import host_ints
 from .grouping import factorize
+from .strings import merge_dictionaries
 
 _INT64_MIN = torch.iinfo(torch.int64).min
 _INT64_MAX = torch.iinfo(torch.int64).max
@@ -29,13 +29,8 @@ _INT64_MAX = torch.iinfo(torch.int64).max
 
 def _merge_string_dicts(lcol: Column, rcol: Column) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both sides' string codes re-coded into one merged sorted dictionary."""
-    ld = lcol.dictionary if lcol.dictionary is not None else np.array([""], dtype=object)
-    rd = rcol.dictionary if rcol.dictionary is not None else np.array([""], dtype=object)
-    merged = np.unique(np.concatenate([ld.astype(str), rd.astype(str)]))
-    lmap = torch.from_numpy(np.searchsorted(merged, ld.astype(str)).astype(np.int32))
-    rmap = torch.from_numpy(np.searchsorted(merged, rd.astype(str)).astype(np.int32))
-    lk = lmap.to(lcol.device)[torch.clamp(lcol.data, 0, len(ld) - 1)]
-    rk = rmap.to(rcol.device)[torch.clamp(rcol.data, 0, len(rd) - 1)]
+    _, (lk, rk) = merge_dictionaries([(lcol.dictionary, lcol.data),
+                                      (rcol.dictionary, rcol.data)])
     return lk, rk
 
 
@@ -50,13 +45,17 @@ def _key_data(col: Column, target) -> torch.Tensor:
     return col.data.to(torch_dtype(sql_to_np(target)))
 
 
-def join_key_gids(left_keys: Sequence[Column], right_keys: Sequence[Column]
+def join_key_gids(left_keys: Sequence[Column], right_keys: Sequence[Column],
+                  null_equals_null: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both sides' key columns as comparable int64 ids (equal ids = equal
-    keys); NULL keys get -1 (left) and -2 (right), which match nothing."""
+    keys); NULL keys get -1 (left) and -2 (right), which match nothing.
+    With `null_equals_null` (the set operations' IS NOT DISTINCT FROM) a
+    NULL is a value like any other, and the ids are dense: 0 .. distinct
+    keys - 1 over both sides."""
     nl = len(left_keys[0]) if left_keys else 0
     nr = len(right_keys[0]) if right_keys else 0
-    if len(left_keys) == 1:
+    if len(left_keys) == 1 and not null_equals_null:
         fast = _single_key_fast_path(left_keys[0], right_keys[0])
         if fast is not None:
             return fast
@@ -69,9 +68,20 @@ def join_key_gids(left_keys: Sequence[Column], right_keys: Sequence[Column]
             lk, rk = _key_data(lc, target), _key_data(rc, target)
             dt = torch.promote_types(lk.dtype, rk.dtype)
             lk, rk = lk.to(dt), rk.to(dt)
-        combined.append(torch.cat([lk, rk]))
+        k = torch.cat([lk, rk])
+        if null_equals_null and (lc.validity is not None
+                                 or rc.validity is not None):
+            # the validity joins the key and the payload is zeroed under
+            # NULL, so every NULL falls on one id
+            v = torch.cat([lc.valid_mask(), rc.valid_mask()])
+            combined.append(torch.where(v, k, torch.zeros_like(k)))
+            combined.append(v.to(torch.int32))
+        else:
+            combined.append(k)
     gid, _, _ = factorize(combined)
     lgid, rgid = gid[:nl].to(torch.int64), gid[nl:].to(torch.int64)
+    if null_equals_null:
+        return lgid, rgid
     lvalid = _all_valid(left_keys, nl)
     rvalid = _all_valid(right_keys, nr)
     if lvalid is not None:

@@ -5,7 +5,9 @@ Counterpart of `dask_sql_tpu/ops/pallas_kernels.py`.  There, `segsum_pallas`
 mode and `segsum_scan_blocked` (f32 block partials under a float64 carry)
 the default.  Both compute ``onehot(gid).T @ contribs``; here that function
 is one hand-written CUDA kernel (`csrc/segsum.cu`) and the default segment
-sum on the card:
+sum on the card.  Its float sums are the same bits on every run: each
+float64 partial cell has one owner that adds in an order fixed by the
+call's shape.
 
 - `segsum_typed` is the kernel's wrapper.  It takes typed columns where
   they lie: each a ``(data, mask_or_None)`` pair of float32, float64 or
@@ -34,9 +36,10 @@ MATMUL_FLOAT_REL_ERR_BOUND = 5e-6
 KERNEL_DOMAIN_CUTOFF = 2048
 
 #: the largest group domain the kernel takes: one float64 column of
-#: partials in a block's shared memory (``kMaxBytes`` in ``csrc/segsum.cu``,
-#: whose plan refuses a larger domain)
-KERNEL_MAX_DOMAIN = (227 * 1024 - 4096) // 8
+#: partials beside a ring of 128 rows of 13 bytes in a block's shared
+#: memory (``kMaxDomain`` in ``csrc/segsum.cu``, whose plan refuses a
+#: larger domain)
+KERNEL_MAX_DOMAIN = (227 * 1024 - 4096 - 2 * 128 * 13) // 8
 
 #: kernel launches, by wrapper: each adds one where it launches its kernel
 LAUNCHES: Dict[str, int] = {"segsum": 0}
@@ -158,7 +161,8 @@ def _describe(gid: torch.Tensor, columns: Sequence[Column]) -> _Call:
 
 
 #: ints of the kernel's plan of a call (``Plan`` in ``csrc/segsum.cu``):
-#: kc (columns a block sums), replicas and blocks, then the kernel's own
+#: kc (columns a block sums), warps (float partials a block) and blocks,
+#: then the kernel's own
 _PLAN_INTS = 16
 
 
@@ -185,8 +189,9 @@ def _plan(device: int, n: int, domain: int, types: Tuple[int, ...],
 
 def launch_geometry(gid: torch.Tensor, columns: Sequence[Column],
                     domain: int) -> Tuple[int, int, int]:
-    """(kc, replicas, blocks) the kernel plans for a call on the card:
-    columns a block sums, copies of its float partial, blocks of pass 1."""
+    """(kc, warps, blocks) the kernel plans for a call on the card:
+    columns a block sums, copies of its float partial (one a consumer
+    warp), blocks of pass 1."""
     call = _describe(gid, columns)
     plan = _plan(gid.device.index, gid.shape[0], domain, call.types,
                  call.data_ids, call.mask_ids)

@@ -1,4 +1,5 @@
-"""SQL string patterns as Python regular expressions, and SUBSTRING.
+"""SQL string patterns as Python regular expressions, SUBSTRING, and the
+merge of string dictionaries.
 
 Copied from `like_to_regex` and `similar_to_regex` of
 `dask_sql_tpu/ops/strings.py` (pure `re`), and the per-value SUBSTRING of
@@ -10,7 +11,28 @@ the reference's string operations is not in the port yet.
 from __future__ import annotations
 
 import re
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+
+def merge_dictionaries(parts: Sequence[Tuple[Optional[np.ndarray],
+                                             torch.Tensor]]
+                       ) -> Tuple[np.ndarray, List[torch.Tensor]]:
+    """String ``(dictionary, codes)`` parts in one merged dictionary,
+    sorted and unique, so that code order stays string order: (merged
+    dictionary, each part's codes in it).  A missing or empty dictionary
+    counts as ``[""]``."""
+    dicts = [np.asarray(d if d is not None and len(d) else [""], dtype=object)
+             for d, _ in parts]
+    merged = np.unique(np.concatenate([d.astype(str) for d in dicts]))
+    out = []
+    for d, (_, codes) in zip(dicts, parts):
+        remap = torch.from_numpy(np.searchsorted(merged, d.astype(str))
+                                 .astype(np.int32)).to(codes.device)
+        out.append(remap[torch.clamp(codes, 0, len(d) - 1)])
+    return merged.astype(object), out
 
 
 def like_to_regex(pattern: str, escape: Optional[str] = None) -> str:

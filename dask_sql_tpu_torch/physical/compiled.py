@@ -600,6 +600,11 @@ class _TraceEval:
     def eval(self, expr: Expr, slots):
         if isinstance(expr, ColumnRef) and type(expr) is ColumnRef:
             return self._decode_slot(expr.index, slots)
+        if self.eager and expr.sql_type in STRING_TYPES:
+            # a string-valued expression reads as its codes (IS NULL, ...)
+            got = self.string_operand(expr, slots)
+            if got is not None:
+                return got[0], got[1]
         if isinstance(expr, ParamRef):
             # a runtime parameter of the family: the host value moves to
             # the device as the literal it stands for would
@@ -813,33 +818,58 @@ class _TraceEval:
                 return None
             codes, valid = slots[expr.index]
             return codes, valid, c.dictionary, ("col", expr.index)
-        if self.eager and isinstance(expr, ScalarFunc) \
-                and expr.op == "substring":
+        if not self.eager:
+            return None
+        if isinstance(expr, Literal) and (expr.sql_type in STRING_TYPES
+                                          or isinstance(expr.value, str)):
+            zero = torch.zeros((), dtype=torch.int32, device=self.device)
+            if expr.value is None:
+                return (zero, torch.zeros((), dtype=torch.bool,
+                                          device=self.device),
+                        np.array([""], dtype=object), ("null",))
+            return (zero, None, np.array([str(expr.value)], dtype=object),
+                    ("lit", str(expr.value)))
+        if isinstance(expr, Cast) and expr.sql_type in STRING_TYPES:
+            if expr.arg.sql_type in STRING_TYPES or (
+                    isinstance(expr.arg, Literal) and expr.arg.value is None):
+                return self.string_operand(expr.arg, slots)
+            return None
+        if isinstance(expr, CaseExpr) and expr.sql_type in STRING_TYPES:
+            return self._string_case(expr, slots)
+        if not isinstance(expr, ScalarFunc):
+            return None
+        if expr.op == "substring":
             return self._substring(expr, slots)
+        if expr.op in _STRING_MAPS:
+            src = self._require_string(expr.args[0], slots, expr.op)
+            return self._mapped(src, _STRING_MAPS[expr.op], (expr.op,))
+        if expr.op == "concat":
+            out = self._require_string(expr.args[0], slots, "CONCAT")
+            for a in expr.args[1:]:
+                out = self._concat(out, self._require_string(a, slots,
+                                                             "CONCAT"))
+            return out
+        if expr.op == "coalesce" and expr.sql_type in STRING_TYPES:
+            return self._string_coalesce(expr, slots)
         return None
 
-    def _substring(self, expr: ScalarFunc, slots):
-        """SUBSTRING(s FROM start [FOR length]) with constant offsets: the
-        host dictionary maps through the substring and re-encodes (sorted,
-        unique), and the codes gather through that map on the device."""
-        offsets = expr.args[1:]
-        if not offsets or not all(
-                isinstance(a, Literal) and _is_number(a.value)
-                for a in offsets):
-            raise _Unsupported("SUBSTRING with computed offsets")
-        src = self.string_operand(expr.args[0], slots)
+    def _require_string(self, expr: Expr, slots, what: str):
+        src = self.string_operand(expr, slots)
         if src is None:
-            raise _Unsupported("SUBSTRING of a computed string")
+            raise _Unsupported(f"{what} of {expr}")
+        return src
+
+    def _mapped(self, src, fn, tag):
+        """A string operand mapped value by value through `fn` on the host
+        dictionary, re-encoded (sorted, unique); the codes gather through
+        the map on the device.  The map is kept by (tag, operand)."""
         codes, valid, dictionary, skey = src
-        start = int(offsets[0].value)
-        length = int(offsets[1].value) if len(offsets) > 1 else None
-        key = ("substring", skey, start, length)
+        key = tag + (skey,)
         got = self._luts.get(key)
         if got is None:
             d = dictionary if dictionary is not None and len(dictionary) \
                 else np.array([""], dtype=object)
-            mapped = np.array([str_ops.substring(str(x), start, length)
-                               for x in d], dtype=object)
+            mapped = np.array([fn(str(x)) for x in d], dtype=object)
             uniq, inverse = np.unique(mapped.astype(str), return_inverse=True)
             lut = torch.from_numpy(inverse.astype(np.int32)).to(self.device)
             got = self._luts[key] = (lut, uniq.astype(object))
@@ -847,6 +877,101 @@ class _TraceEval:
         new_codes = lut.to(codes.device)[torch.clamp(codes, 0,
                                                      lut.shape[0] - 1)]
         return new_codes, valid, new_dictionary, key
+
+    def _substring(self, expr: ScalarFunc, slots):
+        """SUBSTRING(s FROM start [FOR length]) with constant offsets, a
+        map of the host dictionary (`_mapped`)."""
+        offsets = expr.args[1:]
+        if not offsets or not all(
+                isinstance(a, Literal) and _is_number(a.value)
+                for a in offsets):
+            raise _Unsupported("SUBSTRING with computed offsets")
+        src = self._require_string(expr.args[0], slots, "SUBSTRING")
+        start = int(offsets[0].value)
+        length = int(offsets[1].value) if len(offsets) > 1 else None
+        return self._mapped(
+            src, lambda x: str_ops.substring(x, start, length),
+            ("substring", start, length))
+
+    def _concat(self, a, b):
+        """``a || b``: the distinct code pairs the rows hold, found on the
+        device and brought to the host in one transfer, joined there and
+        re-encoded (sorted, unique).  NULL if either side is."""
+        from ..utils import count_d2h
+
+        (ca, va, da, ka), (cb, vb, db, kb) = a, b
+        da = da if da is not None and len(da) else np.array([""], dtype=object)
+        db = db if db is not None and len(db) else np.array([""], dtype=object)
+        ca, cb = torch.broadcast_tensors(
+            torch.clamp(ca, 0, len(da) - 1).to(torch.int64),
+            torch.clamp(cb, 0, len(db) - 1).to(torch.int64))
+        pairs, inverse = torch.unique(ca.reshape(-1) * len(db) + cb.reshape(-1),
+                                      return_inverse=True)
+        if pairs.device.type != "cpu":
+            count_d2h()
+        host = pairs.cpu().numpy()
+        joined = np.array([str(da[x // len(db)]) + str(db[x % len(db)])
+                           for x in host], dtype=object).astype(str)
+        uniq, lut = np.unique(joined, return_inverse=True)
+        codes = torch.from_numpy(lut.astype(np.int32)).to(ca.device)[inverse]
+        return (codes.reshape(ca.shape), _and_valid(va, vb),
+                uniq.astype(object), ("concat", ka, kb))
+
+    def _string_coalesce(self, expr: ScalarFunc, slots):
+        """COALESCE of strings: the operands in one merged dictionary, then
+        folded from the last fallback toward the first."""
+        ops = [self._require_string(a, slots, "COALESCE") for a in expr.args]
+        dictionary, codes = _merged(ops)
+        out_c, out_v = codes[-1], ops[-1][1]
+        for c, (_, v, _, _) in reversed(list(zip(codes[:-1], ops[:-1]))):
+            if v is None:
+                out_c, out_v = c, None
+                continue
+            base = torch.ones_like(v) if out_v is None else out_v
+            out_c, out_v = torch.where(v, c, out_c), v | base
+        return out_c, out_v, dictionary, ("coalesce",) + tuple(
+            k for _, _, _, k in ops)
+
+    def _string_case(self, expr: CaseExpr, slots):
+        """A string-valued CASE: the branch values in one merged
+        dictionary, folded as `_case` folds numbers; no ELSE gives NULL."""
+        values = [self._require_string(v, slots, "CASE") for _, v in expr.whens]
+        if expr.else_ is not None:
+            values.append(self._require_string(expr.else_, slots, "CASE"))
+        dictionary, codes = _merged(values)
+        if expr.else_ is not None:
+            out_c, out_v = codes[-1], values[-1][1]
+        else:
+            out_c = torch.zeros((), dtype=torch.int32, device=self.device)
+            out_v = torch.zeros((), dtype=torch.bool, device=self.device)
+        for (cond, _), c, (_, v, _, _) in reversed(list(zip(
+                expr.whens, codes, values))):
+            cd, cv = self.eval(cond, slots)
+            take = cd if cv is None else (cd & cv)
+            out_c = torch.where(take, c, out_c)
+            if v is not None or out_v is not None:
+                vv = torch.ones_like(take) if v is None else v
+                ov = torch.ones_like(take) if out_v is None else out_v
+                out_v = torch.where(take, vv, ov)
+        return out_c, out_v, dictionary, ("case", id(expr))
+
+    @staticmethod
+    def _round(expr: ScalarFunc, vals):
+        """ROUND(x [, digits]): half away from zero, in float64, then in
+        the type of x (an integer without digits as it stands)."""
+        (ad, av) = vals[0]
+        if len(vals) == 1 and not (ad.is_floating_point()
+                                   or ad.dtype == torch.bool):
+            return ad, av
+        factor = torch.tensor(1.0, dtype=torch.float64, device=ad.device)
+        dv = None
+        if len(vals) > 1:
+            dd, dv = vals[1]
+            factor = torch.pow(10.0, dd.to(torch.float64))
+        x = ad.to(torch.float64) * factor
+        out = torch.sign(x) * torch.floor(torch.abs(x) + 0.5) / factor
+        return (out.to(torch_dtype(sql_to_np(expr.sql_type))),
+                _and_valid(av, dv))
 
     def _in_list(self, expr: InListExpr, slots):
         """IN (literal, ...).  A NULL item makes every row without a hit
@@ -928,7 +1053,20 @@ class _TraceEval:
             ad, av = self.eval(args[0], slots)
             fn = dt_ops.truncate if op == "datetime_floor" else dt_ops.ceil_to
             return (fn(str(unit), ad), av)
+        if op in ("eq", "ne", "lt", "le", "gt", "ge") and len(args) == 2 \
+                and self.eager and args[0].sql_type in STRING_TYPES \
+                and args[1].sql_type in STRING_TYPES:
+            # two string operands: both in one merged dictionary, whose code
+            # order is string order
+            ops = [self._require_string(a, slots, f"string {op}")
+                   for a in args]
+            _, (ca, cb) = _merged(ops)
+            return (_NUMERIC_BINOPS[op](ca, cb), _and_valid(ops[0][1],
+                                                            ops[1][1]))
         vals = [self.eval(a, slots) for a in args]
+        if op == "round" and self.eager:
+            # the eager evaluator's, as in the reference
+            return self._round(expr, vals)
         if op in _NUMERIC_BINOPS:
             (ad, av), (bd, bv) = vals
             if args[0].sql_type in STRING_TYPES or args[1].sql_type in STRING_TYPES:
@@ -1015,6 +1153,16 @@ class _TraceEval:
                 out_v = v | base_valid
             return (out_d, out_v)
         raise _Unsupported(f"op {op}")
+
+
+#: string functions that map a dictionary value by value
+_STRING_MAPS = {"upper": str.upper}
+
+
+def _merged(operands):
+    """String operands' codes in one merged dictionary:
+    (dictionary, [codes, ...])."""
+    return str_ops.merge_dictionaries([(d, c) for c, _, d, _ in operands])
 
 
 def _is_number(v) -> bool:

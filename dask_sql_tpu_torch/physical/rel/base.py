@@ -31,6 +31,24 @@ class BaseRelPlugin:
             cols[new] = table.columns[old]
         return Table(cols, table.num_rows, table.device)
 
+    @staticmethod
+    def fix_dtype_to_row_type(table: Table, schema: Schema) -> Table:
+        """Cast each column to the type of its field in `schema`."""
+        cols = {}
+        for name, f in zip(table.column_names, schema):
+            col = table.columns[name]
+            if col.sql_type != f.sql_type:
+                col = col.cast(f.sql_type)
+            cols[name] = col
+        return Table(cols, table.num_rows, table.device)
+
+
+def on_one_device(tables: List[Table]) -> List[Table]:
+    """The tables on one device: an aggregate's group table lives on the
+    host, so host tables move to the device of any table that is not."""
+    device = next((t.device for t in tables if t.device.type != "cpu"), None)
+    return tables if device is None else [t.to(device) for t in tables]
+
 
 def unique_names(names: List[str]) -> List[str]:
     """Disambiguate duplicates with __N suffixes, collision-proof against

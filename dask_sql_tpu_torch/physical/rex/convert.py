@@ -4,13 +4,16 @@ Counterpart of `dask_sql_tpu/physical/rex/convert.py`.  Column references
 pass through; every other expression is evaluated by the pipeline's
 evaluator (`physical/compiled.py` `_TraceEval`: literals, casts,
 arithmetic and division, comparisons, AND/OR/NOT, CASE, IN lists, LIKE,
-the IS predicates, math, EXTRACT and datetime arithmetic, COALESCE), so the
-eager operators and the fused pipelines share one set of semantics.  This
+the IS predicates, math and ROUND, EXTRACT and datetime arithmetic,
+COALESCE), so the eager operators and the fused pipelines share one set of
+semantics.  This
 converter runs the expression's subquery plans through the executor first
 and hands their results to the evaluator: a scalar subquery's first value,
-an ``IN (subquery)`` mask and an EXISTS flag.  String-valued expressions
-other than column references and SUBSTRING with constant offsets are not
-in the port yet.
+an ``IN (subquery)`` mask and an EXISTS flag.  A string-valued expression
+(a column, a literal, a cast of one, SUBSTRING with constant offsets,
+UPPER, LOWER, CONCAT, a string COALESCE or CASE) becomes codes over a new
+host dictionary (`_TraceEval.string_operand`); the other string functions
+are not in the port yet.
 """
 from __future__ import annotations
 
@@ -26,7 +29,6 @@ from ...planner.expressions import (
     ExistsExpr,
     Expr,
     InSubqueryExpr,
-    ScalarFunc,
     ScalarSubqueryExpr,
     walk,
 )
@@ -45,10 +47,6 @@ class RexConverter:
             return table.columns[table.column_names[expr.index]]
         from ..compiled import SUBQUERY_SLOT, _TraceEval, _Unsupported
 
-        substring = isinstance(expr, ScalarFunc) and expr.op == "substring"
-        if expr.sql_type in STRING_TYPES and not substring:
-            raise NotImplementedError(
-                f"string-valued expression {expr} not in the port yet")
         slots: Dict = {i: (c.data, c.validity)
                        for i, c in enumerate(table.columns.values())}
         for sub in walk(expr):
@@ -58,17 +56,22 @@ class RexConverter:
         ev = _TraceEval(table, eager=True)
         n = table.num_rows
         try:
-            if substring:
-                codes, valid, dictionary, _ = ev.string_operand(expr, slots)
-                return Column(codes, expr.sql_type, valid, dictionary)
-            data, valid = ev.eval(expr, slots)
+            if expr.sql_type in STRING_TYPES:
+                got = ev.string_operand(expr, slots)
+                if got is None:
+                    raise NotImplementedError(
+                        f"string-valued expression {expr} not in the port yet")
+                data, valid, dictionary, _ = got
+            else:
+                data, valid = ev.eval(expr, slots)
+                dictionary = None
         except _Unsupported as e:
             raise NotImplementedError(
                 f"expression {expr} not in the port yet: {e}") from e
         data = data.expand(n) if data.dim() == 0 else data
         if valid is not None and valid.dim() == 0:
             valid = valid.expand(n)
-        return Column(data, expr.sql_type, valid)
+        return Column(data, expr.sql_type, valid, dictionary)
 
     def _subquery(self, expr: Expr, table: Table):
         """A subquery's result as the evaluator takes it, on `table`'s

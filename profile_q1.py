@@ -1,17 +1,20 @@
-"""Where the time of TPC-H Q1 at SF1 (or of another TPC-H query, or of the
-root select) goes in the PyTorch port, on one CUDA card.
+"""Where the time of TPC-H Q1 at SF1 (or of another TPC-H query, a TPC-DS
+query, or the root select) goes in the PyTorch port, on one CUDA card.
 
 Run from the root of a checkout on a machine with the card:
 
-    python3 profile_q1.py [--query q1|q2|...|q22|select]
+    python3 profile_q1.py [--query q1|q2|...|q22|ds1|...|ds99|select|kernel]
 
 For Q1 (the default) it loads 6,000,000 synthetic ``lineitem`` rows (the
 generator and query of ``chip_smoke.py``); for Q3 the customer, orders and
 lineitem tables of ``tests/tpch.py generate(scale_rows=1_000_000)``, the
 scale of ``bench.py``'s Q3 line; for every other TPC-H query (q9 the
 eager aggregate, q12 eager joins under it, q14 the join pipeline, q21 the
-semi and anti joins) all eight tables of that generator; for ``select`` the same 6,000,000 rows and
-``bench.py``'s root top-k select.  Tables load with the column encodings
+semi and anti joins) all eight tables of that generator; for ``dsN``
+TPC-DS query N on all 24 tables of ``tests/tpcds.py
+generate(scale_rows=1_000_000)`` (``chip_smoke.py``'s ``tpcds`` phase);
+for ``select`` the same 6,000,000 rows and ``bench.py``'s root top-k
+select.  Tables load with the column encodings
 the reference picks.  It warms the query up, then prints JSON
 lines, each phase named after the query: the host time of
 planning (``c.sql``) and of execution (``.compute()``), medians of 5 runs;
@@ -19,11 +22,18 @@ the host time of each call Q1 makes to the segment-sum kernel's wrapper
 (``segsum_typed``, or ``segsum_columns`` in a tree without it), over 5 more
 runs; and, from ``torch.profiler`` over 5 more runs, the device time by
 kernel (``segsum_partials`` is the kernel's first pass, ``segsum_combine``
-its second) and the device's busy and idle shares of the wall time.  The
+its second) and the device's busy and idle shares of the wall time; and,
+from ``cProfile`` over one more run, the host functions that take the most
+time of their own (``host_top``).  The
 Chrome trace goes to ``profile_out/<query>_trace.json``.  For a query whose
 segment reduction runs as ``index_add_`` (Q3), it also times one float64
 ``index_add_`` at the query's own group ids against the same call with the
 rows the query does not select moved off group 0 (``scatter_probe``).
+``kernel`` times the segment-sum kernel alone, on the card by CUDA events
+behind a spin kernel, at the typed call Q1 makes, at the ``[k, n]``
+stacked call and at a typed call over 2048 groups (``chip_smoke.py``'s
+inputs); copied into a parent commit's tree and run there, it times that
+commit's kernel in the same call.
 """
 from __future__ import annotations
 
@@ -115,11 +125,60 @@ def scatter_probe(c, sql, q, card) -> None:
                       "index_add_spread_ms": spread_ms}))
 
 
+def host_top(c, sql, q, card, top: int = 12) -> None:
+    """The host functions with the most time of their own over one run of
+    the query (``cProfile``), with the run's wall time."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.runcall(lambda: c.sql(sql).compute())
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    stats = pstats.Stats(prof).stats
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    for (path, line, name), (_, calls, own, cum, _) in rows:
+        print(json.dumps({"phase": f"{q}_host_top", "card": card,
+                          "function": f"{Path(path).name}:{line}({name})",
+                          "calls": calls, "own_ms": own * 1e3,
+                          "cumulative_ms": cum * 1e3,
+                          "share_of_run": own * 1e3 / wall_ms}))
+
+
+def kernel_times(card) -> None:
+    """The segment-sum kernel's card ms at Q1's typed and stacked calls
+    and at a typed call over 2048 groups, with its plan's geometry."""
+    from chip_smoke import N_ROWS, card_ms, segsum_inputs, typed_inputs
+    from dask_sql_tpu_torch import _build
+    from dask_sql_tpu_torch.ops import segsum
+
+    _build.build(["segsum"])
+    out = {"phase": "kernel_times", "card": card, "root": str(Path.cwd())}
+    for label, n, domain in (("typed_q1", N_ROWS, 12),
+                             ("typed_domain_2048", 1_000_000, 2048)):
+        gid, cols = typed_inputs(n, domain, seed=3)
+        out[f"{label}_ms"] = card_ms(
+            lambda: segsum.segsum_typed(gid, cols, domain), 20)[0]
+        out[f"{label}_geometry"] = segsum.launch_geometry(gid, cols, domain)
+    gid, cols = segsum_inputs(N_ROWS, 12, 13, 6, seed=1)
+    out["stacked_q1_ms"] = card_ms(
+        lambda: segsum.segsum_columns(gid, cols, 12), 20)[0]
+    print(json.dumps(out), flush=True)
+
+
 def load(query: str):
     """(context, SQL text, probe rows) of the query, its tables on the card."""
     from dask_sql_tpu_torch import Context
 
     c = Context(device="cuda")
+    if query.startswith("ds"):
+        from chip_smoke import TPCDS_ROWS
+        from tests.tpcds import generate
+        from tests.tpcds_queries import QUERIES
+
+        for name, frame in generate(scale_rows=TPCDS_ROWS, seed=42).items():
+            c.create_table(name, frame)
+        return c, QUERIES[int(query[2:])], TPCDS_ROWS
     if query in ("q1", "select"):
         from chip_smoke import N_ROWS, QUERY, SELECT_QUERY, gen_lineitem
 
@@ -138,7 +197,9 @@ def load(query: str):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--query",
-                        choices=[f"q{i}" for i in range(1, 23)] + ["select"],
+                        choices=[f"q{i}" for i in range(1, 23)]
+                        + [f"ds{i}" for i in range(1, 100)]
+                        + ["select", "kernel"],
                         default="q1")
     q = parser.parse_args().query
     if not torch.cuda.is_available():
@@ -147,6 +208,10 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    if q == "kernel":
+        kernel_times(card)
+        print(card)
+        return 0
     c, QUERY, N_ROWS = load(q)
     for _ in range(2):
         c.sql(QUERY).compute()
@@ -215,6 +280,7 @@ def main() -> int:
         print(json.dumps({"kernel": name[:90], "launches_per_query": count / RUNS,
                           "device_ms_per_query": dur / RUNS / 1e3,
                           "share_of_device": dur / device_us}))
+    host_top(c, QUERY, q, card)
     print(card)
     return 0
 

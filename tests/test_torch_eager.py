@@ -14,6 +14,9 @@ degradation ladder of the port, against the reference.
   the reference's compiled select declines a FLOOR/CEIL unit and answers
   on its eager evaluator, whose SQL semantics the port holds (its fused
   evaluator drops NULL items of an IN list).
+- String-valued expressions (literals, CONCAT, UPPER, string CASE and
+  COALESCE), compares of two string columns with other dictionaries and
+  ROUND run as a second root select, on the eager evaluator in both.
 - With ``sql.compile`` off the eager rung gives the compiled rungs'
   answers (Q1, Q3, Q6 and a star join).
 - A rung that fails degradably steps down and is counted; any other
@@ -261,6 +264,57 @@ def expr_results():
 @pytest.mark.parametrize("name", list(EXPRS))
 def test_expression_matches_reference(expr_results, name):
     got, want = expr_results
+    assert_same_column(got[name], want[name], name)
+
+
+#: string-valued expressions, compares of two string columns (their
+#: dictionaries differ) and ROUND; the port's fused pipelines decline the
+#: string-valued ones, as the reference's do, so the eager evaluator
+#: answers them
+STRING_EXPRS = {
+    "string_ne_columns": "s <> t",
+    "string_lt_columns": "s < t",
+    "string_ge_literal": "s >= 'ab'",
+    "string_literal": "'lit'",
+    "concat": "s || '-' || t",
+    "concat_function": "CONCAT(t, s)",
+    "upper": "UPPER(s)",
+    "upper_compare": "UPPER(s) = t",
+    "substring_compare": "SUBSTRING(s FROM 1 FOR 1) <> SUBSTRING(t FROM 1 FOR 1)",
+    "string_case": "CASE WHEN a > 0 THEN s WHEN a < -5 THEN t ELSE 'mid' END",
+    "string_coalesce": "COALESCE(s, t, 'none')",
+    "string_null_cast": "CAST(NULL AS VARCHAR)",
+    "round": "ROUND(fx, 1)",
+    "round_no_digits": "ROUND(fx)",
+    "round_int": "ROUND(a)",
+    "round_negative_digits": "ROUND(fy * 1000, -2)",
+}
+
+
+@pytest.fixture(scope="module")
+def string_results():
+    frame = expr_frame()
+    rng = np.random.RandomState(9)
+    t = rng.choice(["AB%", "ab%", "x", "CD", "zz"], len(frame)).astype(object)
+    t[rng.rand(len(frame)) < 0.1] = None
+    rc, pc = _contexts({"e": frame.assign(t=t)})
+    sql = "SELECT " + ", ".join(f"{e} AS {n}"
+                                for n, e in STRING_EXPRS.items()) + " FROM e"
+    before = dict(rc.metrics.snapshot()["counters"])
+    want = rc.sql(sql).compute()
+    ref_rungs = {k: v - before.get(k, 0)
+                 for k, v in rc.metrics.snapshot()["counters"].items()
+                 if k.startswith("resilience.") and v != before.get(k, 0)}
+    got = pc.sql(sql).compute()
+    rungs = {k: v for k, v in pc.metrics.items() if k.startswith("resilience.")}
+    return got, want, rungs, ref_rungs
+
+
+@pytest.mark.parametrize("name", list(STRING_EXPRS))
+def test_string_expression_matches_reference(string_results, name):
+    got, want, rungs, ref_rungs = string_results
+    assert rungs == ref_rungs
+    assert str(got[name].dtype) == str(want[name].dtype)
     assert_same_column(got[name], want[name], name)
 
 

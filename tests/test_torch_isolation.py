@@ -1,8 +1,9 @@
 """The port stands alone: neither `dask_sql_tpu_torch` nor its scripts for
 the card (`chip_smoke.py`, `profile_q1.py`) import JAX or the JAX package,
 even as it plans through its own build of the native planner and runs the
-outer, semi and anti joins, subqueries and SUBSTRING; and the port's entry
-points refuse to run on the CPU unless asked to."""
+outer, semi and anti joins, subqueries, SUBSTRING, the set operations and
+window functions; and the port's entry points refuse to run on the CPU
+unless asked to."""
 import os
 import subprocess
 import sys
@@ -63,6 +64,16 @@ assert c.metrics["resilience.rung.compiled_join_aggregate"] == 2, dict(c.metrics
 assert len(c.sql(QUERIES[13]).compute()) > 0
 assert list(c.sql(QUERIES[22]).compute().columns) == [
     "cntrycode", "numcust", "totacctbal"]
+# the set operations and window functions (rel/logical/window.py), and
+# the string-valued expressions
+c.sql("SELECT n_name FROM nation UNION SELECT r_name FROM region").compute()
+c.sql("SELECT n_regionkey FROM nation INTERSECT SELECT r_regionkey "
+      "FROM region EXCEPT SELECT 1").compute()
+w = c.sql("SELECT n_name, RANK() OVER (PARTITION BY n_regionkey ORDER BY "
+          "n_name) AS r, SUM(n_nationkey) OVER (ORDER BY n_nationkey ROWS "
+          "BETWEEN 1 PRECEDING AND CURRENT ROW) AS s, UPPER(n_name) || '!' "
+          "AS u FROM nation").compute()
+assert len(w) == 25 and w["r"].min() == 1, w
 assert c.metrics["planner.python.bind"] == 0, dict(c.metrics)
 assert c.metrics["planner.native.plan"] >= 8, dict(c.metrics)
 from dask_sql_tpu_torch.planner import native_bridge
