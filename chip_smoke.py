@@ -36,7 +36,16 @@ all 99 TPC-DS queries on ``tests/tpcds.py generate(scale_rows=1_000_000)``
 functions and string-valued expressions), each cold and warm, against
 the port on the CPU on the same frames, on its rungs, with per query the
 warm ms, transfers, kernel launches and the set-operation and window
-nodes that ran.  For each loaded frame
+nodes that ran.  The ``surface`` phase appends to Q1's 6,000,000 rows
+by INSERT INTO (a copy of the rows under a quantity, and one row of a new
+return flag) and runs Q1 again, cold and warm, against the float64 oracle
+of the appended frame (a new plan and pipeline, one kernel launch, one
+transfer), and on the TPC-H frames runs a DDL script in multi-statement
+calls (CREATE SCHEMA, USE, CREATE TABLE AS, CREATE VIEW, SHOW, DESCRIBE,
+ANALYZE TABLE, ALTER TABLE, DROP) and queries of the function registry, a
+registered tensor function and a registered aggregation; every statement
+is held against the port on the CPU, on the same rungs and encoding
+counts.  For each loaded frame
 it prints the encoded columns and the card memory they take, encoded and,
 for Q1's table, loaded PLAIN, and checks every encoded column's decoded
 buffer against the host's PLAIN values exactly.  It times each query
@@ -147,6 +156,78 @@ Q15_KERNEL_ROWS = 200_000
 DICT_SELECT_QUERY = ("SELECT l_shipdate, l_quantity, l_extendedprice "
                      "FROM lineitem WHERE l_quantity < 10 "
                      "ORDER BY l_extendedprice DESC LIMIT 100")
+#: the `surface` phase's appends to Q1's table: a copy of the rows under a
+#: quantity (about a tenth more), then one row of a new return flag, typed
+#: as the table's columns
+SURFACE_INSERTS = (
+    "INSERT INTO lineitem SELECT * FROM lineitem WHERE l_quantity < 6",
+    "INSERT INTO lineitem VALUES ('X', 'F', CAST(10.0 AS REAL), "
+    "CAST(1000.0 AS REAL), CAST(0.05 AS REAL), CAST(0.02 AS REAL), "
+    "TIMESTAMP '1998-01-01 00:00:00')")
+#: the `surface` phase's statements over the TPC-H frames of `tpch_more`,
+#: as multi-statement calls where one result is enough, in order (a later
+#: call reads what an earlier one made)
+SURFACE_DDL = (
+    "CREATE SCHEMA surface; USE SCHEMA surface; "
+    "CREATE TABLE revenue AS (SELECT l_returnflag, l_linestatus, "
+    "SUM(l_extendedprice * (1 - l_discount)) AS revenue, COUNT(*) AS n "
+    "FROM root.lineitem GROUP BY l_returnflag, l_linestatus); "
+    "CREATE VIEW big_orders AS (SELECT o_orderkey, o_orderpriority, "
+    "c_mktsegment, o_totalprice FROM root.orders JOIN root.customer "
+    "ON o_custkey = c_custkey WHERE o_totalprice > 100000); "
+    "SELECT c_mktsegment, COUNT(*) AS n, SUM(o_totalprice) AS total "
+    "FROM big_orders GROUP BY c_mktsegment ORDER BY c_mktsegment",
+    "SHOW TABLES",
+    "SHOW COLUMNS FROM revenue",
+    "DESCRIBE big_orders",
+    "ANALYZE TABLE root.lineitem COMPUTE STATISTICS FOR ALL COLUMNS",
+    "ALTER TABLE revenue RENAME TO revenue2; "
+    "SELECT * FROM revenue2 ORDER BY l_returnflag, l_linestatus",
+    "DROP VIEW big_orders; DROP TABLE revenue2; USE SCHEMA root; "
+    "DROP SCHEMA surface; SHOW SCHEMAS")
+#: the function registry, a registered tensor function and a registered
+#: aggregation over the same frames: each query cold and WARM_RUNS warm
+SURFACE_FUNCTIONS = {
+    "left_position_power": (
+        "SELECT LEFT(c_phone, 2) AS cc, COUNT(*) AS n, "
+        "SUM(POWER(c_acctbal, 2)) AS p2 FROM customer "
+        "WHERE POSITION('7' IN LOWER(c_name)) > 0 "
+        "GROUP BY LEFT(c_phone, 2) ORDER BY cc"),
+    "trim_lpad_split_replace": (
+        "SELECT SPLIT_PART(p_name, ' ', 1) AS color, COUNT(*) AS n, "
+        "MAX(LPAD(TRIM(p_type), 30, '.')) AS t, "
+        "MIN(REPLACE(p_container, ' ', '_')) AS ct, "
+        "MAX(SUBSTRING(p_name FROM p_size % 5 + 1 FOR 3)) AS sub "
+        "FROM part GROUP BY SPLIT_PART(p_name, ' ', 1) ORDER BY color"),
+    "truncate_greatest_log": (
+        "SELECT l_returnflag, SUM(TRUNCATE(l_extendedprice, -2)) AS tp, "
+        "MAX(GREATEST(l_extendedprice, l_tax * 1000000)) AS g, "
+        "SUM(LOG(10, l_extendedprice)) AS lg FROM lineitem "
+        "GROUP BY l_returnflag ORDER BY l_returnflag"),
+    "date_trunc_diff_last_day": (
+        "SELECT DATE_TRUNC('month', l_shipdate) AS m, COUNT(*) AS n, "
+        "SUM(TIMESTAMPDIFF(DAY, l_shipdate, l_receiptdate)) AS d, "
+        "MAX(LAST_DAY(l_shipdate)) AS ld FROM lineitem "
+        "WHERE l_shipdate >= DATE '1997-01-01' "
+        "GROUP BY DATE_TRUNC('month', l_shipdate) ORDER BY m"),
+    "number_cast_group": (
+        "SELECT CAST(o_shippriority AS VARCHAR) || '-' || o_orderpriority AS k, "
+        "COUNT(*) AS n, SUM(o_totalprice) AS t FROM orders "
+        "GROUP BY CAST(o_shippriority AS VARCHAR) || '-' || o_orderpriority "
+        "ORDER BY k"),
+    "udf_filter_sum": (
+        "SELECT l_returnflag, SUM(disc_price(l_extendedprice, l_discount)) "
+        "AS rev, COUNT(*) AS n FROM lineitem "
+        "WHERE disc_price(l_extendedprice, l_discount) > 50000 "
+        "GROUP BY l_returnflag ORDER BY l_returnflag"),
+    "udf_projection": (
+        "SELECT l_orderkey, l_linenumber, "
+        "disc_price(l_extendedprice, l_discount) AS dp FROM lineitem "
+        "WHERE l_orderkey < 2000 ORDER BY l_orderkey, l_linenumber"),
+    "udaf_median": (
+        "SELECT l_returnflag, med(l_extendedprice) AS m FROM lineitem "
+        "GROUP BY l_returnflag ORDER BY l_returnflag"),
+}
 
 #: device memory rate by card name (NVIDIA data sheets), bytes/s
 _MEMORY_RATE = [("H200", 4.8e12), ("NVL", 3.9e12), ("PCIe", 2.0e12),
@@ -800,9 +881,9 @@ def tpch_more(all_tables, card, segsum, transfers):
     on the card, its rungs, transfers and segment-sum launches (the counts
     set to 0 just before the query's runs and read just after), checked
     against the port on the CPU and, for q14 and q19, a float64 oracle.
-    Returns {"launches": {query: n}, "max_abs_err": x}: the kernel is also
-    held against its plain version on a call q4, q9, q22 (eager) and q14
-    (join pipeline) make."""
+    Returns ({"launches": {query: n}, "max_abs_err": x}, the card's
+    Context, the CPU's): the kernel is also held against its plain version
+    on a call q4, q9, q22 (eager) and q14 (join pipeline) make."""
     from tests.tpch import QUERIES
 
     t0 = time.perf_counter()
@@ -891,6 +972,266 @@ def tpch_more(all_tables, card, segsum, transfers):
     phase("like_table", card=card, column="part.p_name", pattern="%green%",
           entries=entries, ms=like_ms)
     check_not_degraded(ct, "tpch_more")
+    return {"launches": launches, "max_abs_err": err}, ct, cpu
+
+
+def counted(c):
+    """The counters the port on the card and on the CPU must move alike:
+    the rungs and the encoding counts."""
+    return {k: v for k, v in c.metrics.items()
+            if k.startswith(("resilience.", "columnar.encoding."))}
+
+
+def moved(before, after):
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def check_same_moves(card_moved, cpu_moved, runs, label) -> None:
+    """`runs` runs on the card must move the counters as one run on the
+    CPU does, `runs` times (and no rung may step down)."""
+    want = {k: v * runs for k, v in cpu_moved.items()}
+    if card_moved != want:
+        fail(f"{label}: the card moved {card_moved}, the CPU {want}")
+    if any(k.startswith("resilience.degraded") for k in card_moved):
+        fail(f"{label}: a rung stepped down {card_moved}")
+
+
+def capture_calls(segsum, run):
+    """The segment-sum kernel's calls that `run()` makes."""
+    captured = []
+    typed = segsum.segsum_typed
+
+    def capture(gid, columns, domain):
+        captured.append((gid, list(columns), domain))
+        return typed(gid, columns, domain)
+
+    segsum.segsum_typed = capture
+    try:
+        run()
+    finally:
+        segsum.segsum_typed = typed
+    return captured
+
+
+def table_bytes(c, name) -> int:
+    """Card bytes of a registered table's columns as stored."""
+    table = c.schema["root"].tables[name].table
+    return int(sum(col.device_nbytes() for col in table.columns.values()))
+
+
+def surface_q1(c, df, card, segsum, transfers):
+    """The `surface` phase on Q1's table (6,000,000 rows, encoded as the
+    reference encodes them): the two INSERT INTOs of SURFACE_INSERTS append
+    in place (the second adds a return flag, so the group domain grows past
+    [4, 3]), then Q1 runs cold and warm.  Each statement on the card moves
+    the rungs and encoding counts the port on the CPU moves for it; Q1 after
+    the appends misses the plan cache, builds a new pipeline, launches the
+    kernel once a run with one transfer, and equals its float64 oracle over
+    the appended frame.  Returns the kernel's launches and largest error
+    against its plain version on this part's calls."""
+    import pandas as pd
+
+    from dask_sql_tpu_torch.physical import compiled as compiled_agg
+
+    t0 = time.perf_counter()
+    cpu = cpu_context({"lineitem": df})
+    cpu.sql(QUERY).compute()
+    cpu_setup_s = time.perf_counter() - t0
+    added = df[df.l_quantity.to_numpy() < np.float32(6)]
+    new = pd.DataFrame({
+        "l_returnflag": ["X"], "l_linestatus": ["F"],
+        "l_quantity": np.float32([10.0]), "l_extendedprice": np.float32([1000.0]),
+        "l_discount": np.float32([0.05]), "l_tax": np.float32([0.02]),
+        "l_shipdate": np.array(["1998-01-01"], dtype=df.l_shipdate.dtype)})
+    want = q1_oracle(pd.concat([df, added, new], ignore_index=True))
+    torch.cuda.synchronize()
+    before_hbm = torch.cuda.memory_allocated()
+    before_table = table_bytes(c, "lineitem")
+    dc = c.schema["root"].tables["lineitem"]
+    uid = dc.uid
+    statements = []
+    for sql, n_rows in zip(SURFACE_INSERTS, (len(added), 1)):
+        card_before, cpu_before = counted(c), counted(cpu)
+        transfers["d2h"] = 0
+        t0 = time.perf_counter()
+        got = c.sql(sql).compute()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        d2h = transfers["d2h"]
+        cpu_got = cpu.sql(sql).compute()
+        if got["Inserted"].tolist() != [str(n_rows)] \
+                or cpu_got["Inserted"].tolist() != [str(n_rows)]:
+            fail(f"{sql[:40]!r} inserted {got['Inserted'].tolist()} on the "
+                 f"card, {cpu_got['Inserted'].tolist()} on the CPU, expected "
+                 f"{n_rows}")
+        card_moved = moved(card_before, counted(c))
+        check_same_moves(card_moved, moved(cpu_before, counted(cpu)), 1,
+                         sql[:40])
+        statements.append({"sql": sql[:60], "rows": n_rows, "ms": ms,
+                           "d2h": d2h, "moved": card_moved})
+    if dc.uid != uid or c.table_epoch("root", "lineitem") < 2:
+        fail("INSERT INTO replaced the table instead of appending in place")
+    torch.cuda.synchronize()
+    after_hbm = torch.cuda.memory_allocated()
+    after_table = table_bytes(c, "lineitem")
+
+    misses = c.metrics["query.plan_cache.miss"]
+    pipelines = {id(p_) for p_ in compiled_agg._cache.values()}
+    card_before, cpu_before = counted(c), counted(cpu)
+    reset_launches(segsum)
+    transfers["d2h"] = 0
+    t0 = time.perf_counter()
+    got = c.sql(QUERY).compute()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    if transfers["d2h"] != 1 or segsum.LAUNCHES["segsum"] != 1:
+        fail(f"Q1 after the appends: {transfers['d2h']} transfers, "
+             f"{segsum.LAUNCHES['segsum']} kernel launches, expected 1 and 1")
+    if c.metrics["query.plan_cache.miss"] != misses + 1:
+        fail("Q1 after the appends reused a cached plan")
+    if id(next(reversed(compiled_agg._cache.values()))) in pipelines:
+        fail("Q1 after the appends reused a cached pipeline")
+    rel = check_q1(got, want, "Q1 after the appends")
+    if "X" not in got["l_returnflag"].tolist():
+        fail("Q1 after the appends lost the new return flag")
+    cpu_rel = check_q1(cpu.sql(QUERY).compute(), want,
+                       "Q1 after the appends on the CPU")
+    card_moved = moved(card_before, counted(c))
+    check_same_moves(card_moved, moved(cpu_before, counted(cpu)), 1,
+                     "Q1 after the appends")
+    if card_moved.get("resilience.rung.compiled_aggregate") != 1:
+        fail(f"Q1 after the appends answered on {card_moved}")
+    runs = warm_runs(c, QUERY, transfers,
+                     lambda g: check_q1(g, want, "Q1 after the appends, warm"))
+    launches = segsum.LAUNCHES["segsum"]
+    if launches != 1 + WARM_RUNS:
+        fail(f"Q1 after the appends launched the kernel {launches} times "
+             f"in {1 + WARM_RUNS} runs")
+    calls = capture_calls(segsum, lambda: c.sql(QUERY).compute())
+    if not calls:
+        fail("Q1 after the appends made no segment-sum call")
+    err = max((check_typed(segsum, g_, c_, d_, f"surface_q1_call{i}")
+               for i, (g_, c_, d_) in enumerate(calls)), default=0.0)
+    check_not_degraded(c, "surface_q1")
+    phase("surface", part="q1_after_insert", card=card, rows=len(df),
+          appended=len(added) + 1, statements=statements,
+          cold_ms=cold_ms, ms=float(np.median(runs)), runs_ms=runs,
+          d2h=1, launches=launches, groups=len(got), max_rel_err=rel,
+          cpu_max_rel_err=cpu_rel, cpu_setup_s=cpu_setup_s,
+          domain=calls[0][2] if calls else None, moved=card_moved,
+          table_bytes_before=before_table, table_bytes_after=after_table,
+          hbm_bytes_before=before_hbm, hbm_bytes_after=after_hbm,
+          encodings_after={n: col.encoding.value for n, col in
+                           dc.table.columns.items()},
+          kernel_max_abs_err=err)
+    return {"launches": launches, "max_abs_err": err}
+
+
+def run_on_both(ct, cpu, sql, segsum, transfers, warm: bool, oracle=None):
+    """`sql` on the card and on the CPU: the card's answer (cold, and each
+    warm run) against the CPU's (`answers_agree`) and against `oracle`
+    where given, the counters each moved alike, no rung stepped down.
+    Returns the line for the phase."""
+    card_before, cpu_before = counted(ct), counted(cpu)
+    t0 = time.perf_counter()
+    want = cpu.sql(sql, return_futures=False)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    reset_launches(segsum)
+    runs, d2h, rel = [], [], 0.0
+    for _ in range(1 + (WARM_RUNS if warm else 0)):
+        transfers["d2h"] = 0
+        t0 = time.perf_counter()
+        got = ct.sql(sql, return_futures=False)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        d2h.append(transfers["d2h"])
+        if (got is None) != (want is None):
+            fail(f"{sql[:50]!r}: a result on one side only")
+        if got is not None:
+            agree, r = answers_agree(got, want)
+            if not agree:
+                fail(f"{sql[:50]!r} on the card differs from the port on the "
+                     f"CPU (largest relative error {r})")
+            rel = max(rel, r)
+            if oracle is not None:
+                rel = max(rel, oracle(got))
+    card_moved = moved(card_before, counted(ct))
+    check_same_moves(card_moved, moved(cpu_before, counted(cpu)), len(runs),
+                     sql[:50])
+    return {"rows": None if want is None else len(want), "cold_ms": runs[0],
+            "ms": float(np.median(runs[1:])) if warm else None,
+            "runs_ms": runs[1:], "cpu_ms": cpu_ms, "d2h": d2h[-1],
+            "launches": segsum.LAUNCHES["segsum"], "moved": card_moved,
+            "max_rel_err": rel}
+
+
+def surface_sql(ct, cpu, frames, card, segsum, transfers):
+    """The `surface` phase on the TPC-H frames of `tpch_more` (all eight
+    tables, on the card and on the CPU): the DDL script of SURFACE_DDL,
+    then the function registry, a registered tensor function and a
+    registered aggregation (SURFACE_FUNCTIONS), the last two also against
+    float64 pandas.  Returns {"launches": {path: n}, "max_abs_err": x}:
+    the kernel is held against its plain version on the calls the
+    script's CREATE TABLE AS and the function queries make."""
+    li = frames["lineitem"]
+    price = li.l_extendedprice.to_numpy(np.float64)
+    dp = price * (1 - li.l_discount.to_numpy(np.float64))
+    keep = dp > 50000
+    rev = (li[keep].assign(dp=dp[keep]).groupby("l_returnflag").dp.sum()
+           .sort_index())
+    med = li.groupby("l_returnflag").l_extendedprice.median().sort_index()
+
+    def against(series, column):
+        def check(got):
+            if got["l_returnflag"].tolist() != series.index.tolist():
+                fail(f"{column}: groups differ from the float64 oracle")
+            r = max_rel(got[column], series.to_numpy())
+            if not r <= TPCH_REL:
+                fail(f"{column}: relative error {r} against the oracle")
+            return r
+        return check
+
+    oracles = {"udf_filter_sum": against(rev, "rev"),
+               "udaf_median": against(med, "m")}
+    for ctx in (ct, cpu):
+        ctx.register_function(lambda p, d: p * (1 - d), "disc_price",
+                              [("p", np.float64), ("d", np.float64)],
+                              np.float64)
+        ctx.register_aggregation(lambda g: g.median(), "med",
+                                 [("x", np.float64)], np.float64)
+    launches, err, lines = {}, 0.0, []
+    ddl_launches = 0
+    for i, sql in enumerate(SURFACE_DDL):
+        line = run_on_both(ct, cpu, sql, segsum, transfers, warm=False)
+        ddl_launches += line["launches"]
+        phase("surface", part="ddl", card=card, statement=i, sql=sql[:70],
+              **line)
+    if ct.sql("SHOW SCHEMAS").compute()["Schema"].tolist() != ["root"]:
+        fail("the DDL script left a schema behind")
+    if ddl_launches < 1:
+        fail("the DDL script's aggregates never launched the kernel")
+    launches["surface_ddl"] = ddl_launches
+    calls = capture_calls(segsum, lambda: ct.sql(
+        "SELECT l_returnflag, l_linestatus, SUM(l_extendedprice * "
+        "(1 - l_discount)) AS revenue, COUNT(*) AS n FROM lineitem "
+        "GROUP BY l_returnflag, l_linestatus").compute())
+    for i, (g_, c_, d_) in enumerate(calls):
+        err = max(err, check_typed(segsum, g_, c_, d_, f"surface_ddl_call{i}"))
+    fn_launches = 0
+    for name, sql in SURFACE_FUNCTIONS.items():
+        line = run_on_both(ct, cpu, sql, segsum, transfers, warm=True,
+                           oracle=oracles.get(name))
+        fn_launches += line["launches"]
+        phase("surface", part="functions", card=card, query=name, **line,
+              oracle=name in oracles)
+        calls = capture_calls(segsum, lambda: ct.sql(sql).compute())
+        for i, (g_, c_, d_) in enumerate(calls):
+            err = max(err, check_typed(segsum, g_, c_, d_,
+                                       f"surface_{name}_call{i}"))
+    if fn_launches < 1:
+        fail("the function queries never launched the kernel")
+    launches["surface_functions"] = fn_launches
+    check_not_degraded(ct, "surface")
     return {"launches": launches, "max_abs_err": err}
 
 
@@ -1290,6 +1631,10 @@ def main() -> int:
           phases_ms=dsel_phases, d2h=2, codespace_pred=1,
           late_rows_per_query=100)
     check_not_degraded(c, "select")
+
+    # 8b. the `surface` phase on Q1's table: INSERT INTO appends in place,
+    # and Q1 after them on a new plan and pipeline
+    surface_q1_launches = surface_q1(c, df, card, segsum, TRANSFER_STATS)
     del c, df, got
 
     # 9. TPC-H Q3 through the compiled join->aggregate pipeline, over the
@@ -1356,8 +1701,13 @@ def main() -> int:
     # aggregate (q5, q7, q8, q9, q10, q12) and the compiled rungs (q14,
     # q17, q19), each held against the port on the CPU (plain kernels) and
     # q14 and q19 against float64 pandas too
-    tpch_launches = tpch_more(all_tables, card, segsum, TRANSFER_STATS)
-    del all_tables
+    tpch_launches, ct, cpu = tpch_more(all_tables, card, segsum,
+                                       TRANSFER_STATS)
+    # 10b. the `surface` phase on those frames: the DDL script, the
+    # function registry, a registered function and aggregation
+    surface_launches = surface_sql(ct, cpu, all_tables, card, segsum,
+                                   TRANSFER_STATS)
+    del all_tables, ct, cpu
     q15_launches = q15_on_the_kernel(card, segsum, TRANSFER_STATS)
 
     # 10. a star join through the pipeline into the segment-sum kernel
@@ -1481,9 +1831,14 @@ def main() -> int:
                                 tpch_launches["launches"].items()},
                              "tpch_q15_kernel_route": q15_launches,
                              **{f"tpcds_q{q}": n for q, n in
-                                tpcds_launches["launches"].items()}},
+                                tpcds_launches["launches"].items()},
+                             "surface_q1_after_insert":
+                                 surface_q1_launches["launches"],
+                             **surface_launches["launches"]},
         "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"],
-                           tpcds_launches["max_abs_err"]),
+                           tpcds_launches["max_abs_err"],
+                           surface_q1_launches["max_abs_err"],
+                           surface_launches["max_abs_err"]),
         "ms": t_ms,
         "plain_ms": t_plain_ms,
         "bound_ms": t_bound_ms,

@@ -159,30 +159,36 @@ def _cast_from_string(col: Column, target: SqlType) -> Column:
 
 
 def _cast_to_string(col: Column, target: SqlType) -> Column:
-    """Numeric/datetime -> string: unique values on the host, formatted
-    there, codes uploaded."""
-    vals = col.data.cpu().numpy()
-    uniq, codes = np.unique(vals, return_inverse=True)
+    """Numeric/datetime/boolean -> string, with the reference's text: the
+    distinct values are found on the device and come to the host in one
+    transfer, are formatted there, and the codes gather through the sorted
+    dictionary of their text."""
+    if col.sql_type == SqlType.BOOLEAN:
+        strs = np.array(["false", "true"], dtype=object)
+        return Column(col.data.to(torch.int32), target, col.validity, strs)
+    if len(col) == 0:
+        return Column(torch.zeros(0, dtype=torch.int32, device=col.device),
+                      target, col.validity, np.array([""], dtype=object))
+    uniq, inverse = torch.unique(col.data, return_inverse=True)
+    if uniq.device.type != "cpu":
+        from ..utils import count_d2h
+
+        count_d2h()
+    vals = uniq.cpu().numpy()
     if col.sql_type in DATETIME_TYPES:
         if col.sql_type == SqlType.DATE:
-            strs = np.array([str(np.datetime64(int(v), "ns").astype("datetime64[D]"))
-                             for v in uniq], dtype=object)
+            strs = [str(np.datetime64(int(v), "ns").astype("datetime64[D]"))
+                    for v in vals]
         else:
-            strs = np.array([_fmt_ts(int(v)) for v in uniq], dtype=object)
-    elif col.sql_type == SqlType.BOOLEAN:
-        strs = np.array(["false", "true"], dtype=object)
-        codes = vals.astype(np.int32)
-        return Column(torch.from_numpy(codes).to(col.device), target,
-                      col.validity, strs)
-    elif uniq.dtype.kind == "f":
-        strs = np.array([_fmt_float(v) for v in uniq], dtype=object)
+            strs = [_fmt_ts(int(v)) for v in vals]
+    elif vals.dtype.kind == "f":
+        strs = [_fmt_float(v) for v in vals]
     else:
-        strs = np.array([str(v) for v in uniq], dtype=object)
-    if len(strs) == 0:
-        strs = np.array([""], dtype=object)
-        codes = np.zeros(len(vals), dtype=np.int32)
-    return Column(torch.from_numpy(codes.astype(np.int32)).to(col.device),
-                  target, col.validity, strs)
+        strs = [str(v) for v in vals]
+    # two values can share a text (NaNs, which torch keeps apart)
+    text, remap = np.unique(np.array(strs, dtype=str), return_inverse=True)
+    lut = torch.from_numpy(remap.astype(np.int32)).to(col.device)
+    return Column(lut[inverse], target, col.validity, text.astype(object))
 
 
 def _fmt_ts(ns: int) -> str:

@@ -133,6 +133,14 @@ class Table:
         # one nonzero for the whole table, then a gather per column
         return self.take(torch.nonzero(mask).flatten())
 
+    @staticmethod
+    def concat(tables: Sequence["Table"]) -> "Table":
+        """Vertical concatenation (the UNION ALL primitive and the append
+        of INSERT INTO): `columnar/concat.py`."""
+        from .concat import concat_tables
+
+        return concat_tables(tables)
+
     # -- host materialization ----------------------------------------------
     def to_pandas(self):
         import pandas as pd

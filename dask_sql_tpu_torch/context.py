@@ -1,32 +1,41 @@
 """The Context of the PyTorch port: register frames, run SQL, get pandas back.
 
-Counterpart of `dask_sql_tpu/context.py`, lean: `create_table`, `sql` and a
-lazy frame whose `compute()` returns pandas.  Tables live on the context's
-device, which is the CUDA card unless the caller asks for the CPU.  Plans
-come as the reference makes them: the native C++ planner (parse, bind, the
-structural rule loop and join reordering; `planner/native_bridge.py`),
-with the Python parser and binder as its fallback, then the rest of the
-optimizer (dynamic partition pruning), then plan-family parameterization
-(`families/`).  A plan cache keyed by the SQL text, the catalog's table
-uids and the config lets a repeated query skip all of that.  The serving,
-result-cache, admission and observability tiers of the reference are not
-ported yet.
+Counterpart of `dask_sql_tpu/context.py`, lean: the catalog (tables,
+views, schemas, registered functions and aggregations, and their
+mutations: drop, rename, append), `sql` with one or several statements per
+call, `explain`, and a lazy frame whose `compute()` returns pandas.
+Tables live on the context's device, which is the CUDA card unless the
+caller asks for the CPU.  Plans come as the reference makes them: the
+native C++ planner (parse, bind, the structural rule loop and join
+reordering; `planner/native_bridge.py`), with the Python parser and binder
+as its fallback, then the rest of the optimizer (dynamic partition
+pruning), then plan-family parameterization (`families/`).  A plan cache
+keyed by the SQL text, the catalog's versions and the config lets a
+repeated single statement skip all of that.  The statements (DDL, SHOW,
+INSERT INTO, ANALYZE) run as they are planned (`physical/rel/custom/`).
+The serving, result-cache, materialization, admission and observability
+tiers of the reference are not ported yet.
 """
 from __future__ import annotations
 
 import logging
 from collections import OrderedDict
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from .columnar.dtypes import SqlType
+from .columnar.dtypes import SqlType, np_to_sql
 from .columnar.table import Table, normalize_device
 from .config import Config
-from .datacontainer import SchemaContainer
+from .datacontainer import (
+    FunctionDescription,
+    SchemaContainer,
+    Statistics,
+)
 from .planner import plan as plan_nodes
 from .planner.binder import Binder
-from .planner.catalog import Catalog, CatalogTable, Statistics
+from .planner.catalog import Catalog, CatalogTable
 from .planner.expressions import Field
 from .planner.parser import parse_sql
 from .utils import Metrics
@@ -105,16 +114,27 @@ class Context:
         self._plan_cache: "OrderedDict[Tuple, Any]" = OrderedDict()
         #: (catalog key, native catalog bytes) of the last native plan
         self._catalog_buf_cache: Optional[Tuple[Tuple, Optional[bytes]]] = None
+        #: schema -> view name -> the view's plan (CREATE VIEW)
+        self._views: Dict[str, Dict[str, Any]] = {self.DEFAULT_SCHEMA_NAME: {}}
+        #: (schema, table) -> delta epoch, bumped by every append, create,
+        #: drop and rename of the name (`table_epoch`)
+        self._table_epochs: Dict[Tuple[str, str], int] = {}
+        #: bumped when a view or function is defined or dropped: plans bound
+        #: against the old definition must not be reused
+        self._catalog_serial = 0
 
+    # ------------------------------------------------------------ tables
     def create_table(self, table_name: str, input_table: Any,
                      schema_name: Optional[str] = None) -> None:
         """Register a pandas frame, an Arrow table, a dict of columns or a
-        port Table on this device (`input_utils`).  Loading picks each
-        column's compressed encoding (``columnar.encoding*`` keys); the
-        encoded columns are counted in
+        port Table on this device (`input_utils`), replacing any table or
+        view of that name.  Loading picks each column's compressed encoding
+        (``columnar.encoding*`` keys); the encoded columns are counted in
         ``metrics["columnar.encoding.encoded_columns"]`` and the resident
         bytes, encoded and as they would be decoded, recorded under
-        ``columnar.encoding.encoded_bytes`` / ``decoded_bytes``."""
+        ``columnar.encoding.encoded_bytes`` / ``decoded_bytes``.  The row
+        count becomes the table's statistics (an empty table carries
+        none, as in the reference)."""
         from .input_utils import InputUtil
 
         schema_name = schema_name or self.schema_name
@@ -122,8 +142,14 @@ class Context:
             raise KeyError(f"Schema {schema_name} not found")
         dc = InputUtil.to_dc(input_table, table_name, self.device,
                              config=self.config)
-        self.schema[schema_name].tables[table_name] = dc
+        container = self.schema[schema_name]
+        container.tables[table_name] = dc
         table = dc.table
+        if table.num_rows:
+            container.statistics[table_name] = Statistics(
+                float(table.num_rows))
+        else:
+            container.statistics.pop(table_name, None)
         if table.has_encoded_columns():
             from .columnar.encodings import Encoding, scan_bytes
 
@@ -133,44 +159,236 @@ class Context:
             self.metrics.inc("columnar.encoding.encoded_columns", n_enc)
             self.metrics.observe("columnar.encoding.encoded_bytes", enc_b)
             self.metrics.observe("columnar.encoding.decoded_bytes", dec_b)
+        self._bump_table_epoch(schema_name, table_name)
+        if self._views.setdefault(schema_name, {}).pop(table_name,
+                                                       None) is not None:
+            self._catalog_serial += 1
 
+    def drop_table(self, table_name: str,
+                   schema_name: Optional[str] = None) -> None:
+        """Drop a table or a view."""
+        schema_name = schema_name or self.schema_name
+        self.schema[schema_name].tables.pop(table_name, None)
+        self.schema[schema_name].statistics.pop(table_name, None)
+        self._bump_table_epoch(schema_name, table_name)
+        if self._views.get(schema_name, {}).pop(table_name, None) is not None:
+            self._catalog_serial += 1
+
+    def alter_table(self, old_name: str, new_name: str,
+                    schema_name: Optional[str] = None) -> None:
+        schema_name = schema_name or self.schema_name
+        tables = self.schema[schema_name].tables
+        if old_name in tables:
+            tables[new_name] = tables.pop(old_name)
+        stats = self.schema[schema_name].statistics
+        if old_name in stats:
+            stats[new_name] = stats.pop(old_name)
+        self._bump_table_epoch(schema_name, old_name)
+        self._bump_table_epoch(schema_name, new_name)
+
+    def append_rows(self, table_name: str, rows: Any,
+                    schema_name: Optional[str] = None) -> int:
+        """Append rows to a registered table in place: the engine behind
+        ``INSERT INTO``.  The container and its uid stay; the table's delta
+        epoch bumps (`table_epoch`), which the plan cache and the compiled
+        pipelines' caches key on, so nothing planned or built over the old
+        rows is reused.  ``rows`` is anything `create_table` takes, with
+        columns matching the table's by position.  The concatenation
+        decodes the table's encoded columns and merges string
+        dictionaries (`columnar/concat.py`), as the reference's does.
+        Returns the number of rows appended."""
+        from .input_utils import InputUtil
+
+        schema_name = schema_name or self.schema_name
+        container = self.schema.get(schema_name)
+        dc = container.tables.get(table_name) if container else None
+        if dc is None:
+            raise KeyError(f"Table {schema_name}.{table_name} not found")
+        delta = InputUtil.to_dc(rows, table_name, self.device,
+                                config=self.config).table
+        appended = int(delta.num_rows)
+        dc.table = Table.concat([dc.table, delta])
+        container.statistics[table_name] = Statistics(float(dc.table.num_rows))
+        self._bump_table_epoch(schema_name, table_name)
+        return appended
+
+    def table_epoch(self, schema_name: str, table_name: str) -> int:
+        """The (schema, table) delta epoch: 0 until the first append,
+        create, drop or rename of the name."""
+        return self._table_epochs.get((schema_name, table_name), 0)
+
+    def _bump_table_epoch(self, schema_name: str, table_name: str) -> int:
+        tkey = (schema_name, table_name)
+        epoch = self._table_epochs.get(tkey, 0) + 1
+        self._table_epochs[tkey] = epoch
+        return epoch
+
+    # ------------------------------------------------------------ schemas
+    def create_schema(self, schema_name: str) -> None:
+        self.schema[schema_name] = SchemaContainer(schema_name)
+        self._views.setdefault(schema_name, {})
+
+    def drop_schema(self, schema_name: str) -> None:
+        if schema_name == self.schema_name:
+            self.schema_name = self.DEFAULT_SCHEMA_NAME
+        self.schema.pop(schema_name, None)
+        if self._views.pop(schema_name, None):
+            self._catalog_serial += 1
+
+    def alter_schema(self, old_name: str, new_name: str) -> None:
+        if old_name in self.schema:
+            container = self.schema.pop(old_name)
+            container.name = new_name
+            self.schema[new_name] = container
+            self._views[new_name] = self._views.pop(old_name, {})
+            if self.schema_name == old_name:
+                self.schema_name = new_name
+
+    # ------------------------------------------------------------ functions
+    def register_function(self, f: Callable, name: str,
+                          parameters: List[Tuple[str, Any]], return_type: Any,
+                          replace: bool = False,
+                          schema_name: Optional[str] = None,
+                          row_udf: bool = False) -> None:
+        """Register a scalar function.  A tensor function (the default)
+        takes its arguments as torch tensors on this context's device (the
+        codes for a string) and returns a tensor or anything
+        `torch.as_tensor` takes; a row function (``row_udf=True``) takes
+        each row as a pandas Series of its parameters, on the host."""
+        self._register_callable(f, name, parameters, return_type, False,
+                                replace, schema_name, row_udf)
+
+    def register_aggregation(self, f: Callable, name: str,
+                             parameters: List[Tuple[str, Any]],
+                             return_type: Any, replace: bool = False,
+                             schema_name: Optional[str] = None) -> None:
+        """Register an aggregation: `f` takes a pandas GroupBy of the
+        argument column and returns one value a group, on the host, as in
+        the reference."""
+        self._register_callable(f, name, parameters, return_type, True,
+                                replace, schema_name, False)
+
+    def _register_callable(self, f, name, parameters, return_type,
+                           aggregation, replace, schema_name, row_udf):
+        """A name holds a list of overloads: a new signature adds one, the
+        same signature raises unless `replace`, which drops every overload
+        of the name first."""
+        schema_name = schema_name or self.schema_name
+        schema = self.schema[schema_name]
+        params = [(pname, _to_sql_type(ptype))
+                  for pname, ptype in (parameters or [])]
+        fd = FunctionDescription(name, f, params, _to_sql_type(return_type),
+                                 aggregation, row_udf)
+        lower = name.lower()
+        existing = schema.function_lists.get(lower)
+        if existing and not replace:
+            for other in existing:
+                if [t for _, t in other.parameters] == [t for _, t in params]:
+                    raise ValueError(
+                        f"Function {name} with signature already registered; "
+                        f"use replace=True")
+            existing.append(fd)
+        else:
+            schema.function_lists[lower] = [fd]
+        schema.functions[lower] = fd
+        self._catalog_serial += 1
+
+    def lookup_function(self, name: str, arg_types: Optional[List[SqlType]] = None
+                        ) -> Optional[FunctionDescription]:
+        """The registered function of `name` in the current schema.  With
+        the call's argument types, the overload the binder picked: the
+        latest one whose parameter types are those, else whose arity is
+        theirs.  (The reference calls the latest registration of the name
+        whatever the call, so an overload of another arity raises there.)"""
+        schema = self.schema[self.schema_name]
+        if arg_types is not None:
+            overloads = list(reversed(schema.function_lists.get(
+                name.lower(), [])))
+            for fd in overloads:
+                if [t for _, t in fd.parameters] == list(arg_types):
+                    return fd
+            for fd in overloads:
+                if len(fd.parameters) == len(arg_types):
+                    return fd
+        return schema.functions.get(name.lower()) or schema.functions.get(name)
+
+    # ------------------------------------------------------------ queries
     def sql(self, sql: str, return_futures: bool = True,
             config_options: Optional[Dict[str, Any]] = None):
-        """Plan a SQL query (or take its plan from the plan cache); run it
-        lazily (`.compute()`) or, with ``return_futures=False``, now to
-        pandas."""
+        """Plan and run SQL: one statement, or several separated by
+        semicolons, each planned just before it runs (a later statement
+        may read what an earlier one created).  A query runs lazily
+        (`.compute()`) or, with ``return_futures=False``, now to pandas; a
+        statement (DDL, INSERT INTO, SHOW, ...) runs at once.  The frame of
+        the last statement comes back, or None when it has no result.  A
+        single statement's plan is kept in the plan cache."""
         if not isinstance(sql, str):
             raise ValueError("sql must be a string")
         with self.config.set(config_options):
             key = self._plan_cache_key(sql, config_options)
-            plan = None if key is None else self._plan_cache.get(key)
-            if plan is not None:
+            plans = None if key is None else self._plan_cache.get(key)
+            result = None
+            if plans is not None:
                 self._plan_cache.move_to_end(key)
                 self.metrics.inc("query.plan_cache.hit")
+                for plan in plans:
+                    result = self._run_plan(plan, config_options)
             else:
                 self.metrics.inc("query.plan_cache.miss")
                 statements = parse_sql(sql)
-                if len(statements) != 1:
-                    raise NotImplementedError("one statement per call in the port")
-                plan = self._get_ral(statements[0], sql_text=sql)
-                if isinstance(plan, plan_nodes.CustomNode):
-                    raise NotImplementedError(
-                        f"{type(plan).__name__} statements are not in the port yet")
-                if key is not None:
-                    self._plan_cache[key] = plan
+                plans = []
+                for stmt in statements:
+                    plan = self._get_ral(
+                        stmt, sql_text=sql if len(statements) == 1 else None)
+                    plans.append(plan)
+                    result = self._run_plan(plan, config_options)
+                # a script's later plans were bound against the catalog in
+                # the middle of the script: only one statement is cached
+                if key is not None and len(plans) == 1:
+                    self._plan_cache[key] = plans
                     while len(self._plan_cache) > self._PLAN_CACHE_CAP:
                         self._plan_cache.popitem(last=False)
-        frame = TorchFrame(self, plan, [f.name for f in plan.schema],
-                           config_options)
-        return frame if return_futures else frame.compute()
+        if result is None or return_futures:
+            return result
+        return result.compute()
+
+    def _run_plan(self, plan, config_options=None) -> Optional[TorchFrame]:
+        """A query's lazy frame; a statement runs now, and its frame holds
+        its result (None when it has none)."""
+        if isinstance(plan, plan_nodes.CustomNode):
+            from .physical.executor import Executor
+
+            with self.config.set(config_options):
+                table = Executor(self).execute(plan)
+            if not table.columns:
+                return None
+            frame = TorchFrame(self, plan, list(table.column_names),
+                               config_options)
+            frame._result = table
+            return frame
+        return TorchFrame(self, plan, [f.name for f in plan.schema],
+                          config_options)
+
+    def explain(self, sql: str,
+                config_options: Optional[Dict[str, Any]] = None) -> str:
+        """The optimized plan of a statement as text."""
+        with self.config.set(config_options):
+            statements = parse_sql(sql)
+            plan = self._get_ral(
+                statements[0], sql_text=sql if len(statements) == 1 else None)
+        if isinstance(plan, plan_nodes.Explain):
+            plan = plan.input
+        return plan.explain()
 
     def _plan_cache_key(self, sql: str, config_options) -> Optional[Tuple]:
         """Cache key of a SQL text against the current catalog and config,
         or None when a config value is unhashable.  DPP reads the dimension
-        side at plan time, so its inputs are pinned by the table uids."""
+        side at plan time, so its inputs are pinned by the table uids and
+        delta epochs."""
         try:
             parts: List[Any] = [sql, self.schema_name]
             parts.extend(self._catalog_signature())
+            parts.append(self._catalog_serial)
             parts.append(self.config.effective_items())
             if config_options:
                 parts.append(tuple(sorted(config_options.items())))
@@ -182,14 +400,21 @@ class Context:
 
     def _catalog_signature(self) -> List[Any]:
         """Versioned identity of the catalog: per schema, its tables' uids
-        (registering a table again gives it a new uid, and so a new
-        signature)."""
+        and delta epochs (registering a table again gives it a new uid, an
+        append a new epoch), its statistics' row counts, and its view and
+        function names."""
         parts: List[Any] = []
         for schema_name in sorted(self.schema):
+            container = self.schema[schema_name]
             parts.append(schema_name)
             parts.append(tuple(sorted(
-                (name, dc.uid)
-                for name, dc in self.schema[schema_name].tables.items())))
+                (name, dc.uid, self.table_epoch(schema_name, name))
+                for name, dc in container.tables.items())))
+            parts.append(tuple(sorted(
+                (name, s.row_count) for name, s in container.statistics.items()
+                if s is not None)))
+            parts.append(tuple(sorted(self._views.get(schema_name, {}))))
+            parts.append(tuple(sorted(container.function_lists)))
         return parts
 
     def _get_ral(self, stmt, sql_text: Optional[str] = None):
@@ -268,13 +493,16 @@ class Context:
         return plan
 
     def _encoded_catalog(self, catalog: Catalog) -> Optional[bytes]:
-        """Catalog bytes for the native planner, kept until a table is
-        registered again (keyed by the table uids and the catalog's row
-        counts, which the native join reorder reads)."""
-        key = (catalog.case_sensitive, catalog.current_schema, tuple(
-            (sname, tname, dc.uid, dc.table.num_rows)
-            for sname, cont in sorted(self.schema.items())
-            for tname, dc in sorted(cont.tables.items())))
+        """Catalog bytes for the native planner, kept until a table, view
+        or function changes (keyed by the table uids, the statistics' row
+        counts, which the native join reorder reads, and the view and
+        function serial)."""
+        key = (self._catalog_serial, catalog.case_sensitive,
+               catalog.current_schema, tuple(
+                   (sname, tname, dc.uid,
+                    getattr(cont.statistics.get(tname), "row_count", None))
+                   for sname, cont in sorted(self.schema.items())
+                   for tname, dc in sorted(cont.tables.items())))
         cached = self._catalog_buf_cache
         if cached is not None and cached[0] == key:
             return cached[1]
@@ -288,27 +516,79 @@ class Context:
         return buf
 
     def _prepare_catalog(self) -> Catalog:
+        """The planner's view of the schemas: tables with their fields and
+        statistics, views with their plans, and registered functions."""
         catalog = Catalog(self.schema_name)
         catalog.current_schema = self.schema_name
         for schema_name, container in self.schema.items():
             catalog.add_schema(schema_name)
             cschema = catalog.schemas[schema_name]
             for table_name, dc in container.tables.items():
-                table = dc.table
                 fields = [
                     Field(name, col.sql_type, col.validity is not None or
                           col.sql_type in (SqlType.FLOAT, SqlType.DOUBLE))
-                    for name, col in table.columns.items()
+                    for name, col in dc.table.columns.items()
                 ]
-                # an empty table carries no row count, as in the reference
+                stats = container.statistics.get(table_name)
                 cschema.tables[table_name] = CatalogTable(
                     table_name, schema_name, fields,
-                    Statistics(float(table.num_rows) if table.num_rows
-                               else None))
+                    Statistics(stats.row_count if stats else None))
+            for view_name, view_plan in self._views.get(schema_name,
+                                                        {}).items():
+                ct = CatalogTable(view_name, schema_name, list(view_plan.schema))
+                ct.view_plan = view_plan
+                cschema.tables[view_name] = ct
+            for fname, fds in container.function_lists.items():
+                cschema.functions[fname] = list(fds)
         return catalog
 
-    def get_table_data(self, schema_name: str, table_name: str) -> Table:
+    def _register_view(self, name: str, plan, schema_name: str) -> None:
+        self._views.setdefault(schema_name, {})[name] = plan
+        self._catalog_serial += 1
+
+    def _table_schema_name(self, parts: List[str]) -> Tuple[str, str]:
+        if len(parts) >= 2:
+            return parts[-2], parts[-1]
+        return self.schema_name, parts[0]
+
+    def _table_fields(self, schema_name: str, table_name: str):
         dc = self.schema[schema_name].tables.get(table_name)
-        if dc is None:
-            raise KeyError(f"Table {schema_name}.{table_name} not found")
-        return dc.table
+        if dc is not None:
+            return [Field(n, c.sql_type, True)
+                    for n, c in dc.table.columns.items()]
+        view = self._views.get(schema_name, {}).get(table_name)
+        if view is not None:
+            return list(view.schema)
+        raise KeyError(f"Table {table_name} not found")
+
+    def get_table_data(self, schema_name: str, table_name: str) -> Table:
+        """A table's data, or a view's result (its plan runs now)."""
+        dc = self.schema[schema_name].tables.get(table_name)
+        if dc is not None:
+            return dc.table
+        view = self._views.get(schema_name, {}).get(table_name)
+        if view is not None:
+            from .physical.executor import Executor
+
+            return Executor(self).execute(view)
+        raise KeyError(f"Table {schema_name}.{table_name} not found")
+
+
+def _to_sql_type(t) -> SqlType:
+    """A SQL type from a SqlType, its name, a numpy dtype or a Python
+    scalar type."""
+    if isinstance(t, SqlType):
+        return t
+    if isinstance(t, str):
+        from .columnar.dtypes import parse_sql_type
+
+        return parse_sql_type(t)
+    try:
+        return np_to_sql(np.dtype(t))
+    except (TypeError, ValueError, KeyError):
+        pass  # not a numpy dtype spec: the Python scalar types below
+    mapping = {int: SqlType.BIGINT, float: SqlType.DOUBLE, str: SqlType.VARCHAR,
+               bool: SqlType.BOOLEAN}
+    if t in mapping:
+        return mapping[t]
+    raise NotImplementedError(f"Cannot map {t!r} to a SQL type")

@@ -86,8 +86,13 @@ def extract(unit: str, ns):
         return _mod(_floordiv(tod, 1000), 1_000_000)
     if unit == "nanosecond":
         return _mod(tod, NS_PER_SECOND)
+    if unit == "isoyear":
+        # the year of the ISO week's Thursday (the reference answers the
+        # calendar year, which differs in the first and last days of some
+        # years)
+        return civil_from_days(days - _iso_dow(days) + 4)[0]
     y, m, d = civil_from_days(days)
-    if unit == "year" or unit == "isoyear":
+    if unit == "year":
         return y
     if unit == "month":
         return m

@@ -64,8 +64,15 @@ from ..planner.expressions import (
     ParamRef,
     ScalarFunc,
     ScalarSubqueryExpr,
+    UdfExpr,
     transform,
     walk,
+)
+from .rex.operations import (
+    CALL_VALUED,
+    OPERATION_MAPPING,
+    STRING_VALUED,
+    cast_text,
 )
 
 logger = logging.getLogger(__name__)
@@ -93,6 +100,10 @@ PARAMS_SLOT = "__params__"
 #: the slots key prefix of a subquery's result (`rex/convert.py` runs the
 #: subquery plans and hands their results to the evaluator by id)
 SUBQUERY_SLOT = "__subquery__"
+
+#: the slots key prefix of a user function's result (`rex/convert.py`
+#: calls the function and hands its result to the evaluator by id)
+UDF_SLOT = "__udf__"
 
 #: above this domain the device compacts to the present groups before the
 #: pull; below it the whole packed matrix rides one transfer
@@ -579,10 +590,11 @@ class _TraceEval:
     a Table or a `_TableMeta`.
 
     `eager` marks the evaluator of the eager operators (`rex/convert.py`),
-    which also takes SUBSTRING with constant offsets over a string column
-    (a new dictionary, the codes mapped through it) and the results of
-    subquery plans it is handed in the slots; the fused pipelines decline
-    both, as the reference's do."""
+    which also takes the string-valued expressions (a new dictionary, the
+    codes mapped through it), casts from and to strings, the scalar
+    functions of `rex/operations.py`, and the results of subquery plans
+    and user functions it is handed in the slots; the fused pipelines
+    decline all of these, as the reference's do."""
 
     def __init__(self, table, eager: bool = False):
         self.table = table
@@ -612,13 +624,16 @@ class _TraceEval:
             return torch.from_numpy(v).to(self.device), None
         if isinstance(expr, InParamExpr):
             return self._in_param(expr, slots)
-        if isinstance(expr, (ScalarSubqueryExpr, InSubqueryExpr, ExistsExpr)):
-            # the eager converter ran the subquery plan and left its result
-            # (data, validity) here; a fused pipeline has none and declines
-            got = slots.get((SUBQUERY_SLOT, id(expr)))
+        if isinstance(expr, (ScalarSubqueryExpr, InSubqueryExpr, ExistsExpr,
+                             UdfExpr)):
+            # the eager converter ran the subquery plan or called the user
+            # function and left its result (data, validity) here; a fused
+            # pipeline has none and declines
+            tag = UDF_SLOT if isinstance(expr, UdfExpr) else SUBQUERY_SLOT
+            got = slots.get((tag, id(expr)))
             if got is None:
                 raise _Unsupported(f"expr {type(expr).__name__}")
-            return got
+            return got[:2]
         if isinstance(expr, Literal):
             if expr.value is None:
                 return (torch.zeros((), dtype=torch.float64, device=self.device),
@@ -629,10 +644,12 @@ class _TraceEval:
             return (torch.tensor(expr.value, dtype=dtype, device=self.device),
                     None)
         if isinstance(expr, Cast):
-            d, v = self.eval(expr.arg, slots)
             src, dst = expr.arg.sql_type, expr.sql_type
+            if src in STRING_TYPES and self.eager:
+                return self._cast_from_string(expr, slots)
             if dst in STRING_TYPES or src in STRING_TYPES:
                 raise _Unsupported("string cast")
+            d, v = self.eval(expr.arg, slots)
             if src in FLOAT_TYPES and dst in INTEGER_TYPES:
                 d = torch.nan_to_num(torch.trunc(d))
             if src in DATETIME_TYPES and dst == SqlType.DATE:
@@ -833,13 +850,18 @@ class _TraceEval:
             if expr.arg.sql_type in STRING_TYPES or (
                     isinstance(expr.arg, Literal) and expr.arg.value is None):
                 return self.string_operand(expr.arg, slots)
-            return None
+            return cast_text(self, expr.arg, slots)
         if isinstance(expr, CaseExpr) and expr.sql_type in STRING_TYPES:
             return self._string_case(expr, slots)
+        if isinstance(expr, (ScalarSubqueryExpr, UdfExpr)) \
+                and expr.sql_type in STRING_TYPES:
+            # a string result the eager converter left in the slots
+            tag = UDF_SLOT if isinstance(expr, UdfExpr) else SUBQUERY_SLOT
+            return slots.get((tag, id(expr)))
         if not isinstance(expr, ScalarFunc):
             return None
-        if expr.op == "substring":
-            return self._substring(expr, slots)
+        if expr.op in STRING_VALUED and expr.sql_type in STRING_TYPES:
+            return OPERATION_MAPPING[expr.op](self, expr, slots)
         if expr.op in _STRING_MAPS:
             src = self._require_string(expr.args[0], slots, expr.op)
             return self._mapped(src, _STRING_MAPS[expr.op], (expr.op,))
@@ -878,20 +900,24 @@ class _TraceEval:
                                                      lut.shape[0] - 1)]
         return new_codes, valid, new_dictionary, key
 
-    def _substring(self, expr: ScalarFunc, slots):
-        """SUBSTRING(s FROM start [FOR length]) with constant offsets, a
-        map of the host dictionary (`_mapped`)."""
-        offsets = expr.args[1:]
-        if not offsets or not all(
-                isinstance(a, Literal) and _is_number(a.value)
-                for a in offsets):
-            raise _Unsupported("SUBSTRING with computed offsets")
-        src = self._require_string(expr.args[0], slots, "SUBSTRING")
-        start = int(offsets[0].value)
-        length = int(offsets[1].value) if len(offsets) > 1 else None
-        return self._mapped(
-            src, lambda x: str_ops.substring(x, start, length),
-            ("substring", start, length))
+    def _cast_from_string(self, expr: Cast, slots):
+        """CAST of a string to another type, through its host dictionary
+        (`columnar/casts.py`)."""
+        codes, valid, dictionary, _ = self._require_string(expr.arg, slots,
+                                                           "CAST")
+        scalar = codes.dim() == 0
+        if scalar:
+            codes = codes.reshape(1)
+            valid = None if valid is None else valid.reshape(1)
+        elif valid is not None and valid.dim() == 0:
+            valid = valid.expand(codes.shape[0])
+        col = Column(codes, expr.arg.sql_type, valid, dictionary).cast(
+            expr.sql_type)
+        d, v = col.data, col.validity
+        if scalar:
+            d = d.reshape(())
+            v = None if v is None else v.reshape(())
+        return d, v
 
     def _concat(self, a, b):
         """``a || b``: the distinct code pairs the rows hold, found on the
@@ -1053,6 +1079,12 @@ class _TraceEval:
             ad, av = self.eval(args[0], slots)
             fn = dt_ops.truncate if op == "datetime_floor" else dt_ops.ceil_to
             return (fn(str(unit), ad), av)
+        if op in CALL_VALUED:
+            # the rest of the reference's registry (`rex/operations.py`);
+            # the fused pipelines decline it, as the reference's do
+            if not self.eager:
+                raise _Unsupported(f"op {op}")
+            return OPERATION_MAPPING[op](self, expr, slots)
         if op in ("eq", "ne", "lt", "le", "gt", "ge") and len(args) == 2 \
                 and self.eager and args[0].sql_type in STRING_TYPES \
                 and args[1].sql_type in STRING_TYPES:
@@ -1441,7 +1473,7 @@ def _scan_chain_pipeline(rel, chain, executor):
     agg_exprs = [pz.rewrite_agg(a) for a in agg_exprs]
     params = pz.params
     key = (
-        dc.uid,
+        dc.uid, ctx.table_epoch(scan.schema_name, scan.table_name),
         scan.schema_name, scan.table_name,
         tuple(scan.projection or ()),
         tuple(str(f) for f in filters),
@@ -1484,6 +1516,10 @@ def try_compiled_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     chain = _extract_chain(rel)
     if chain is None:
         return None
+    scan = chain[0]
+    if scan.table_name not in executor.context.schema[
+            scan.schema_name].tables:
+        return None  # a view-backed scan takes the eager path
     metrics = executor.context.metrics
     compiled = None
     try:

@@ -535,16 +535,18 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
         dc = ctx.schema[ext.scan.schema_name].tables.get(ext.scan.table_name)
         if dc is None:
             return None
-        # every base table version keys the cache: the lookup tables are
-        # baked per build-table contents
-        uids = [dc.uid]
+        # every base table version (uid and delta epoch) keys the cache: the
+        # lookup tables are baked per build-table contents
+        uids = [(dc.uid, ctx.table_epoch(ext.scan.schema_name,
+                                         ext.scan.table_name))]
         for j in ext.joins:
             for node in _plan_nodes(j["plan"]):
                 if isinstance(node, p.TableScan):
                     bdc = ctx.schema[node.schema_name].tables.get(node.table_name)
                     if bdc is None:
                         return None
-                    uids.append(bdc.uid)
+                    uids.append((bdc.uid, ctx.table_epoch(node.schema_name,
+                                                          node.table_name)))
         decline_key = (tuple(uids), str(rel))
         if decline_key in _declined:
             ctx.metrics.inc("compiled_join.declined")

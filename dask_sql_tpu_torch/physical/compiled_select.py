@@ -399,7 +399,8 @@ def try_compiled_select(root, executor) -> Optional[Table]:
         p_exprs = [pz.rewrite(e) for e in proj.exprs]
         params = pz.params
         key = (
-            dc.uid,
+            dc.uid, executor.context.table_epoch(scan.schema_name,
+                                                 scan.table_name),
             tuple(scan.projection or ()),
             tuple(str(f) for f in p_upper),
             tuple(str(f) for f in p_scan_flts),

@@ -4,7 +4,8 @@ Counterpart of `dask_sql_tpu/physical/executor.py` on one device: the plan
 root first tries the compiled root select (`compiled_select.py`) as a rung
 of the degradation ladder (`resilience/ladder.py`), then the interpreted
 walk, where each plan node goes to the plugin registered for its node
-type.
+type: the relational operators (`rel/logical/`) and the statements
+(`rel/custom/ddl.py`).
 """
 from __future__ import annotations
 
@@ -63,10 +64,17 @@ class Executor:
     def get_table(self, schema_name: str, table_name: str) -> Table:
         return self.context.get_table_data(schema_name, table_name)
 
+    def lookup_function(self, name: str, arg_types=None):
+        fd = self.context.lookup_function(name, arg_types)
+        if fd is None:
+            raise KeyError(f"Function {name!r} not registered")
+        return fd
+
     @property
     def config(self):
         return self.context.config
 
 
 # the plugin modules register themselves with Executor on import
+from .rel.custom import ddl  # noqa: E402,F401
 from .rel.logical import aggregate, basic, join, window  # noqa: E402,F401

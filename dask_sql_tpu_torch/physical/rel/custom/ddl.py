@@ -1,0 +1,296 @@
+"""The statements: DDL, SHOW, INSERT INTO and ANALYZE TABLE.
+
+Counterpart of `dask_sql_tpu/physical/rel/custom/ddl.py`.  Each plugin
+changes the Context's catalog (`context.py`) or reads it, and returns a
+small host table of strings (SHOW, DESCRIBE, ANALYZE, the row count of an
+INSERT) or no columns at all.  CREATE TABLE AS runs its query and
+registers the result on the context's device; CREATE VIEW keeps the plan,
+which runs where the view is read; INSERT INTO runs its query and appends
+the rows in place (`Context.append_rows`).
+
+The statements whose subsystem the port does not have yet raise
+`NotImplementedError`, naming it and its item in ROADMAP.md's Queue 1:
+CREATE TABLE WITH (location = ...) (the file-backed inputs), SHOW MODELS
+(item 9), SHOW METRICS, PROFILES, QUERIES and MATERIALIZED and CANCEL
+QUERY (item 8), SHOW REPLICAS (item 10).
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ....columnar.column import Column
+from ....columnar.table import Table
+from ....planner import plan as p
+from ...executor import Executor
+from ..base import BaseRelPlugin
+
+
+def _string_table(cols: dict) -> Table:
+    """A host table of string columns."""
+    n = len(next(iter(cols.values()))) if cols else 0
+    return Table({k: Column.from_numpy(np.array(v, dtype=object),
+                                       encode=False)
+                  for k, v in cols.items()}, n, "cpu")
+
+
+_EMPTY = Table({}, 0, "cpu")
+
+
+def _not_ported(statement: str, needs: str):
+    def convert(self, rel, executor) -> Table:
+        raise NotImplementedError(
+            f"{statement} needs {needs}, not in the port yet")
+
+    return convert
+
+
+@Executor.add_plugin_class
+class CreateTablePlugin(BaseRelPlugin):
+    """CREATE TABLE ... WITH (location = ..., format = ...): a table read
+    from files or a published dataset."""
+
+    class_name = "CreateTableNode"
+
+    def convert(self, rel: p.CreateTableNode, executor) -> Table:
+        ctx = executor.context
+        schema_name, name = ctx._table_schema_name(rel.name)
+        if name in ctx.schema[schema_name].tables:
+            if rel.if_not_exists:
+                return _EMPTY
+            if not rel.or_replace:
+                raise RuntimeError(
+                    f"A table with the name {name} is already present.")
+        raise NotImplementedError(
+            "CREATE TABLE WITH (location = ...) needs the file-backed inputs "
+            "(input_utils Location, Hive, Intake, Sqlalchemy; ROADMAP.md "
+            "Queue 1), not in the port yet")
+
+
+@Executor.add_plugin_class
+class CreateMemoryTablePlugin(BaseRelPlugin):
+    """CREATE TABLE ... AS runs the query and registers its result; CREATE
+    VIEW ... AS keeps the plan."""
+
+    class_name = "CreateMemoryTableNode"
+
+    def convert(self, rel: p.CreateMemoryTableNode, executor) -> Table:
+        ctx = executor.context
+        schema_name, name = ctx._table_schema_name(rel.name)
+        if name in ctx.schema[schema_name].tables:
+            if rel.if_not_exists:
+                return _EMPTY
+            if not rel.or_replace:
+                raise RuntimeError(
+                    f"A table with the name {name} is already present.")
+        if rel.persist:
+            # an aggregate's group table lives on the host
+            table = executor.execute(rel.input).to(ctx.device)
+            ctx.create_table(name, table, schema_name=schema_name)
+        else:
+            ctx._register_view(name, rel.input, schema_name)
+        return _EMPTY
+
+
+@Executor.add_plugin_class
+class DropTablePlugin(BaseRelPlugin):
+    class_name = "DropTableNode"
+
+    def convert(self, rel: p.DropTableNode, executor) -> Table:
+        ctx = executor.context
+        schema_name, name = ctx._table_schema_name(rel.name)
+        if name not in ctx.schema[schema_name].tables \
+                and name not in ctx._views.get(schema_name, {}):
+            if rel.if_exists:
+                return _EMPTY
+            raise RuntimeError(f"A table with the name {name} is not present.")
+        ctx.drop_table(name, schema_name=schema_name)
+        return _EMPTY
+
+
+@Executor.add_plugin_class
+class CreateSchemaPlugin(BaseRelPlugin):
+    class_name = "CreateSchemaNode"
+
+    def convert(self, rel: p.CreateSchemaNode, executor) -> Table:
+        ctx = executor.context
+        if rel.schema_name in ctx.schema:
+            if rel.if_not_exists:
+                return _EMPTY
+            if not rel.or_replace:
+                raise RuntimeError(
+                    f"A schema with the name {rel.schema_name} is already "
+                    f"present.")
+        ctx.create_schema(rel.schema_name)
+        return _EMPTY
+
+
+@Executor.add_plugin_class
+class DropSchemaPlugin(BaseRelPlugin):
+    class_name = "DropSchemaNode"
+
+    def convert(self, rel: p.DropSchemaNode, executor) -> Table:
+        ctx = executor.context
+        if rel.schema_name not in ctx.schema:
+            if rel.if_exists:
+                return _EMPTY
+            raise RuntimeError(
+                f"A schema with the name {rel.schema_name} is not present.")
+        ctx.drop_schema(rel.schema_name)
+        return _EMPTY
+
+
+@Executor.add_plugin_class
+class UseSchemaPlugin(BaseRelPlugin):
+    class_name = "UseSchemaNode"
+
+    def convert(self, rel: p.UseSchemaNode, executor) -> Table:
+        ctx = executor.context
+        if rel.schema_name not in ctx.schema:
+            raise RuntimeError(
+                f"A schema with the name {rel.schema_name} is not present.")
+        ctx.schema_name = rel.schema_name
+        return _EMPTY
+
+
+@Executor.add_plugin_class
+class AlterSchemaPlugin(BaseRelPlugin):
+    class_name = "AlterSchemaNode"
+
+    def convert(self, rel: p.AlterSchemaNode, executor) -> Table:
+        executor.context.alter_schema(rel.old_name, rel.new_name)
+        return _EMPTY
+
+
+@Executor.add_plugin_class
+class AlterTablePlugin(BaseRelPlugin):
+    class_name = "AlterTableNode"
+
+    def convert(self, rel: p.AlterTableNode, executor) -> Table:
+        ctx = executor.context
+        schema_name, old = ctx._table_schema_name(rel.old_name)
+        if old not in ctx.schema[schema_name].tables:
+            if rel.if_exists:
+                return _EMPTY
+            raise RuntimeError(f"A table with the name {old} is not present.")
+        ctx.alter_table(old, rel.new_name, schema_name=schema_name)
+        return _EMPTY
+
+
+@Executor.add_plugin_class
+class ShowSchemasPlugin(BaseRelPlugin):
+    class_name = "ShowSchemasNode"
+
+    def convert(self, rel: p.ShowSchemasNode, executor) -> Table:
+        names = list(executor.context.schema.keys())
+        if rel.like:
+            names = [n for n in names if rel.like in n]
+        return _string_table({"Schema": names})
+
+
+@Executor.add_plugin_class
+class ShowTablesPlugin(BaseRelPlugin):
+    class_name = "ShowTablesNode"
+
+    def convert(self, rel: p.ShowTablesNode, executor) -> Table:
+        ctx = executor.context
+        schema = rel.schema_name or ctx.schema_name
+        if schema not in ctx.schema:
+            raise RuntimeError(
+                f"A schema with the name {schema} is not present.")
+        names = list(ctx.schema[schema].tables.keys()) \
+            + list(ctx._views.get(schema, {}).keys())
+        return _string_table({"Table": names})
+
+
+@Executor.add_plugin_class
+class ShowColumnsPlugin(BaseRelPlugin):
+    """SHOW COLUMNS FROM t and DESCRIBE t."""
+
+    class_name = "ShowColumnsNode"
+
+    def convert(self, rel: p.ShowColumnsNode, executor) -> Table:
+        ctx = executor.context
+        schema_name, name = ctx._table_schema_name(rel.table)
+        fields = ctx._table_fields(schema_name, name)
+        return _string_table({
+            "Column": [f.name for f in fields],
+            "Type": [str(f.sql_type).lower() for f in fields],
+            "Extra": ["" for _ in fields],
+            "Comment": ["" for _ in fields],
+        })
+
+
+@Executor.add_plugin_class
+class InsertIntoPlugin(BaseRelPlugin):
+    """INSERT INTO t VALUES (...) and INSERT INTO t SELECT ...: the query
+    runs, its columns bind to the table's by position, and the rows append
+    in place (`Context.append_rows`).  One row reports the count."""
+
+    class_name = "InsertIntoNode"
+
+    def convert(self, rel: p.InsertIntoNode, executor) -> Table:
+        ctx = executor.context
+        schema_name, name = ctx._table_schema_name(rel.name)
+        dc = ctx.schema[schema_name].tables.get(name)
+        if dc is None:
+            raise RuntimeError(f"A table with the name {name} is not present.")
+        delta = executor.execute(rel.input).to(ctx.device)
+        target_names = list(dc.table.columns)
+        if len(delta.columns) != len(target_names):
+            raise RuntimeError(
+                f"INSERT INTO {name} expects {len(target_names)} columns "
+                f"({', '.join(target_names)}), got {len(delta.columns)}")
+        renamed = Table(dict(zip(target_names, delta.columns.values())),
+                        delta.num_rows, delta.device)
+        n = ctx.append_rows(name, renamed, schema_name=schema_name)
+        return _string_table({"Inserted": [str(n)]})
+
+
+@Executor.add_plugin_class
+class AnalyzeTablePlugin(BaseRelPlugin):
+    """ANALYZE TABLE t COMPUTE STATISTICS [FOR ALL COLUMNS | FOR COLUMNS
+    ...]: the pandas description of the numeric columns, and each column's
+    dtype, as a result (the optimizer does not read it)."""
+
+    class_name = "AnalyzeTableNode"
+
+    def convert(self, rel: p.AnalyzeTableNode, executor) -> Table:
+        import pandas as pd
+
+        ctx = executor.context
+        schema_name, name = ctx._table_schema_name(rel.table)
+        df = ctx.get_table_data(schema_name, name).to_pandas()
+        if rel.columns:
+            df = df[rel.columns]
+        num = df.select_dtypes("number")
+        stats = num.describe() if len(num.columns) else pd.DataFrame()
+        stats = stats.rename(index={"25%": "percentile_25",
+                                    "50%": "percentile_50",
+                                    "75%": "percentile_75"})
+        combined = {"col_name": list(stats.index) + ["data_type", "col_name"]}
+        for col in df.columns:
+            vals = [str(stats[col][stat]) if col in stats.columns else ""
+                    for stat in stats.index]
+            combined[col] = vals + [str(df[col].dtype), col]
+        return _string_table(combined)
+
+
+for _node, _statement, _needs in (
+        ("ShowModelsNode", "SHOW MODELS",
+         "the model registry (ml/, ROADMAP.md Queue 1 item 9)"),
+        ("ShowMetricsNode", "SHOW METRICS",
+         "the serving metrics registry (serving/, ROADMAP.md Queue 1 item 8)"),
+        ("ShowProfilesNode", "SHOW PROFILES",
+         "the profile store (observability/, ROADMAP.md Queue 1 item 8)"),
+        ("ShowQueriesNode", "SHOW QUERIES",
+         "the live query table (observability/, ROADMAP.md Queue 1 item 8)"),
+        ("ShowMaterializedNode", "SHOW MATERIALIZED",
+         "the semantic-reuse state (materialize/, ROADMAP.md Queue 1 item 8)"),
+        ("CancelQueryNode", "CANCEL QUERY",
+         "the live query registry (observability/, ROADMAP.md Queue 1 "
+         "item 8)"),
+        ("ShowReplicasNode", "SHOW REPLICAS",
+         "the fleet router (fleet/, ROADMAP.md Queue 1 item 10)")):
+    Executor.add_plugin_class(type(
+        _node.replace("Node", "Plugin"), (BaseRelPlugin,),
+        {"class_name": _node, "convert": _not_ported(_statement, _needs)}))

@@ -111,9 +111,8 @@ class AggregatePlugin(BaseRelPlugin):
                           SqlType.BIGINT)
 
         if func.startswith("udaf:"):
-            raise NotImplementedError(
-                f"aggregate {func[5:]!r} is a registered UDAF, and function "
-                "registration is not in the port yet")
+            return self._udaf(func[5:], agg, inp, gid, num_groups, executor,
+                              fmask)
 
         args = [executor.eval_expr(a, inp) for a in agg.args]
         col = args[0] if args else None
@@ -196,6 +195,37 @@ class AggregatePlugin(BaseRelPlugin):
             cnt = g.seg_count(both, gid, num_groups, mode)
             return _mk(vals * cnt, ok, SqlType.DOUBLE)
         raise NotImplementedError(f"aggregate {func}")
+
+    def _udaf(self, name: str, agg: AggExpr, inp: Table, gid, num_groups,
+              executor, fmask) -> Column:
+        """A registered aggregation: the function takes a pandas GroupBy of
+        its argument on the host and gives one value a group, as the
+        reference defines it.  Only the argument column, the group ids and
+        the FILTER mask move to the host; the result moves back to the
+        input's device."""
+        import numpy as np
+        import pandas as pd
+
+        from ....utils import count_d2h
+
+        fd = executor.lookup_function(name, [a.sql_type for a in agg.args])
+        col = executor.eval_expr(agg.args[0], inp)
+        on_card = col.device.type != "cpu"
+        ser = pd.Series(col.to_numpy())
+        if on_card:
+            count_d2h()
+        gids = gid.cpu().numpy()
+        if fmask is not None:
+            if on_card:
+                count_d2h()
+            keep = fmask.cpu().numpy()
+            ser = ser[keep]
+            gids = gids[keep]
+        result = fd.func(ser.groupby(gids))
+        out = np.full(num_groups, np.nan)
+        out[np.asarray(result.index, dtype=int)] = result.to_numpy()
+        res = Column.from_numpy(out, device=inp.device, encode=False)
+        return res.cast(fd.return_type)
 
     def _count_distinct(self, cols, valid, gid, num_groups, mode) -> Column:
         keep = _first_of_pairs(cols, gid)

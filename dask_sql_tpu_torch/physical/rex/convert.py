@@ -5,20 +5,20 @@ pass through; every other expression is evaluated by the pipeline's
 evaluator (`physical/compiled.py` `_TraceEval`: literals, casts,
 arithmetic and division, comparisons, AND/OR/NOT, CASE, IN lists, LIKE,
 the IS predicates, math and ROUND, EXTRACT and datetime arithmetic,
-COALESCE), so the eager operators and the fused pipelines share one set of
-semantics.  This
-converter runs the expression's subquery plans through the executor first
-and hands their results to the evaluator: a scalar subquery's first value,
-an ``IN (subquery)`` mask and an EXISTS flag.  A string-valued expression
-(a column, a literal, a cast of one, SUBSTRING with constant offsets,
-UPPER, LOWER, CONCAT, a string COALESCE or CASE) becomes codes over a new
-host dictionary (`_TraceEval.string_operand`); the other string functions
-are not in the port yet.
+COALESCE, and the rest of the reference's registry in
+`rex/operations.py`), so the eager operators and the fused pipelines share
+one set of semantics.  This converter runs the expression's subquery plans
+through the executor and calls its user functions first, and hands their
+results to the evaluator: a scalar subquery's first value (a number or a
+string), an ``IN (subquery)`` mask, an EXISTS flag, a function's column.
+A string-valued expression becomes codes over a host dictionary
+(`_TraceEval.string_operand`).
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from ...columnar.column import Column, torch_dtype
@@ -30,7 +30,7 @@ from ...planner.expressions import (
     Expr,
     InSubqueryExpr,
     ScalarSubqueryExpr,
-    walk,
+    UdfExpr,
 )
 from ...utils import host_ints
 
@@ -45,13 +45,14 @@ class RexConverter:
     def convert(self, expr: Expr, table: Table) -> Column:
         if isinstance(expr, ColumnRef) and type(expr) is ColumnRef:
             return table.columns[table.column_names[expr.index]]
-        from ..compiled import SUBQUERY_SLOT, _TraceEval, _Unsupported
+        from ..compiled import SUBQUERY_SLOT, UDF_SLOT, _TraceEval, _Unsupported
 
         slots: Dict = {i: (c.data, c.validity)
                        for i, c in enumerate(table.columns.values())}
-        for sub in walk(expr):
-            if isinstance(sub, (ScalarSubqueryExpr, InSubqueryExpr,
-                                ExistsExpr)):
+        for sub in _outer_calls(expr):
+            if isinstance(sub, UdfExpr):
+                slots[(UDF_SLOT, id(sub))] = _operand(self._udf(sub, table))
+            else:
                 slots[(SUBQUERY_SLOT, id(sub))] = self._subquery(sub, table)
         ev = _TraceEval(table, eager=True)
         n = table.num_rows
@@ -86,17 +87,58 @@ class RexConverter:
             return torch.tensor(flag, dtype=torch.bool, device=device), None
         col = sub.columns[sub.column_names[0]]
         if isinstance(expr, ScalarSubqueryExpr):
-            if col.sql_type in STRING_TYPES:
-                raise NotImplementedError(
-                    "string-valued scalar subquery not in the port yet")
             if sub.num_rows == 0:
                 dtype = torch_dtype(sql_to_np(expr.sql_type))
-                return (torch.zeros((), dtype=dtype, device=device),
+                null = (torch.zeros((), dtype=dtype, device=device),
                         torch.zeros((), dtype=torch.bool, device=device))
+                if col.sql_type in STRING_TYPES:
+                    return null + (np.array([""], dtype=object), ("null",))
+                return null
             first = col.decode().slice(0, 1).to(device)
             valid = None if first.validity is None else first.validity[0]
+            if col.sql_type in STRING_TYPES:
+                # a string operand: its code over the column's dictionary
+                return (first.data[0], valid, col.dictionary,
+                        ("subquery", id(expr)))
             return first.data[0], valid
         return self._in_subquery(expr, table, col.to(device))
+
+    def _udf(self, expr: UdfExpr, table: Table) -> Column:
+        """A registered function's column (the reference's `_udf`).  A
+        tensor function takes the argument tensors on the table's device
+        (the reference hands it jax arrays) and its result goes to that
+        device in the return type's dtype.  A row function takes each row
+        as a pandas Series of its parameters, on the host, as in the
+        reference.  NULL where an argument is NULL (a tensor function) or
+        where the row function returns None."""
+        import pandas as pd
+
+        fd = self.executor.lookup_function(
+            expr.name, [a.sql_type for a in expr.args])
+        args = [self.convert(a, table) for a in expr.args]
+        device = table.device
+        if fd.row_udf:
+            frame = pd.DataFrame({f"arg{i}": a.to_numpy()
+                                  for i, a in enumerate(args)})
+            frame.columns = [p[0] for p in fd.parameters][: len(args)]
+            out = frame.apply(fd.func, axis=1).to_numpy() if len(frame) \
+                else np.zeros(0, dtype=sql_to_np(fd.return_type))
+            col = Column.from_numpy(np.asarray(out), device=device,
+                                    encode=False)
+        else:
+            out = fd.func(*[a.data for a in args])
+            data = torch.as_tensor(out, device=device).to(
+                torch_dtype(sql_to_np(fd.return_type)))
+            if data.dim() == 0:
+                data = data.expand(table.num_rows)
+            valid = None
+            for a in args:
+                if a.validity is not None:
+                    av = a.valid_mask()
+                    valid = av if valid is None else (valid & av)
+            col = Column(data, fd.return_type, valid)
+        return col.cast(fd.return_type) if col.sql_type != fd.return_type \
+            else col
 
     def _in_subquery(self, expr: InSubqueryExpr, table: Table, sub_col):
         """``arg [NOT] IN (subquery)``: NULL where the argument is NULL, or
@@ -115,3 +157,25 @@ class RexConverter:
         if arg.validity is not None:
             known = known & arg.validity
         return value, known
+
+
+def _outer_calls(expr: Expr):
+    """The subquery expressions and user-function calls of `expr` that no
+    other such call encloses (a call's own arguments are converted when it
+    runs)."""
+    stack = [expr]
+    while stack:
+        e = stack.pop()
+        if isinstance(e, (ScalarSubqueryExpr, InSubqueryExpr, ExistsExpr,
+                          UdfExpr)):
+            yield e
+            continue
+        stack.extend(e.children())
+
+
+def _operand(col: Column):
+    """A converted column as the evaluator's slot: (data, validity), with
+    its dictionary and a key for a string."""
+    if col.sql_type in STRING_TYPES:
+        return col.data, col.validity, col.dictionary, ("udf", id(col))
+    return col.data, col.validity

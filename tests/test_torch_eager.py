@@ -417,9 +417,21 @@ def test_compact_dictionary_sorts_an_unsorted_dictionary():
 
 
 def test_udaf_is_named_as_not_in_the_port():
+    """A UDAF call names its function when the schema does not hold it;
+    once registered, it aggregates (on the host, as in the reference)."""
+    from dask_sql_tpu_torch.physical.executor import Executor
+
     table = Table.from_pandas(pd.DataFrame({"v": [1.0, 2.0]}))
     agg = AggExpr("udaf:my_fn", (ColumnRef(0, "v", SqlType.DOUBLE),),
                   SqlType.DOUBLE)
-    with pytest.raises(NotImplementedError, match="my_fn"):
+    ctx = Context(device="cpu")
+    executor = Executor(ctx)
+    gid = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(KeyError, match="my_fn"):
         port_aggregate.AggregatePlugin()._compute_agg(
-            agg, table, torch.zeros(2, dtype=torch.int32), 1, "plain", None)
+            agg, table, gid, 1, "plain", executor)
+    ctx.register_aggregation(lambda g: g.sum(), "my_fn", [("v", np.float64)],
+                             np.float64)
+    got = port_aggregate.AggregatePlugin()._compute_agg(
+        agg, table, gid, 1, "plain", executor)
+    assert got.data.tolist() == [3.0]

@@ -1,9 +1,10 @@
 """The port stands alone: neither `dask_sql_tpu_torch` nor its scripts for
 the card (`chip_smoke.py`, `profile_q1.py`) import JAX or the JAX package,
 even as it plans through its own build of the native planner and runs the
-outer, semi and anti joins, subqueries, SUBSTRING, the set operations and
-window functions; and the port's entry points refuse to run on the CPU
-unless asked to."""
+outer, semi and anti joins, subqueries, SUBSTRING, the set operations,
+window functions, the statements (DDL, INSERT INTO) and a registered
+function; and the port's entry points refuse to run on the CPU unless asked
+to."""
 import os
 import subprocess
 import sys
@@ -78,6 +79,19 @@ assert c.metrics["planner.python.bind"] == 0, dict(c.metrics)
 assert c.metrics["planner.native.plan"] >= 8, dict(c.metrics)
 from dask_sql_tpu_torch.planner import native_bridge
 assert native_bridge.get_lib() is not None
+# the statements, a registered function and the function registry
+# (rex/operations.py) in one multi-statement call (a script binds in
+# Python, as in the reference)
+import numpy as np
+c.register_function(lambda x: x * 2, "twice", [("x", np.float64)], np.float64)
+got = c.sql("CREATE TABLE n2 AS (SELECT n_name, twice(n_nationkey) AS k2 "
+            "FROM nation); INSERT INTO n2 VALUES ('x', 1.0); "
+            "SELECT COUNT(*) AS n, MAX(LPAD(n_name, 30, '*')) AS m, "
+            "SUM(k2) AS k FROM n2").compute()
+assert got["n"][0] == 26 and got["k"][0] == 601.0, got
+assert got["m"][0] == "*" * 16 + "UNITED KINGDOM", got
+c.sql("DROP TABLE n2")
+assert "n2" not in c.schema["root"].tables
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dask_sql_tpu"))
 assert not bad, bad
