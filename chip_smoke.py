@@ -45,7 +45,18 @@ calls (CREATE SCHEMA, USE, CREATE TABLE AS, CREATE VIEW, SHOW, DESCRIBE,
 ANALYZE TABLE, ALTER TABLE, DROP) and queries of the function registry, a
 registered tensor function and a registered aggregation; every statement
 is held against the port on the CPU, on the same rungs and encoding
-counts.  For each loaded frame
+counts.  The ``files`` phase writes Q1's 6,000,000 rows as 6 parquet files
+in row groups of 500,000 (a temporary directory): registered lazily (the
+footers only: no card memory), Q1 streams in batches through partial and
+final aggregate states, the kernel launching on each batch, against the
+float64 oracle, with the card's peak memory during the query printed
+beside the 192,000,000 bytes of the rows loaded PLAIN and the table still
+on disk after; the same files loaded with ``persist=True`` (the encodings,
+card bytes, Q1 on the fused aggregate with one launch and one transfer);
+``bench.py``'s root select over the lazy table (pyarrow's filter, the
+rows read); and Q3 with ``lineitem`` as 4 parquet files streamed through
+its joins, ``customer`` from a CSV file by CREATE TABLE WITH (location =
+...), against its float64 oracle.  For each loaded frame
 it prints the encoded columns and the card memory they take, encoded and,
 for Q1's table, loaded PLAIN, and checks every encoded column's decoded
 buffer against the host's PLAIN values exactly.  It times each query
@@ -159,6 +170,12 @@ DICT_SELECT_QUERY = ("SELECT l_shipdate, l_quantity, l_extendedprice "
 #: the `surface` phase's appends to Q1's table: a copy of the rows under a
 #: quantity (about a tenth more), then one row of a new return flag, typed
 #: as the table's columns
+#: the `files` phase: Q1's rows as parquet files, Q3's lineitem too
+FILES_PARTS = 6
+FILES_ROW_GROUP = 500_000
+FILES_Q3_PARTS = 4
+FILES_Q3_BATCH_ROWS = 250_000
+PLAIN_ROW_BYTES = 32  # Q1's seven columns PLAIN: 4 x float32, 2 codes, a date
 SURFACE_INSERTS = (
     "INSERT INTO lineitem SELECT * FROM lineitem WHERE l_quantity < 6",
     "INSERT INTO lineitem VALUES ('X', 'F', CAST(10.0 AS REAL), "
@@ -709,7 +726,10 @@ def typed_adds(gid, columns, domain) -> int:
     return total
 
 
-def check_typed(segsum, gid, columns, domain, label):
+def typed_errors(segsum, gid, columns, domain, label):
+    """(largest absolute, largest relative) error of the kernel's typed
+    call against its plain version on the same inputs; fails on a shape,
+    a count or a relative error past REL_BOUND."""
     got = segsum.segsum_typed(gid, columns, domain)
     want = segsum.segsum_typed_plain(gid, columns, domain)
     torch.cuda.synchronize()
@@ -723,7 +743,25 @@ def check_typed(segsum, gid, columns, domain, label):
     rel = float((err / want.abs().clamp_min(1e-30)).max()) if err.numel() else 0.0
     if not rel <= REL_BOUND:
         fail(f"segsum {label}: relative error {rel} > {REL_BOUND}")
-    max_abs = float(err.max()) if err.numel() else 0.0
+    return (float(err.max()) if err.numel() else 0.0), rel
+
+
+def check_calls(segsum, calls, label) -> float:
+    """The kernel against its plain version on each captured call, one
+    line for them all; returns the largest absolute error."""
+    errs = [typed_errors(segsum, g_, c_, d_, f"{label}_call{i}")
+            for i, (g_, c_, d_) in enumerate(calls)]
+    phase("segsum_check", case=label, calls=len(calls),
+          rows=sum(int(g_.shape[0]) for g_, _, _ in calls),
+          domains=sorted({d_ for _, _, d_ in calls}),
+          max_abs_err=max((e for e, _ in errs), default=0.0),
+          max_rel_err=max((r for _, r in errs), default=0.0))
+    return max((e for e, _ in errs), default=0.0)
+
+
+def check_typed(segsum, gid, columns, domain, label):
+    max_abs, rel = typed_errors(segsum, gid, columns, domain, label)
+    k = len(columns)
     kc, warps, blocks = segsum.launch_geometry(gid, columns, domain)
     phase("segsum_check", case=label, n=int(gid.shape[0]), domain=domain, k=k,
           warps=warps, blocks=blocks, chunks=-(-k // kc),
@@ -1124,6 +1162,293 @@ def surface_q1(c, df, card, segsum, transfers):
           encodings_after={n: col.encoding.value for n, col in
                            dc.table.columns.items()},
           kernel_max_abs_err=err)
+    return {"launches": launches, "max_abs_err": err}
+
+
+def spy_batches():
+    """Wraps the streamed aggregate's batch reader: returns the list that
+    collects each batch's rows, and the function that puts it back."""
+    from dask_sql_tpu_torch.physical import streaming
+
+    seen = []
+    inner = streaming._iter_batches
+
+    def spy(dc, columns, pa_filters, batch_rows):
+        for batch in inner(dc, columns, pa_filters, batch_rows):
+            seen.append(batch.num_rows)
+            yield batch
+            del batch  # hold no batch while the next one loads
+
+    streaming._iter_batches = spy
+
+    def restore():
+        streaming._iter_batches = inner
+
+    return seen, restore
+
+
+def write_parquet(df, directory, parts: int, row_group: int) -> None:
+    """`df` as `parts` parquet files of equal rows under `directory`."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    os.makedirs(directory)
+    at = pa.Table.from_pandas(df, preserve_index=False)
+    step = -(-at.num_rows // parts)
+    for i in range(parts):
+        pq.write_table(at.slice(step * i, step),
+                       os.path.join(directory, f"part-{i}.parquet"),
+                       row_group_size=row_group)
+
+
+def files_q1(df, want, encoded_hbm, card, segsum, transfers):
+    """The `files` phase on Q1's 6,000,000 rows, written as FILES_PARTS
+    parquet files in row groups of FILES_ROW_GROUP: (a) registered lazily,
+    which reads the footers and allocates no card memory; (b) Q1 streamed
+    at the default ``sql.streaming.batch_rows``, in batches that end at
+    row groups, each batch's partials and the final combine on the kernel
+    (at least one launch a batch), against the float64 oracle, with the
+    card's peak memory above the query's baseline below the rows loaded
+    PLAIN and the table still on disk after; (c) the same files loaded
+    with ``persist=True``: the encodings, the card bytes against the pandas
+    load's `encoded_hbm`, and Q1 on the fused aggregate with one launch and
+    one transfer; (d) `bench.py`'s root select over the lazy table: the
+    compiled select declines and the eager scan reads only the rows that
+    pyarrow's filter keeps.  Returns the kernel's launches on (b) and (c)
+    and the largest error against its plain version on their calls."""
+    import os
+    import tempfile
+
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.datacontainer import LazyParquetContainer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_parquet(df, os.path.join(d, "lineitem"), FILES_PARTS,
+                      FILES_ROW_GROUP)
+        write_s = time.perf_counter() - t0
+        location = os.path.join(d, "lineitem", "*.parquet")
+
+        # (a) lazy registration: footers only
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        c = Context(device="cuda")
+        c.create_table("lineitem", location)
+        register_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        register_bytes = torch.cuda.memory_allocated() - before
+        dc = c.schema["root"].tables["lineitem"]
+        footer_rows = c.schema["root"].statistics["lineitem"].row_count
+        if not isinstance(dc, LazyParquetContainer) or dc._table is not None:
+            fail("the parquet location did not register lazily")
+        if register_bytes != 0 or footer_rows != len(df):
+            fail(f"lazy registration allocated {register_bytes} card bytes, "
+                 f"footers count {footer_rows} rows")
+        phase("files", part="lazy_registration", card=card, rows=len(df),
+              files=FILES_PARTS, row_group=FILES_ROW_GROUP, write_s=write_s,
+              register_ms=register_ms, card_bytes=register_bytes,
+              footer_rows=footer_rows)
+
+        # (b) Q1 streamed at the default batch size
+        seen, restore = spy_batches()
+        try:
+            reset_launches(segsum)
+            transfers["d2h"] = 0
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            got = c.sql(QUERY).compute()
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            batches, rows_read = len(seen), sum(seen)
+            launches = segsum.LAUNCHES["segsum"]
+            rel = check_q1(got, want, "Q1 streamed from parquet")
+            runs = []
+            for _ in range(WARM_RUNS):
+                t0 = time.perf_counter()
+                check_q1(c.sql(QUERY).compute(), want,
+                         "Q1 streamed from parquet, warm")
+                runs.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            restore()
+        if batches < 3 or launches < batches:
+            fail(f"Q1 streamed in {batches} batches with {launches} kernel "
+                 "launches: expected at least 3 batches, a launch a batch")
+        if peak >= N_ROWS * PLAIN_ROW_BYTES:
+            fail(f"Q1 streamed peaked at {peak} card bytes, not below the "
+                 f"{N_ROWS * PLAIN_ROW_BYTES} of the rows loaded PLAIN")
+        if dc._table is not None:
+            fail("the streamed Q1 loaded the lazy table")
+        calls = capture_calls(segsum, lambda: c.sql(QUERY).compute())
+        err = check_calls(segsum, calls, "files_q1_streamed")
+        check_not_degraded(c, "files_q1_streamed")
+        if any(k.startswith("resilience.rung") for k in c.metrics):
+            fail(f"Q1 streamed moved a rung: {dict(c.metrics)}")
+        phase("files", part="q1_streamed", card=card, batches=batches,
+              rows_read=rows_read, batch_rows=seen[:3],
+              launches=launches, d2h=transfers["d2h"], cold_ms=cold_ms,
+              ms=float(np.median(runs)), runs_ms=runs, peak_card_bytes=peak,
+              plain_card_bytes=N_ROWS * PLAIN_ROW_BYTES, max_rel_err=rel,
+              kernel_calls=len(calls), kernel_max_abs_err=err,
+              table_loaded=dc._table is not None)
+        out["files_q1_streamed"] = launches
+        del calls
+
+        # (c) the same files loaded with persist=True
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cp = Context(device="cuda")
+        cp.create_table("lineitem", location, persist=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        persisted_bytes = torch.cuda.memory_allocated() - before
+        table = cp.schema["root"].tables["lineitem"].table
+        reset_launches(segsum)
+        transfers["d2h"] = 0
+        got = cp.sql(QUERY).compute()
+        p_launches, p_d2h = segsum.LAUNCHES["segsum"], transfers["d2h"]
+        p_rel = check_q1(got, want, "Q1 on the persisted parquet")
+        if p_launches != 1 or p_d2h != 1 \
+                or cp.metrics["resilience.rung.compiled_aggregate"] != 1:
+            fail(f"Q1 on the persisted parquet: {p_launches} launches, "
+                 f"{p_d2h} transfers, {dict(cp.metrics)}")
+        p_runs = warm_runs(cp, QUERY, transfers,
+                           lambda g: check_q1(g, want, "persisted, warm"))
+        calls = capture_calls(segsum, lambda: cp.sql(QUERY).compute())
+        p_err = check_calls(segsum, calls, "files_q1_persisted")
+        check_not_degraded(cp, "files_q1_persisted")
+        phase("files", part="q1_persisted", card=card, load_s=load_s,
+              encoded_columns=cp.metrics["columnar.encoding.encoded_columns"],
+              encodings={n: col.encoding.value
+                         for n, col in table.columns.items()},
+              card_bytes=persisted_bytes, pandas_load_card_bytes=encoded_hbm,
+              launches=p_launches, d2h=p_d2h, ms=float(np.median(p_runs)),
+              runs_ms=p_runs, max_rel_err=p_rel, kernel_max_abs_err=p_err)
+        out["files_q1_persisted"] = p_launches
+        del cp, table, calls
+
+        # (d) bench.py's root select over the lazy table
+        flags_want, rev_want = select_oracle(df)
+        read = []
+        scan = LazyParquetContainer.scan
+
+        def counted_scan(self, columns=None, filters=None):
+            table = scan(self, columns, filters)
+            read.append(table.num_rows)
+            return table
+
+        LazyParquetContainer.scan = counted_scan
+        try:
+            sel_runs = []
+            for i in range(1 + WARM_RUNS):
+                rung = c.metrics["resilience.rung.compiled_select"]
+                transfers["d2h"] = 0
+                t0 = time.perf_counter()
+                got = c.sql(SELECT_QUERY).compute()
+                sel_runs.append((time.perf_counter() - t0) * 1e3)
+                if c.metrics["resilience.rung.compiled_select"] != rung:
+                    fail("the select over the lazy table took the compiled "
+                         "select")
+                if got["l_returnflag"].tolist() != flags_want.tolist():
+                    fail("the lazy select's rows or order differ from the "
+                         "oracle")
+                sel_rel = max_rel(got["rev"], rev_want)
+                if not sel_rel <= REL_BOUND:
+                    fail(f"the lazy select's relative error {sel_rel}")
+        finally:
+            LazyParquetContainer.scan = scan
+        if dc._table is not None:
+            fail("the lazy select loaded the table")
+        phase("files", part="select_lazy", card=card, rows_read=read[0],
+              survivors=int((df.l_discount.to_numpy() > np.float32(0.09)).sum()),
+              cold_ms=sel_runs[0], ms=float(np.median(sel_runs[1:])),
+              runs_ms=sel_runs[1:], d2h=transfers["d2h"],
+              max_rel_err=sel_rel)
+        check_not_degraded(c, "files_select")
+        out["max_abs_err"] = max(err, p_err)
+    return out
+
+
+def files_q3(tables, card, segsum, transfers):
+    """The `files` phase on Q3's frames: `lineitem` as FILES_Q3_PARTS
+    parquet files, lazy, streamed through Q3's joins in batches of
+    FILES_Q3_BATCH_ROWS; `customer` from a CSV file by CREATE TABLE WITH
+    (location, format = 'csv', persist = True); `orders` in memory.  Held
+    against the float64 oracle; prints the batches, the rows read and the
+    times.  Returns the kernel's launches and its largest error against
+    its plain version on the query's calls."""
+    import os
+    import tempfile
+
+    from dask_sql_tpu_torch import Context
+    from tests.tpch import QUERIES
+
+    q3_want = q3_oracle(tables)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        write_parquet(tables["lineitem"], os.path.join(d, "lineitem"),
+                      FILES_Q3_PARTS, FILES_ROW_GROUP)
+        csv = os.path.join(d, "customer.csv")
+        tables["customer"].to_csv(csv, index=False)
+        write_s = time.perf_counter() - t0
+        c = Context(device="cuda")
+        c.create_table("lineitem", os.path.join(d, "lineitem"))
+        t0 = time.perf_counter()
+        c.sql(f"CREATE TABLE customer WITH (location = '{csv}', "
+              "format = 'csv', persist = True)")
+        csv_s = time.perf_counter() - t0
+        c.create_table("orders", tables["orders"])
+        options = {"sql.streaming.batch_rows": FILES_Q3_BATCH_ROWS}
+        rels = []
+
+        def check(got):
+            if len(got) != len(q3_want):
+                fail(f"Q3 from parquet gave {len(got)} rows")
+            for key in Q3_KEYS:
+                if got[key].tolist() != q3_want[key].tolist():
+                    fail(f"Q3 from parquet: {key} differs from the oracle")
+            rel = max_rel(got["revenue"], q3_want["revenue"])
+            if not rel <= Q3_REL:
+                fail(f"Q3 from parquet: relative error {rel} > {Q3_REL}")
+            rels.append(rel)
+
+        seen, restore = spy_batches()
+        try:
+            reset_launches(segsum)
+            t0 = time.perf_counter()
+            check(c.sql(QUERIES[3], config_options=options).compute())
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            batches, rows_read = len(seen), sum(seen)
+            launches = segsum.LAUNCHES["segsum"]
+            runs = []
+            for _ in range(WARM_RUNS):
+                t0 = time.perf_counter()
+                check(c.sql(QUERIES[3], config_options=options).compute())
+                runs.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            restore()
+        if batches < 2:
+            fail(f"Q3 from parquet streamed in {batches} batches")
+        if c.schema["root"].tables["lineitem"]._table is not None:
+            fail("the streamed Q3 loaded the lazy table")
+        calls = capture_calls(segsum, lambda: c.sql(
+            QUERIES[3], config_options=options).compute())
+        err = check_calls(segsum, calls, "files_q3_streamed")
+        check_not_degraded(c, "files_q3_streamed")
+        phase("files", part="q3_streamed", card=card,
+              lineitem_rows=len(tables["lineitem"]), files=FILES_Q3_PARTS,
+              batch_rows=FILES_Q3_BATCH_ROWS, batches=batches,
+              rows_read=rows_read, write_s=write_s, csv_load_s=csv_s,
+              cold_ms=cold_ms, ms=float(np.median(runs)), runs_ms=runs,
+              launches=launches, kernel_calls=len(calls),
+              max_rel_err=max(rels), kernel_max_abs_err=err)
     return {"launches": launches, "max_abs_err": err}
 
 
@@ -1635,7 +1960,11 @@ def main() -> int:
     # 8b. the `surface` phase on Q1's table: INSERT INTO appends in place,
     # and Q1 after them on a new plan and pipeline
     surface_q1_launches = surface_q1(c, df, card, segsum, TRANSFER_STATS)
-    del c, df, got
+    del c, got
+    # 8c. the `files` phase on the same rows written as parquet files:
+    # lazy, streamed, persisted, and the root select over them
+    files_q1_out = files_q1(df, want, q1_hbm, card, segsum, TRANSFER_STATS)
+    del df
 
     # 9. TPC-H Q3 through the compiled join->aggregate pipeline, over the
     # encoded columns
@@ -1707,7 +2036,13 @@ def main() -> int:
     # function registry, a registered function and aggregation
     surface_launches = surface_sql(ct, cpu, all_tables, card, segsum,
                                    TRANSFER_STATS)
-    del all_tables, ct, cpu
+    del ct, cpu
+    # 10c. the `files` phase on Q3's frames: lineitem streamed from parquet
+    # through the joins, customer from a CSV file
+    files_q3_out = files_q3({n: all_tables[n] for n in
+                             ("customer", "orders", "lineitem")},
+                            card, segsum, TRANSFER_STATS)
+    del all_tables
     q15_launches = q15_on_the_kernel(card, segsum, TRANSFER_STATS)
 
     # 10. a star join through the pipeline into the segment-sum kernel
@@ -1834,11 +2169,18 @@ def main() -> int:
                                 tpcds_launches["launches"].items()},
                              "surface_q1_after_insert":
                                  surface_q1_launches["launches"],
-                             **surface_launches["launches"]},
+                             **surface_launches["launches"],
+                             "files_q1_streamed":
+                                 files_q1_out["files_q1_streamed"],
+                             "files_q1_persisted":
+                                 files_q1_out["files_q1_persisted"],
+                             "files_q3_streamed": files_q3_out["launches"]},
         "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"],
                            tpcds_launches["max_abs_err"],
                            surface_q1_launches["max_abs_err"],
-                           surface_launches["max_abs_err"]),
+                           surface_launches["max_abs_err"],
+                           files_q1_out["max_abs_err"],
+                           files_q3_out["max_abs_err"]),
         "ms": t_ms,
         "plain_ms": t_plain_ms,
         "bound_ms": t_bound_ms,

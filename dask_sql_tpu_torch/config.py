@@ -28,6 +28,10 @@ DEFAULTS: Dict[str, Any] = {
     # segment-sum mode: auto | scatter | matmul | pallas (the last two pick
     # the hand-written kernel, ops/segsum.py choose_segsum_impl)
     "sql.compile.segsum": "auto",
+    # the out-of-core aggregate over a lazy parquet table
+    # (physical/streaming.py): batches of at most this many rows
+    "sql.streaming.enabled": True,
+    "sql.streaming.batch_rows": 2_000_000,
     # plan families (families/): literals lift into runtime parameters and
     # the compiled pipelines' caches key on the parameterized expressions
     "families.enabled": True,

@@ -125,32 +125,58 @@ class Context:
 
     # ------------------------------------------------------------ tables
     def create_table(self, table_name: str, input_table: Any,
-                     schema_name: Optional[str] = None) -> None:
-        """Register a pandas frame, an Arrow table, a dict of columns or a
-        port Table on this device (`input_utils`), replacing any table or
-        view of that name.  Loading picks each column's compressed encoding
-        (``columnar.encoding*`` keys); the encoded columns are counted in
-        ``metrics["columnar.encoding.encoded_columns"]`` and the resident
-        bytes, encoded and as they would be decoded, recorded under
-        ``columnar.encoding.encoded_bytes`` / ``decoded_bytes``.  The row
-        count becomes the table's statistics (an empty table carries
-        none, as in the reference)."""
+                     format: Optional[str] = None, persist: bool = False,
+                     schema_name: Optional[str] = None,
+                     statistics: Optional[Statistics] = None,
+                     distributed: Optional[bool] = None, **kwargs) -> None:
+        """Register a pandas frame, an Arrow table, a dict of columns, a
+        port Table, a Hive cursor, an Intake catalog, a SQLAlchemy
+        connection or a location (a parquet, CSV or JSON file, a glob or a
+        directory; a published dataset with ``format="memory"``) on this
+        device (`input_utils`), replacing any table or view of that name.
+        A parquet location stays on disk unless ``persist``: its fields and
+        row count come from the footers, and each query reads the columns
+        and row groups it needs.  Loading picks each column's compressed
+        encoding (``columnar.encoding*`` keys); the encoded columns are
+        counted in ``metrics["columnar.encoding.encoded_columns"]`` and the
+        resident bytes, encoded and as they would be decoded, recorded
+        under ``columnar.encoding.encoded_bytes`` / ``decoded_bytes``.  The
+        row count becomes the table's statistics unless ``statistics`` is
+        given (an empty table carries none, as in the reference); the
+        location is kept in the schema's ``filepaths``.  ``kwargs`` go to
+        the reader (``pandas.read_csv``'s options for a CSV)."""
+        from .datacontainer import LazyParquetContainer
         from .input_utils import InputUtil
 
+        if _truthy(distributed):
+            raise NotImplementedError(
+                "create_table(distributed=True) needs the multi-device "
+                "storage (ROADMAP.md Queue 1 item 10), not in the port yet")
         schema_name = schema_name or self.schema_name
         if schema_name not in self.schema:
             raise KeyError(f"Schema {schema_name} not found")
         dc = InputUtil.to_dc(input_table, table_name, self.device,
-                             config=self.config)
+                             format=format, persist=_truthy(persist),
+                             config=self.config, **kwargs)
         container = self.schema[schema_name]
         container.tables[table_name] = dc
-        table = dc.table
-        if table.num_rows:
-            container.statistics[table_name] = Statistics(
-                float(table.num_rows))
+        # a lazy table answers from its footers: reading `dc.table` would
+        # load it, and its scans are PLAIN, so it counts no encodings
+        lazy = isinstance(dc, LazyParquetContainer)
+        table = None if lazy else dc.table
+        if statistics is None:
+            rows = (dc.statistics or {}).get("num-rows") if lazy \
+                else table.num_rows
+            statistics = Statistics(float(rows)) if rows else None
+        if statistics is not None:
+            container.statistics[table_name] = statistics
         else:
             container.statistics.pop(table_name, None)
-        if table.has_encoded_columns():
+        if getattr(dc, "filepath", None):
+            container.filepaths[table_name] = dc.filepath
+        else:
+            container.filepaths.pop(table_name, None)
+        if table is not None and table.has_encoded_columns():
             from .columnar.encodings import Encoding, scan_bytes
 
             n_enc = sum(1 for c in table.columns.values()
@@ -170,6 +196,7 @@ class Context:
         schema_name = schema_name or self.schema_name
         self.schema[schema_name].tables.pop(table_name, None)
         self.schema[schema_name].statistics.pop(table_name, None)
+        self.schema[schema_name].filepaths.pop(table_name, None)
         self._bump_table_epoch(schema_name, table_name)
         if self._views.get(schema_name, {}).pop(table_name, None) is not None:
             self._catalog_serial += 1
@@ -180,9 +207,10 @@ class Context:
         tables = self.schema[schema_name].tables
         if old_name in tables:
             tables[new_name] = tables.pop(old_name)
-        stats = self.schema[schema_name].statistics
-        if old_name in stats:
-            stats[new_name] = stats.pop(old_name)
+        for by_name in (self.schema[schema_name].statistics,
+                        self.schema[schema_name].filepaths):
+            if old_name in by_name:
+                by_name[new_name] = by_name.pop(old_name)
         self._bump_table_epoch(schema_name, old_name)
         self._bump_table_epoch(schema_name, new_name)
 
@@ -195,8 +223,11 @@ class Context:
         rows is reused.  ``rows`` is anything `create_table` takes, with
         columns matching the table's by position.  The concatenation
         decodes the table's encoded columns and merges string
-        dictionaries (`columnar/concat.py`), as the reference's does.
-        Returns the number of rows appended."""
+        dictionaries (`columnar/concat.py`), as the reference's does.  A
+        lazy parquet table cannot grow in place: it is loaded and replaced
+        by an in-memory table of the rows and the appended ones, with a new
+        uid, as in the reference.  Returns the number of rows appended."""
+        from .datacontainer import DataContainer, LazyParquetContainer
         from .input_utils import InputUtil
 
         schema_name = schema_name or self.schema_name
@@ -207,7 +238,12 @@ class Context:
         delta = InputUtil.to_dc(rows, table_name, self.device,
                                 config=self.config).table
         appended = int(delta.num_rows)
-        dc.table = Table.concat([dc.table, delta])
+        if isinstance(dc, LazyParquetContainer):
+            dc = DataContainer(Table.concat([dc.table, delta]))
+            container.tables[table_name] = dc
+            container.filepaths.pop(table_name, None)
+        else:
+            dc.table = Table.concat([dc.table, delta])
         container.statistics[table_name] = Statistics(float(dc.table.num_rows))
         self._bump_table_epoch(schema_name, table_name)
         return appended
@@ -524,15 +560,11 @@ class Context:
             catalog.add_schema(schema_name)
             cschema = catalog.schemas[schema_name]
             for table_name, dc in container.tables.items():
-                fields = [
-                    Field(name, col.sql_type, col.validity is not None or
-                          col.sql_type in (SqlType.FLOAT, SqlType.DOUBLE))
-                    for name, col in dc.table.columns.items()
-                ]
                 stats = container.statistics.get(table_name)
                 cschema.tables[table_name] = CatalogTable(
-                    table_name, schema_name, fields,
-                    Statistics(stats.row_count if stats else None))
+                    table_name, schema_name, _catalog_fields(dc),
+                    Statistics(stats.row_count if stats else None),
+                    container.filepaths.get(table_name))
             for view_name, view_plan in self._views.get(schema_name,
                                                         {}).items():
                 ct = CatalogTable(view_name, schema_name, list(view_plan.schema))
@@ -554,8 +586,8 @@ class Context:
     def _table_fields(self, schema_name: str, table_name: str):
         dc = self.schema[schema_name].tables.get(table_name)
         if dc is not None:
-            return [Field(n, c.sql_type, True)
-                    for n, c in dc.table.columns.items()]
+            return [Field(f.name, f.sql_type, True)
+                    for f in _catalog_fields(dc)]
         view = self._views.get(schema_name, {}).get(table_name)
         if view is not None:
             return list(view.schema)
@@ -572,6 +604,27 @@ class Context:
 
             return Executor(self).execute(view)
         raise KeyError(f"Table {schema_name}.{table_name} not found")
+
+
+def _catalog_fields(dc) -> List[Field]:
+    """A registered table's fields, nullable where a column has a validity
+    mask or floats; a lazy parquet table's from its footers (reading its
+    `table` would load it)."""
+    from .datacontainer import LazyParquetContainer
+
+    if isinstance(dc, LazyParquetContainer):
+        return list(dc.fields)
+    return [Field(name, col.sql_type, col.validity is not None or
+                  col.sql_type in (SqlType.FLOAT, SqlType.DOUBLE))
+            for name, col in dc.table.columns.items()]
+
+
+def _truthy(value) -> bool:
+    """A create_table option that may come as a SQL WITH literal: a bool,
+    a number or a string (``'false'`` is False)."""
+    if isinstance(value, str):
+        return value.strip().lower() in ("true", "1", "on", "yes")
+    return bool(value)
 
 
 def _to_sql_type(t) -> SqlType:

@@ -173,6 +173,40 @@ def factorize(keys):
     return gid, order, last + 1
 
 
+def group_rows(group_cols: Sequence[Column], n: int, device, config=None):
+    """Group `n` rows by `group_cols`: ``(gid, num_groups, mode, keys,
+    present)``.  A mixed radix of small-domain keys needs no sort, and its
+    absent ids are dropped at the end: `present` holds the ids that occur
+    (one count over the domain), and each aggregate column takes them.
+    Otherwise one lexicographic sort numbers the distinct keys and each
+    group's first row gives its keys (`present` is None).  No GROUP BY is
+    one group; no rows under a GROUP BY, none.  `mode` is the segment-sum
+    mode of the domain; `keys` holds one Column a key, a row a group."""
+    decode = None
+    if group_cols and n > 0:
+        fast = radix_gid(group_cols)
+        if fast is not None:
+            gid, num_groups, decode = fast
+        else:
+            gid, _, num_groups = factorize(key_arrays(group_cols))
+    else:
+        gid = torch.zeros(n, dtype=torch.int32, device=device)
+        num_groups = 0 if group_cols else 1
+    mode = segsum_mode(num_groups, device, config)
+    present = None
+    if decode is not None:
+        hit = seg_count(torch.ones(n, dtype=torch.bool, device=device), gid,
+                        num_groups, mode) > 0
+        present = torch.nonzero(hit).flatten()
+        keys = decode(present)
+    elif num_groups and group_cols:
+        first = group_first_indices(gid, num_groups)
+        keys = [col.take(first) for col in group_cols]
+    else:
+        keys = [col.slice(0, 0) for col in group_cols]
+    return gid, num_groups, mode, keys, present
+
+
 def _lexsort(keys) -> torch.Tensor:
     """Permutation sorting rows by `keys`, the first the most significant
     (``jnp.lexsort`` of the reversed keys): one stable sort per key, least

@@ -12,12 +12,15 @@ from ..columnar.column import Column
 def sort_permutation(cols: Sequence[Column], ascendings: Sequence[bool],
                      nulls_firsts: Sequence[bool]) -> torch.Tensor:
     """Stable permutation ordering rows by the given keys: one stable sort
-    per key, least significant first.  String columns sort by code, which
-    is string order because every dictionary is sorted at load."""
+    per key, least significant first.  String columns sort by the codes of
+    their sorted dictionary (`compact_dictionary`: an Arrow load keeps the
+    values in the order they first appear), which is string order."""
     n = len(cols[0]) if cols else 0
     device = cols[0].device if cols else torch.device("cpu")
     perm = torch.arange(n, device=device)
     for col, asc, nf in reversed(list(zip(cols, ascendings, nulls_firsts))):
+        if col.dictionary is not None:
+            col = col.compact_dictionary()
         data = col.data
         if data.dtype == torch.bool:
             data = data.to(torch.int32)
@@ -46,10 +49,12 @@ def topk_permutation(col: Column, ascending: bool, k: int,
     With ``exact_ties`` (secondary sort keys follow), None unless every row
     tied with the boundary value made the cut: otherwise cutting by the
     first key alone could drop a row the later keys rank into the window.
-    String keys compare by code, which is string order (every dictionary is
-    sorted at load)."""
+    String keys compare by the codes of their sorted dictionary, which is
+    string order."""
     if col.validity is not None:
         return None
+    if col.dictionary is not None:
+        col = col.compact_dictionary()
     data = col.data
     if data.dtype == torch.bool:
         data = data.to(torch.int32)

@@ -40,6 +40,7 @@ from ..columnar.column import Column
 from ..columnar.dtypes import STRING_TYPES, SqlType, sql_to_np
 from ..columnar.encodings import Encoding
 from ..columnar.table import Table
+from ..datacontainer import LazyParquetContainer
 from ..ops import segsum as segsum_ops
 from ..ops.join import dense_unique_lut
 from ..planner import plan as p
@@ -533,7 +534,9 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     compiled = None
     try:
         dc = ctx.schema[ext.scan.schema_name].tables.get(ext.scan.table_name)
-        if dc is None:
+        if dc is None or isinstance(dc, LazyParquetContainer):
+            # a lazy parquet probe keeps the eager scan, where its filters
+            # (dynamic partition pruning's too) reach pyarrow
             return None
         # every base table version (uid and delta epoch) keys the cache: the
         # lookup tables are baked per build-table contents

@@ -360,10 +360,13 @@ _cache: "OrderedDict[Tuple, CompiledSelect]" = OrderedDict()
 
 def resolve_pipeline_inputs(scan, executor):
     """``(container, table)`` of a root chain's scan, projected, or None to
-    decline (a scan of no registered table, of no columns or of no rows,
-    which the reference's pipeline declines too)."""
+    decline (a scan of no registered table, of a lazy parquet table, whose
+    eager scan reads only what pyarrow's filters keep, of no columns or of
+    no rows, which the reference's pipeline declines too)."""
+    from ..datacontainer import LazyParquetContainer
+
     dc = executor.context.schema[scan.schema_name].tables.get(scan.table_name)
-    if dc is None:
+    if dc is None or isinstance(dc, LazyParquetContainer):
         return None
     table = executor.get_table(scan.schema_name, scan.table_name)
     if scan.projection is not None:

@@ -24,6 +24,9 @@ class Executor:
         self.context = context
         self.rex = RexConverter(self)
         self._memo: Dict[int, Table] = {}
+        #: (schema, table) -> the Table that a scan of it reads instead
+        #: (a batch of the streamed aggregate, `streaming.py`)
+        self.table_overrides: Dict[tuple, Table] = {}
 
     @classmethod
     def add_plugin_class(cls, plugin_class):

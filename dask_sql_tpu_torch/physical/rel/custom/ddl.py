@@ -8,10 +8,12 @@ registers the result on the context's device; CREATE VIEW keeps the plan,
 which runs where the view is read; INSERT INTO runs its query and appends
 the rows in place (`Context.append_rows`).
 
+CREATE TABLE ... WITH (location = ..., format = ..., persist = ...)
+registers files or a published dataset through `Context.create_table`.
+
 The statements whose subsystem the port does not have yet raise
 `NotImplementedError`, naming it and its item in ROADMAP.md's Queue 1:
-CREATE TABLE WITH (location = ...) (the file-backed inputs), SHOW MODELS
-(item 9), SHOW METRICS, PROFILES, QUERIES and MATERIALIZED and CANCEL
+SHOW MODELS (item 9), SHOW METRICS, PROFILES, QUERIES and MATERIALIZED and CANCEL
 QUERY (item 8), SHOW REPLICAS (item 10).
 """
 from __future__ import annotations
@@ -46,8 +48,9 @@ def _not_ported(statement: str, needs: str):
 
 @Executor.add_plugin_class
 class CreateTablePlugin(BaseRelPlugin):
-    """CREATE TABLE ... WITH (location = ..., format = ...): a table read
-    from files or a published dataset."""
+    """CREATE TABLE ... WITH (location = ..., format = ..., persist = ...):
+    a table read from files or a published dataset; the other WITH options
+    go to the reader."""
 
     class_name = "CreateTableNode"
 
@@ -60,10 +63,15 @@ class CreateTablePlugin(BaseRelPlugin):
             if not rel.or_replace:
                 raise RuntimeError(
                     f"A table with the name {name} is already present.")
-        raise NotImplementedError(
-            "CREATE TABLE WITH (location = ...) needs the file-backed inputs "
-            "(input_utils Location, Hive, Intake, Sqlalchemy; ROADMAP.md "
-            "Queue 1), not in the port yet")
+        kwargs = dict(rel.kwargs or {})
+        location = kwargs.pop("location", None)
+        fmt = kwargs.pop("format", None)
+        persist = kwargs.pop("persist", False)
+        kwargs.pop("gpu", None)
+        kwargs.pop("backend", None)
+        ctx.create_table(name, location, format=fmt, persist=persist,
+                         schema_name=schema_name, **kwargs)
+        return _EMPTY
 
 
 @Executor.add_plugin_class

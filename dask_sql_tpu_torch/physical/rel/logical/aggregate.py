@@ -1,9 +1,12 @@
 """Aggregate converter (counterpart of `AggregatePlugin` in
 `dask_sql_tpu/physical/rel/logical/aggregate.py`, one device).
 
-The rungs of the degradation ladder in the reference's single-device
-order: the join->aggregate pipeline, the fused scan-chain aggregate, then
-the eager aggregate here.  The eager rung runs its input through the
+An aggregate over a lazy parquet table larger than
+``sql.streaming.batch_rows`` streams it in batches first
+(`physical/streaming.py`); that is not a rung of the ladder, and a failure
+there raises.  Then the rungs of the degradation ladder in the reference's
+single-device order: the join->aggregate pipeline, the fused scan-chain
+aggregate, then the eager aggregate here.  The eager rung runs its input through the
 other plugins and groups it: a mixed radix of small-domain keys
 (`ops.grouping.radix_gid`, no sort; the present groups compacted at the
 end), or one lexicographic sort (`factorize`) with each group's first row
@@ -28,6 +31,7 @@ from ....resilience import ladder
 from ...compiled import try_compiled_aggregate
 from ...compiled_join import try_compiled_join_aggregate
 from ...executor import Executor
+from ...streaming import try_streaming_aggregate
 from ..base import BaseRelPlugin, unique_names
 
 
@@ -39,6 +43,9 @@ class AggregatePlugin(BaseRelPlugin):
         def rung(name, fn):
             return ladder.attempt(executor, name, fn, rel=rel)
 
+        streamed = try_streaming_aggregate(rel, executor)
+        if streamed is not None:
+            return streamed
         joined = rung("compiled_join_aggregate",
                       lambda: try_compiled_join_aggregate(rel, executor))
         if joined is not None:
@@ -53,31 +60,8 @@ class AggregatePlugin(BaseRelPlugin):
 
         group_cols = [executor.eval_expr(e, inp) for e in rel.group_exprs]
         names = unique_names([f.name for f in rel.schema])
-        decode = None  # the radix path's key decode
-        if group_cols and n > 0:
-            fast = g.radix_gid(group_cols)
-            if fast is not None:
-                # sort-free: the mixed radix of the key codes is the group id
-                gid, num_groups, decode = fast
-            else:
-                gid, _, num_groups = g.factorize(g.key_arrays(group_cols))
-        else:
-            gid = torch.zeros(n, dtype=torch.int32, device=device)
-            # no rows and GROUP BY: no groups; a global aggregate: one row
-            num_groups = 0 if group_cols else 1
-        mode = g.segsum_mode(num_groups, device, executor.config)
-
-        present = None  # the radix path's present group ids
-        if decode is not None:
-            hit = g.seg_count(torch.ones(n, dtype=torch.bool, device=device),
-                              gid, num_groups, mode) > 0
-            present = torch.nonzero(hit).flatten()
-            keys = decode(present)
-        elif num_groups and group_cols:
-            first = g.group_first_indices(gid, num_groups)
-            keys = [col.take(first) for col in group_cols]
-        else:
-            keys = [col.slice(0, 0) for col in group_cols]
+        gid, num_groups, mode, keys, present = g.group_rows(
+            group_cols, n, device, executor.config)
         out: Dict[str, Column] = dict(zip(names, keys))
         for name, agg in zip(names[len(group_cols):], rel.agg_exprs):
             col = self._compute_agg(agg, inp, gid, num_groups, mode, executor)

@@ -43,12 +43,32 @@ class TableScanPlugin(BaseRelPlugin):
     operators work in value space, so an encoded table (columnar/
     encodings.py) decodes once here, counted in
     ``metrics["columnar.encoding.decode"]``; the compiled pipelines read the
-    codes and never reach this plugin."""
+    codes and never reach this plugin.  A batch of the streamed aggregate
+    (`executor.table_overrides`) stands in for its table; a lazy parquet
+    table reads only the projected columns, with the filters pyarrow can
+    take passed to it as row-group filters.  Every filter still runs here
+    afterwards."""
 
     class_name = "TableScan"
 
     def convert(self, rel: p.TableScan, executor) -> Table:
-        table = executor.get_table(rel.schema_name, rel.table_name)
+        from ....datacontainer import LazyParquetContainer
+
+        override = executor.table_overrides.get((rel.schema_name,
+                                                 rel.table_name))
+        container = executor.context.schema.get(rel.schema_name)
+        dc = container.tables.get(rel.table_name) if container else None
+        if override is not None:
+            table = override
+        elif isinstance(dc, LazyParquetContainer):
+            from ...utils.filter import filters_to_pyarrow
+
+            names = rel.projection if rel.projection is not None else [
+                f.name for f in dc.fields]
+            pa_filters, _ = filters_to_pyarrow(rel.filters, list(names))
+            table = dc.scan(columns=rel.projection, filters=pa_filters)
+        else:
+            table = executor.get_table(rel.schema_name, rel.table_name)
         if rel.projection is not None:
             table = table.select(rel.projection)
         if table.has_encoded_columns():

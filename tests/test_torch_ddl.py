@@ -3,9 +3,10 @@ USE, INSERT INTO, ANALYZE TABLE and several statements in one call,
 through `Context(device="cpu")`.
 
 The statements and expectations of the reference's `tests/integration/
-test_ddl.py` are copied here; the file-backed CREATE TABLE WITH (location
-= ...) and the statements whose subsystem is a later item of ROADMAP.md's
-Queue 1 raise `NotImplementedError` naming it.  INSERT INTO appends to
+test_ddl.py` are copied here (the file-backed CREATE TABLE WITH (location
+= ...) is in `tests/test_torch_files.py`); the statements whose subsystem
+is a later item of ROADMAP.md's Queue 1 raise `NotImplementedError`
+naming it.  INSERT INTO appends to
 PLAIN, DICT, FOR and RLE columns, with a new dictionary value and a new
 group.  One short script (CREATE TABLE AS, INSERT INTO, an aggregate with
 a registered function) runs through the port and the reference `Context`
@@ -195,8 +196,8 @@ def test_views_describe_and_drop_view(c, df):
 
 
 @pytest.mark.parametrize("sql, needs", [
-    ("CREATE TABLE f WITH (location = '/nowhere.csv', format = 'csv')",
-     "file-backed inputs"),
+    ("CREATE TABLE f WITH (location = '/nowhere.csv', format = 'csv', "
+     "distributed = True)", "multi-device storage"),
     ("SHOW MODELS", "model registry"),
     ("SHOW METRICS", "metrics registry"),
     ("SHOW PROFILES", "profile store"),

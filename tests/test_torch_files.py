@@ -1,0 +1,786 @@
+"""File-backed tables in the port: parquet (eager, or lazy with projection
+and pyarrow filter pushdown), CSV, JSON, published datasets, Hive, Intake
+and SQLAlchemy inputs, and the out-of-core streamed aggregate, through
+`Context(device="cpu")`.
+
+The cases of the reference's `tests/integration/test_parquet.py`,
+`test_hive_input.py` and `test_ddl.py` (CREATE TABLE WITH (location = ...)
+and the ``memory`` format) are ported here.  The same files go into a
+reference `Context` and a port Context: ``persist=True`` loads give the
+reference's `columnar.encoding.*` counts; TPC-H Q1 and Q3 streamed from
+parquet equal the reference's in-memory answers (Q1 within
+MATMUL_FLOAT_REL_ERR_BOUND relative, Q3 within 1e-9, keys and counts
+exact).  The reference's streamed path is not run (it is slow on the
+CPU); planning over a lazy table in the reference loads the whole file
+(its plan verifier, ROADMAP.md Queue 3), which the port must not do.  Intake and SQLAlchemy are faked:
+neither package is installed.
+"""
+import json
+import sqlite3
+
+import numpy as np
+import pandas as pd
+import pyarrow as pa
+import pyarrow.parquet as pq
+import pytest
+import torch
+
+import dask_sql_tpu
+from bench import QUERY, gen_lineitem
+from dask_sql_tpu.physical.utils import filter as ref_filter
+from dask_sql_tpu.planner import expressions as ref_ex
+from dask_sql_tpu_torch import Context
+from dask_sql_tpu_torch.columnar.table import Table
+from dask_sql_tpu_torch.datacontainer import (DataContainer,
+                                              LazyParquetContainer)
+from dask_sql_tpu_torch.input_utils import InputUtil
+from dask_sql_tpu_torch.input_utils.plugins import (publish_dataset,
+                                                    unpublish_dataset)
+from dask_sql_tpu_torch.ops import segsum as segsum_ops
+from dask_sql_tpu_torch.physical import streaming
+from dask_sql_tpu_torch.physical.utils import filter as port_filter
+from dask_sql_tpu_torch.physical.utils.statistics import (_paths_for,
+                                                          parquet_statistics)
+from dask_sql_tpu_torch.planner import expressions as port_ex
+from tests.tpch import QUERIES, generate
+from tests.utils import assert_eq
+
+REL = segsum_ops.MATMUL_FLOAT_REL_ERR_BOUND
+Q1_KEYS = ["l_returnflag", "l_linestatus"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's tensors here are tiny: one thread runs them fastest on
+    a machine whose cores the test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """Every file of the module, written once."""
+    d = tmp_path_factory.mktemp("files")
+    out = {"dir": d}
+    small = pd.DataFrame({
+        "a": np.arange(1000, dtype=np.int64),
+        "b": np.arange(1000, dtype=np.float64) / 10,
+        "c": np.where(np.arange(1000) % 2 == 0, "even", "odd"),
+    })
+    small.to_parquet(d / "small.parquet", row_group_size=100)
+    out["small"] = (str(d / "small.parquet"), small)
+
+    rng = np.random.RandomState(4)
+    n = 12_000
+    stream = pd.DataFrame({
+        "g": rng.choice(["a", "b", "c"], n),
+        "v": rng.rand(n),
+        "w": rng.randint(0, 100, n).astype(np.int64),
+        "s": rng.choice(["xx", "yy", "zz", "aa"], n),
+        "big": rng.randint(2**52, 2**53, n).astype(np.int64),
+    })
+    stream.to_parquet(d / "stream.parquet", row_group_size=2000)
+    out["stream"] = (str(d / "stream.parquet"), stream)
+
+    # Q1's lineitem as a directory of 4 files in row groups of 1,000
+    li = gen_lineitem(8000, seed=0)
+    at = pa.Table.from_pandas(li, preserve_index=False)
+    (d / "lineitem").mkdir()
+    for i in range(4):
+        pq.write_table(at.slice(2000 * i, 2000),
+                       d / "lineitem" / f"part-{i}.parquet",
+                       row_group_size=1000)
+    out["lineitem"] = (str(d / "lineitem"), li)
+    # the same rows with the ship date at each timestamp unit
+    for unit in ("ms", "us", "ns"):
+        i = at.schema.get_field_index("l_shipdate")
+        pq.write_table(at.set_column(i, "l_shipdate", at.column(i).cast(
+            pa.timestamp(unit))), d / f"lineitem_{unit}.parquet",
+            row_group_size=2000)
+
+    # Q3: lineitem as 4 parquet files, customer as a CSV, orders in memory
+    tpch = generate(6000, seed=7)
+    lt = pa.Table.from_pandas(tpch["lineitem"], preserve_index=False)
+    (d / "q3_lineitem").mkdir()
+    step = -(-lt.num_rows // 4)
+    for i in range(4):
+        pq.write_table(lt.slice(step * i, step),
+                       d / "q3_lineitem" / f"part-{i}.parquet")
+    tpch["customer"].to_csv(d / "customer.csv", index=False)
+    out["tpch"] = tpch
+    return out
+
+
+def _spy_batches(monkeypatch):
+    """Row counts of the batches the streamed aggregate reads."""
+    seen = []
+    inner = streaming._iter_batches
+
+    def spy(dc, columns, pa_filters, batch_rows):
+        for batch in inner(dc, columns, pa_filters, batch_rows):
+            seen.append(batch.num_rows)
+            yield batch
+
+    monkeypatch.setattr(streaming, "_iter_batches", spy)
+    return seen
+
+
+def _no_load(monkeypatch):
+    """Loading a lazy table whole (`.table`) raises from here on."""
+    def refuse(self):
+        raise AssertionError("a lazy parquet table was loaded whole")
+
+    monkeypatch.setattr(LazyParquetContainer, "table", property(refuse))
+
+
+def _counters(metrics):
+    return {k: v for k, v in metrics.items()
+            if k.startswith(("resilience.", "columnar.encoding."))}
+
+
+# -- the reference's test_parquet.py ------------------------------------------
+def test_lazy_registration_reads_only_footers(files, monkeypatch):
+    path, _ = files["small"]
+    monkeypatch.setattr(pq, "read_table", None)  # a read would raise
+    c = Context(device="cpu")
+    c.create_table("lazy_t", path, persist=False)
+    dc = c.schema["root"].tables["lazy_t"]
+    assert isinstance(dc, LazyParquetContainer)
+    assert dc._table is None and dc.device == torch.device("cpu")
+    assert c.schema["root"].statistics["lazy_t"].row_count == 1000
+    assert c.schema["root"].filepaths["lazy_t"] == path
+    assert [(f.name, f.sql_type.name) for f in dc.fields] == [
+        ("a", "BIGINT"), ("b", "DOUBLE"), ("c", "VARCHAR")]
+    assert not any(k.startswith("columnar.encoding") for k in c.metrics)
+
+
+def test_lazy_query_correct(files):
+    """A lazy table of fewer rows than a batch is not streamed: the fused
+    aggregate loads it, as the reference's does."""
+    path, df = files["small"]
+    c = Context(device="cpu")
+    c.create_table("lazy_t2", path)
+    result = c.sql("SELECT c, SUM(a) AS s FROM lazy_t2 WHERE b < 50 "
+                   "GROUP BY c").compute()
+    sel = df[df.b < 50]
+    expected = sel.groupby("c").a.sum().reset_index().rename(
+        columns={"a": "s"})
+    assert_eq(result, expected, check_dtype=False, sort_results=True)
+    assert c.metrics["resilience.rung.compiled_aggregate"] == 1
+
+
+def test_persist_loads_eagerly(files):
+    path, _ = files["small"]
+    c = Context(device="cpu")
+    c.create_table("eager_t", path, persist=True)
+    dc = c.schema["root"].tables["eager_t"]
+    assert type(dc) is DataContainer and dc.table.num_rows == 1000
+    assert c.sql("SELECT COUNT(*) AS n FROM eager_t").compute()["n"][0] == 1000
+
+
+def test_filters_and_projection_reach_the_scan(files, monkeypatch):
+    path, _ = files["small"]
+    c = Context(device="cpu")
+    c.create_table("lazy_t3", path)
+    captured = {}
+    inner = LazyParquetContainer.scan
+
+    def spy(self, columns=None, filters=None):
+        captured["columns"], captured["filters"] = columns, filters
+        return inner(self, columns, filters)
+
+    monkeypatch.setattr(LazyParquetContainer, "scan", spy)
+    _no_load(monkeypatch)
+    result = c.sql("SELECT a FROM lazy_t3 WHERE a >= 900").compute()
+    assert len(result) == 100 and result["a"].min() == 900
+    assert ("a", ">=", 900) in captured["filters"]
+    assert captured["columns"] == ["a"]
+
+
+def test_parquet_statistics_module(files):
+    path, _ = files["small"]
+    stats = parquet_statistics(path)
+    assert stats["num-rows"] == 1000
+    assert stats["columns"]["a"] == {"min": 0, "max": 999, "null_count": 0}
+    assert stats["columns"]["c"]["min"] == "even"
+    d = files["dir"]
+    assert _paths_for(str(d / "lineitem")) == _paths_for(
+        str(d / "lineitem" / "*.parquet"))
+    assert len(_paths_for(str(d / "lineitem"))) == 4
+    assert parquet_statistics(str(d / "lineitem"))["num-rows"] == 8000
+    assert parquet_statistics(str(d / "nowhere" / "*.parquet")) is None
+
+
+STREAM_QUERY = (
+    "SELECT g, SUM(v) AS s, COUNT(*) AS n, AVG(w) AS m, MIN(v) AS lo, "
+    "MAX(v) AS hi, STDDEV(v) AS sd, VAR_POP(w) AS vp, MIN(s) AS smin, "
+    "MAX(s) AS smax, SUM(big) AS sbig, COUNT(w) FILTER (WHERE w > 50) AS nf "
+    "FROM stream_t WHERE w < 90 GROUP BY g")
+
+
+def test_streamed_aggregate_matches_in_memory(files, monkeypatch):
+    """Float sums, counts, AVG, MIN and MAX (strings too, each batch with
+    its own dictionary), the variance family, a FILTER and int64 sums above
+    2^53, exact, streamed in batches; the lazy table is never loaded."""
+    path, df = files["stream"]
+    c = Context(device="cpu")
+    c.create_table("stream_t", path)
+    c.create_table("mem_t", df)
+    seen = _spy_batches(monkeypatch)
+    streamed = c.sql(STREAM_QUERY, config_options={
+        "sql.streaming.batch_rows": 3000}).compute()
+    assert len(seen) == 6 and sum(seen) == (df.w < 90).sum()
+    assert c.schema["root"].tables["stream_t"]._table is None
+    inmem = c.sql(STREAM_QUERY.replace("stream_t", "mem_t")).compute()
+    streamed = streamed.sort_values("g").reset_index(drop=True)
+    inmem = inmem.sort_values("g").reset_index(drop=True)
+    assert list(streamed.dtypes) == list(inmem.dtypes)
+    for col in ["s", "m", "lo", "hi", "sd", "vp"]:
+        np.testing.assert_allclose(streamed[col], inmem[col], rtol=1e-9)
+    for col in ["g", "n", "smin", "smax", "sbig", "nf"]:
+        assert list(streamed[col]) == list(inmem[col]), col
+    sel = df[df.w < 90]
+    assert list(streamed["sbig"]) == list(sel.groupby("g").big.sum())
+
+
+@pytest.mark.parametrize("group_by", ["GROUP BY g", ""],
+                         ids=["grouped", "global"])
+def test_streamed_aggregate_of_no_rows(files, monkeypatch, group_by):
+    """No row passes the filter: the answer of the aggregate over no rows
+    (no group, or one row of NULLs and a zero count), without loading the
+    table."""
+    path, df = files["stream"]
+    c = Context(device="cpu")
+    c.create_table("stream_t", path)
+    c.create_table("mem_t", df)
+    q = ("SELECT SUM(v) AS s, COUNT(*) AS n, MIN(s) AS m, AVG(w) AS a "
+         f"FROM {{}} WHERE w > 100 {group_by}")
+    _no_load(monkeypatch)
+    got = c.sql(q.format("stream_t"), config_options={
+        "sql.streaming.batch_rows": 3000}).compute()
+    assert_eq(got, c.sql(q.format("mem_t")).compute(), check_dtype=True)
+    assert len(got) == (0 if group_by else 1)
+
+
+def test_streaming_through_a_join(files, tmp_path, monkeypatch):
+    rng = np.random.RandomState(9)
+    fact = pd.DataFrame({"k": rng.randint(0, 50, 6000).astype(np.int64),
+                         "v": rng.rand(6000)})
+    fact.to_parquet(tmp_path / "fact.parquet", row_group_size=1500)
+    dim = pd.DataFrame({"k": np.arange(50, dtype=np.int64),
+                        "grp": np.where(np.arange(50) % 2 == 0, "even", "odd"),
+                        "w": rng.rand(50)})
+    c = Context(device="cpu")
+    c.create_table("sfact", str(tmp_path / "fact.parquet"))
+    c.create_table("sdim", dim)
+    seen = _spy_batches(monkeypatch)
+    q = ("SELECT grp, SUM(v * w) AS s, COUNT(*) AS n FROM sfact "
+         "JOIN sdim ON sfact.k = sdim.k GROUP BY grp ORDER BY grp")
+    streamed = c.sql(q, config_options={
+        "sql.streaming.batch_rows": 2000}).compute()
+    assert len(seen) == 4
+    m = fact.merge(dim, on="k")
+    want = m.assign(s=m.v * m.w).groupby("grp").agg(
+        s=("s", "sum"), n=("s", "count")).reset_index()
+    assert list(streamed["n"]) == list(want["n"])
+    np.testing.assert_allclose(streamed["s"], want["s"], rtol=1e-9)
+
+
+@pytest.mark.parametrize("q, want, batches", [
+    # FULL join: not a union of the batches' joins
+    ("SELECT COUNT(*) AS n FROM fjf FULL JOIN fjd ON fjf.k = fjd.k",
+     lambda fact, dim: len(fact.merge(dim, on="k", how="outer")), 0),
+    # the scalar subquery must see the whole table, not a batch: the outer
+    # aggregate declines, the subquery's own streams once
+    ("SELECT MAX(v - (SELECT AVG(v) FROM fjf)) AS m FROM fjf",
+     lambda fact, dim: (fact.v - fact.v.mean()).max(), 6),
+], ids=["full_join", "embedded_subquery"])
+def test_streaming_declines(tmp_path, monkeypatch, q, want, batches):
+    rng = np.random.RandomState(10)
+    fact = pd.DataFrame({"k": rng.randint(0, 10, 3000).astype(np.int64),
+                         "v": rng.rand(3000)})
+    fact.to_parquet(tmp_path / "fj.parquet", row_group_size=500)
+    dim = pd.DataFrame({"k": np.arange(12, dtype=np.int64),
+                        "w": rng.rand(12)})
+    c = Context(device="cpu")
+    c.create_table("fjf", str(tmp_path / "fj.parquet"))
+    c.create_table("fjd", dim)
+    seen = _spy_batches(monkeypatch)
+    got = c.sql(q, config_options={"sql.streaming.batch_rows": 1000}).compute()
+    assert seen == [500] * batches
+    np.testing.assert_allclose(got.iloc[0, 0], want(fact, dim), rtol=1e-9)
+
+
+# -- TPC-H Q1 and Q3 from parquet files, against the reference ----------------
+@pytest.fixture(scope="module")
+def q1_reference(files):
+    _, li = files["lineitem"]
+    rc = dask_sql_tpu.Context()
+    rc.create_table("lineitem", li)
+    return rc.sql(QUERY, config_options={
+        "sql.compile.segsum": "matmul"}).compute()
+
+
+def _same_q1(got, want):
+    assert list(got.columns) == list(want.columns)
+    assert list(got.dtypes) == list(want.dtypes)
+    for key in Q1_KEYS + ["count_order"]:
+        assert list(got[key]) == list(want[key]), key
+    for name in want.columns[2:-1]:
+        np.testing.assert_allclose(got[name], want[name], rtol=REL)
+
+
+def test_q1_streamed_from_a_directory(files, q1_reference, monkeypatch):
+    """Q1 over a lazy directory of 4 files streams in batches (the date
+    filter through pyarrow) and equals the reference's in-memory answer;
+    the segment sum reduces every batch's partials and the final combine."""
+    path, li = files["lineitem"]
+    c = Context(device="cpu")
+    c.create_table("lineitem", path)
+    seen = _spy_batches(monkeypatch)
+    calls = []
+    inner = segsum_ops.segsum_typed_plain
+    monkeypatch.setattr(segsum_ops, "segsum_typed_plain",
+                        lambda *a: calls.append(a[2]) or inner(*a))
+    got = c.sql(QUERY, config_options={
+        "sql.streaming.batch_rows": 2000}).compute()
+    assert len(seen) == 8 and max(seen) <= 1000
+    assert sum(seen) == (li.l_shipdate <= np.datetime64("1998-09-02")).sum()
+    assert calls and max(calls) <= 12
+    _same_q1(got, q1_reference)
+    assert c.schema["root"].tables["lineitem"]._table is None
+    assert not any(k.startswith("resilience.") for k in c.metrics)
+
+
+def test_q1_persisted_from_a_directory(files, q1_reference):
+    """``persist=True`` loads the directory with the reference's encodings
+    and answers on the fused aggregate, as the pandas load does."""
+    path, _ = files["lineitem"]
+    c = Context(device="cpu")
+    c.create_table("lineitem", path, persist=True)
+    got = c.sql(QUERY).compute()
+    _same_q1(got, q1_reference)
+    assert c.metrics["resilience.rung.compiled_aggregate"] == 1
+
+
+@pytest.mark.parametrize("unit", ["ms", "us", "ns"])
+def test_date_pushdown_at_each_timestamp_unit(files, unit, monkeypatch):
+    """pyarrow compares the nanosecond date literal with a ship date
+    stored at any unit."""
+    _, li = files["lineitem"]
+    c = Context(device="cpu")
+    c.create_table("lineitem", str(files["dir"] / f"lineitem_{unit}.parquet"))
+    seen = _spy_batches(monkeypatch)
+    got = c.sql(QUERY, config_options={
+        "sql.streaming.batch_rows": 2000}).compute()
+    kept = li[li.l_shipdate <= np.datetime64("1998-09-02")]
+    assert len(seen) == 4 and sum(seen) == len(kept)
+    assert list(got["count_order"]) == list(
+        kept.groupby(Q1_KEYS).size().sort_index())
+
+
+def test_q3_streamed_through_its_joins(files, monkeypatch):
+    """Q3 with `lineitem` a lazy directory streamed through its joins,
+    `customer` from CSV by CREATE TABLE WITH (location, format, persist)
+    and `orders` in memory equals the reference's in-memory Q3 within
+    1e-9."""
+    tpch = files["tpch"]
+    d = files["dir"]
+    c = Context(device="cpu")
+    c.create_table("lineitem", str(d / "q3_lineitem"))
+    c.sql(f"CREATE TABLE customer WITH (location = '{d / 'customer.csv'}', "
+          "format = 'csv', persist = True)")
+    c.create_table("orders", tpch["orders"])
+    seen = _spy_batches(monkeypatch)
+    rows = len(tpch["lineitem"])
+    got = c.sql(QUERIES[3], config_options={
+        "sql.streaming.batch_rows": rows // 4}).compute()
+    assert len(seen) == 4
+    assert c.schema["root"].tables["lineitem"]._table is None
+    rc = dask_sql_tpu.Context()
+    for name in ("customer", "orders", "lineitem"):
+        rc.create_table(name, tpch[name])
+    want = rc.sql(QUERIES[3]).compute()
+    assert len(got) == len(want) == 10
+    for key in ("l_orderkey", "o_orderdate", "o_shippriority"):
+        assert list(got[key]) == list(want[key]), key
+    np.testing.assert_allclose(got["revenue"], want["revenue"], rtol=1e-9)
+
+
+def test_persisted_loads_count_the_reference_encodings(files):
+    """A parquet directory and a CSV loaded with ``persist=True`` in both
+    engines: the same columns encoded, the same counts."""
+    d = files["dir"]
+    rc, pc = dask_sql_tpu.Context(), Context(device="cpu")
+    for ctx in (rc, pc):
+        ctx.create_table("lineitem", str(d / "lineitem"), persist=True)
+        ctx.create_table("customer", str(d / "customer.csv"), format="csv",
+                         persist=True)
+    ref = _counters(rc.metrics.snapshot()["counters"])
+    assert ref["columnar.encoding.encoded_columns"] >= 2
+    assert _counters(dict(pc.metrics)) == ref
+    for name in ("lineitem", "customer"):
+        want = {n: col.encoding.value for n, col in
+                rc.schema["root"].tables[name].table.columns.items()}
+        got = {n: col.encoding.value for n, col in
+               pc.schema["root"].tables[name].table.columns.items()}
+        assert got == want, name
+
+
+def test_the_reference_verifier_loads_a_lazy_table(files, monkeypatch):
+    """Planning a query over a lazy table in the reference loads the whole
+    file (its plan verifier reads `dc.table`; ROADMAP.md Queue 3).  The
+    port plans and streams the query with the table left on disk, and
+    answers as the reference does over the frame in memory."""
+    path, df = files["stream"]
+    q = ("SELECT g, SUM(v) AS s, COUNT(*) AS n, SUM(big) AS sb FROM stream_t "
+         "GROUP BY g ORDER BY g")
+    options = {"sql.streaming.batch_rows": 4000}
+    rc = dask_sql_tpu.Context()
+    rc.create_table("stream_t", path)
+    rc.sql(q, config_options=options)  # planned, not run
+    assert rc.schema["root"].tables["stream_t"]._table is not None
+    pc = Context(device="cpu")
+    pc.create_table("stream_t", path)
+    seen = _spy_batches(monkeypatch)
+    got = pc.sql(q, config_options=options).compute()
+    assert seen == [2000] * 6
+    assert pc.schema["root"].tables["stream_t"]._table is None
+    rc.create_table("stream_t", df)
+    assert_eq(got, rc.sql(q).compute(), check_dtype=True)
+
+
+# -- what plan time and the catalog read --------------------------------------
+def test_planning_and_the_catalog_never_load(files, monkeypatch):
+    """The catalog, the plan cache, the native planner's catalog, dynamic
+    partition pruning, SHOW COLUMNS, DESCRIBE and a streamed query all
+    answer from the footers: loading the table raises here."""
+    path, df = files["stream"]
+    c = Context(device="cpu")
+    c.create_table("stream_t", path)
+    c.create_table("dim", pd.DataFrame({"g": ["a", "b"], "x": [1.0, 2.0]}))
+    _no_load(monkeypatch)
+    cols = c.sql("SHOW COLUMNS FROM stream_t").compute()
+    assert list(cols["Column"]) == ["g", "v", "w", "s", "big"]
+    assert list(c.sql("DESCRIBE stream_t").compute()["Type"]) == [
+        "varchar", "double", "bigint", "varchar", "bigint"]
+    q = ("SELECT dim.g, SUM(v * x) AS s FROM stream_t JOIN dim "
+         "ON stream_t.g = dim.g WHERE dim.x > 1.5 GROUP BY dim.g")
+    assert "stream_t" in c.explain(q)
+    got = c.sql(q, config_options={"sql.streaming.batch_rows": 5000}).compute()
+    np.testing.assert_allclose(got["s"], [2.0 * df.v[df.g == "b"].sum()],
+                               rtol=1e-9)
+    again = c.sql(q, config_options={"sql.streaming.batch_rows": 5000})
+    assert c.metrics["query.plan_cache.hit"] == 1 and again is not None
+
+
+def test_root_select_over_a_lazy_table(files, monkeypatch):
+    """`bench.py`'s root top-k select: the compiled select declines a lazy
+    table, and the eager scan reads only the rows pyarrow's filter keeps."""
+    path, li = files["lineitem"]
+    c = Context(device="cpu")
+    c.create_table("lineitem", path)
+    c.create_table("mem", li)
+    read = []
+    inner = LazyParquetContainer.scan
+    monkeypatch.setattr(LazyParquetContainer, "scan", lambda self, *a, **k: (
+        read.append(1) or inner(self, *a, **k)))
+    q = ("SELECT l_returnflag, l_extendedprice * (1 - l_discount) AS rev "
+         "FROM {} WHERE l_discount > 0.09 ORDER BY rev DESC LIMIT 100")
+    got = c.sql(q.format("lineitem")).compute()
+    assert read == [1]
+    assert c.metrics["resilience.rung.compiled_select"] == 0
+    want = c.sql(q.format("mem")).compute()
+    assert c.metrics["resilience.rung.compiled_select"] == 1
+    assert_eq(got, want, check_dtype=True)
+
+
+def test_float32_pushdown_keeps_the_devices_rows(tmp_path):
+    """A FLOAT column against a literal: pyarrow gets the float32 literal
+    the device compares with, so ``x <= 0.09`` keeps float32 0.09 (the
+    reference's pushdown drops it; ROADMAP.md Queue 3)."""
+    df = pd.DataFrame({"x": np.float32([0.09, 0.1, 0.05]), "k": [1, 2, 3]})
+    df.to_parquet(tmp_path / "f32.parquet")
+    c = Context(device="cpu")
+    c.create_table("lazy", str(tmp_path / "f32.parquet"))
+    c.create_table("mem", df)
+    for op in ("<=", "<", "=", ">=", ">", "<>"):
+        q = f"SELECT k FROM {{}} WHERE x {op} 0.09 ORDER BY k"
+        assert list(c.sql(q.format("lazy")).compute()["k"]) == list(
+            c.sql(q.format("mem")).compute()["k"]), op
+
+
+def test_order_by_strings_of_an_arrow_load():
+    """An Arrow load keeps a string column's values in the order they first
+    appear; ORDER BY, a window's order and Q1's group order still follow
+    the strings (the port sorted by those codes before)."""
+    li = gen_lineitem(3000, seed=2).sort_values(
+        "l_linestatus", ascending=False, kind="stable").reset_index(drop=True)
+    c = Context(device="cpu")
+    c.create_table("lineitem", pa.Table.from_pandas(li, preserve_index=False))
+    dictionary = c.schema["root"].tables["lineitem"].table.columns[
+        "l_linestatus"].dictionary
+    assert list(dictionary) == ["O", "F"]
+    got = c.sql(QUERY).compute()
+    assert list(got["l_linestatus"]) == ["F", "O"] * 3
+    first = c.sql("SELECT l_linestatus, RANK() OVER (ORDER BY l_linestatus) "
+                  "AS r FROM lineitem ORDER BY l_linestatus LIMIT 1").compute()
+    assert first.values.tolist() == [["F", 1]]
+
+
+def _conjuncts(ex, case):
+    """The same conjunct built from either package's expressions."""
+    from dask_sql_tpu.columnar.dtypes import SqlType as RT
+    from dask_sql_tpu_torch.columnar.dtypes import SqlType as PT
+
+    T = RT if ex is ref_ex else PT
+
+    def col(i, t):
+        return ex.ColumnRef(i, ["a", "b", "d", "s"][i], getattr(T, t))
+
+    def lit(v, t):
+        return ex.Literal(v, getattr(T, t))
+
+    day = int(np.datetime64("1995-03-15", "ns").astype(np.int64))
+    return {
+        "eq_int": ex.ScalarFunc("eq", (col(0, "BIGINT"), lit(5, "BIGINT")),
+                                T.BOOLEAN),
+        "literal_first": ex.ScalarFunc("lt", (lit(2.5, "DOUBLE"),
+                                              col(1, "DOUBLE")), T.BOOLEAN),
+        "date_cast": ex.ScalarFunc("le", (ex.Cast(col(2, "TIMESTAMP"),
+                                                  T.DATE), lit(day, "DATE")),
+                                   T.BOOLEAN),
+        "in_strings": ex.InListExpr(col(3, "VARCHAR"),
+                                    (lit("x", "VARCHAR"), lit("y", "VARCHAR")),
+                                    False),
+        "not_in": ex.InListExpr(col(0, "BIGINT"), (lit(1, "BIGINT"),), True),
+        "in_array": ex.InArrayExpr(col(0, "BIGINT"),
+                                   np.array([3, 7], dtype=np.int64)),
+        "in_array_dates": ex.InArrayExpr(col(2, "TIMESTAMP"),
+                                         np.array([day], dtype=np.int64)),
+        "two_columns": ex.ScalarFunc("gt", (col(0, "BIGINT"),
+                                            col(1, "DOUBLE")), T.BOOLEAN),
+        "is_null": ex.ScalarFunc("is_null", (col(0, "BIGINT"),), T.BOOLEAN),
+        "null_literal": ex.ScalarFunc("eq", (col(0, "BIGINT"),
+                                             lit(None, "BIGINT")), T.BOOLEAN),
+    }[case]
+
+
+@pytest.mark.parametrize("case", [
+    "eq_int", "literal_first", "date_cast", "in_strings", "not_in", "in_array",
+    "in_array_dates", "two_columns", "is_null", "null_literal"])
+def test_filters_to_pyarrow_matches_the_reference(case):
+    names = ["a", "b", "d", "s"]
+    want = ref_filter.filters_to_pyarrow([_conjuncts(ref_ex, case)], names)
+    got = port_filter.filters_to_pyarrow([_conjuncts(port_ex, case)], names)
+    assert repr(got) == repr(want)
+
+
+# -- CREATE TABLE WITH (location = ...): the reference's test_ddl.py ----------
+@pytest.mark.parametrize("fmt", ["csv", "parquet", "json", "memory"])
+def test_create_table_with_location(tmp_path, fmt):
+    df_simple = pd.DataFrame({"a": [1, 2, 3], "b": [1.1, 2.2, 3.3]})
+    c = Context(device="cpu")
+    location = str(tmp_path / f"data.{fmt}")
+    if fmt == "csv":
+        df_simple.to_csv(location, index=False)
+    elif fmt == "parquet":
+        df_simple.to_parquet(location)
+    elif fmt == "json":
+        df_simple.to_json(location, orient="records", lines=True)
+    else:
+        location = "shared_ds"
+        publish_dataset(location, DataContainer(Table.from_pandas(df_simple)))
+    try:
+        c.sql(f"CREATE TABLE t WITH (location = '{location}', "
+              f"format = '{fmt}')")
+        result = c.sql("SELECT * FROM t").compute()
+    finally:
+        unpublish_dataset("shared_ds")
+    assert_eq(result, df_simple, check_dtype=False)
+    lazy = isinstance(c.schema["root"].tables["t"], LazyParquetContainer)
+    assert lazy == (fmt == "parquet")
+    with pytest.raises(RuntimeError, match="already present"):
+        c.sql(f"CREATE TABLE t WITH (location = '{location}')")
+
+
+def test_append_to_a_lazy_table_replaces_it(files):
+    path, df = files["small"]
+    c = Context(device="cpu")
+    c.create_table("t", path)
+    uid = c.schema["root"].tables["t"].uid
+    c.sql("INSERT INTO t VALUES (1000, 100.0, 'even')")
+    dc = c.schema["root"].tables["t"]
+    assert type(dc) is DataContainer and dc.uid != uid
+    assert "t" not in c.schema["root"].filepaths
+    got = c.sql("SELECT COUNT(*) AS n, SUM(a) AS s FROM t").compute()
+    assert got["n"][0] == 1001 and got["s"][0] == df.a.sum() + 1000
+
+
+def test_distributed_tables_wait_for_the_multi_device_port(files):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        Context(device="cpu").create_table("t", files["small"][0],
+                                           distributed=True)
+
+
+# -- Hive, Intake and SQLAlchemy: the reference's test_hive_input.py ----------
+class FakeHiveCursor:
+    """A scripted pyhive-like cursor: execute() and fetchall()."""
+
+    def __init__(self, responses):
+        self.responses = responses
+        self._rows = []
+        self.executed = []
+
+    def execute(self, sql):
+        self.executed.append(sql)
+        for prefix, rows in self.responses.items():
+            if sql.startswith(prefix):
+                self._rows = rows
+                return
+        raise RuntimeError(f"unexpected hive query: {sql}")
+
+    def fetchall(self):
+        return self._rows
+
+
+def test_hive_unpartitioned(tmp_path):
+    df = pd.DataFrame({"i": np.arange(10, dtype=np.int64),
+                       "v": np.arange(10, dtype=np.float64) * 1.5})
+    loc = tmp_path / "warehouse" / "tbl"
+    loc.mkdir(parents=True)
+    df.to_parquet(loc / "part-000.parquet")
+    cursor = FakeHiveCursor({
+        "DESCRIBE FORMATTED": [
+            ("# col_name", "data_type", "comment"), ("i", "bigint", ""),
+            ("v", "double", ""), ("Location:", f"file:{loc}", ""),
+            ("InputFormat:", "org.apache.hadoop.hive.ql.io.parquet"
+             ".MapredParquetInputFormat", "")],
+        "SHOW PARTITIONS": [],
+    })
+    c = Context(device="cpu")
+    c.create_table("t", cursor)
+    result = c.sql("SELECT i, v FROM t", return_futures=False)
+    assert_eq(result, df, check_dtype=False, sort_results=True)
+    assert any(s.startswith("DESCRIBE FORMATTED") for s in cursor.executed)
+
+
+def test_hive_partitioned(tmp_path):
+    loc = tmp_path / "warehouse" / "ptbl"
+    frames = []
+    for part in ("p=a", "p=b"):
+        (loc / part).mkdir(parents=True)
+        df = pd.DataFrame({"x": np.arange(3, dtype=np.int64)})
+        df.to_parquet(loc / part / "part-000.parquet")
+        frames.append(df.assign(p=part.split("=")[1]))
+    cursor = FakeHiveCursor({
+        "DESCRIBE FORMATTED": [("x", "bigint", ""),
+                               ("Location:", f"file:{loc}", ""),
+                               ("InputFormat:", "parquet", "")],
+        "SHOW PARTITIONS": [("p=a",), ("p=b",)],
+    })
+    c = Context(device="cpu")
+    c.create_table("pt", cursor)
+    result = c.sql("SELECT x, p FROM pt", return_futures=False)
+    assert_eq(result, pd.concat(frames, ignore_index=True), check_dtype=False,
+              sort_results=True)
+
+
+def test_hive_unsupported_format(tmp_path):
+    cursor = FakeHiveCursor({
+        "DESCRIBE FORMATTED": [
+            ("Location:", f"file:{tmp_path}", ""),
+            ("InputFormat:", "org.apache.hadoop.hive.ql.io.orc"
+             ".OrcInputFormat", "")],
+        "SHOW PARTITIONS": [],
+    })
+    with pytest.raises(NotImplementedError):
+        Context(device="cpu").create_table("t", cursor)
+
+
+class FakeSource:
+    def __init__(self, df):
+        self.df = df
+
+    def read(self):
+        return self.df
+
+
+class FakeCatalog:
+    """Stands for an Intake catalog: an entry a table."""
+
+
+FakeCatalog.__module__ = "intake.catalog.local"
+
+
+class FakeConnection(sqlite3.Connection):
+    """Stands for a SQLAlchemy connection (pandas reads it as sqlite3)."""
+
+
+FakeConnection.__module__ = "sqlalchemy.engine.base"
+
+
+def test_intake_catalog():
+    df = pd.DataFrame({"a": [1, 2, 3], "s": ["x", "y", "z"]})
+    catalog = FakeCatalog()
+    catalog.entry = FakeSource(df)
+    c = Context(device="cpu")
+    c.create_table("entry", catalog)
+    c.create_table("other", catalog, intake_table_name="entry")
+    for name in ("entry", "other"):
+        assert_eq(c.sql(f"SELECT * FROM {name}").compute(), df)
+
+
+def test_sqlalchemy_connection():
+    con = sqlite3.connect(":memory:", factory=FakeConnection)
+    try:
+        con.execute("CREATE TABLE t (a INTEGER, b REAL)")
+        con.executemany("INSERT INTO t VALUES (?, ?)", [(1, 0.5), (2, 1.5)])
+        c = Context(device="cpu")
+        c.create_table("t", con)
+        c.create_table("big", con, query="SELECT a FROM t WHERE b > 1")
+        got = c.sql("SELECT SUM(b) AS s FROM t").compute()
+        big = c.sql("SELECT * FROM big").compute()
+    finally:
+        con.close()
+    assert got["s"][0] == 2.0 and list(big["a"]) == [2]
+
+
+def test_plugin_order_and_a_probe_that_raises(monkeypatch):
+    """A plugin added first is asked first; one whose probe raises does not
+    take the input, and the next plugin does."""
+    monkeypatch.setattr(InputUtil, "_plugins", list(InputUtil._plugins))
+
+    class Raising:
+        def is_correct_input(self, *a, **k):
+            raise RuntimeError("probe failed")
+
+    class Doubled:
+        def is_correct_input(self, item, *a, **k):
+            return isinstance(item, list)
+
+        def to_dc(self, item, table_name, device, **kwargs):
+            return DataContainer(Table.from_pandas(
+                pd.DataFrame({"x": item * 2}), device))
+
+    InputUtil.add_plugin_class(Doubled)
+    InputUtil.add_plugin_class(Raising)
+    c = Context(device="cpu")
+    c.create_table("t", [1, 2])
+    c.create_table("u", pd.DataFrame({"x": [1]}))
+    assert list(c.sql("SELECT x FROM t").compute()["x"]) == [1, 2, 1, 2]
+    assert c.schema["root"].filepaths == {}
+    with pytest.raises(ValueError, match="Do not understand"):
+        c.create_table("v", object())
+
+
+def test_json_records(tmp_path):
+    rows = [{"k": i, "name": f"n{i % 3}"} for i in range(9)]
+    (tmp_path / "r.json").write_text("\n".join(json.dumps(r) for r in rows))
+    c = Context(device="cpu")
+    c.create_table("r", str(tmp_path / "r.json"))
+    got = c.sql("SELECT name, COUNT(*) AS n FROM r GROUP BY name "
+                "ORDER BY name").compute()
+    assert list(got["n"]) == [3, 3, 3]

@@ -2,8 +2,9 @@
 the card (`chip_smoke.py`, `profile_q1.py`) import JAX or the JAX package,
 even as it plans through its own build of the native planner and runs the
 outer, semi and anti joins, subqueries, SUBSTRING, the set operations,
-window functions, the statements (DDL, INSERT INTO) and a registered
-function; and the port's entry points refuse to run on the CPU unless asked
+window functions, the statements (DDL, INSERT INTO), a registered
+function, and a lazy parquet table streamed through the out-of-core
+aggregate; and the port's entry points refuse to run on the CPU unless asked
 to."""
 import os
 import subprocess
@@ -92,6 +93,23 @@ assert got["n"][0] == 26 and got["k"][0] == 601.0, got
 assert got["m"][0] == "*" * 16 + "UNITED KINGDOM", got
 c.sql("DROP TABLE n2")
 assert "n2" not in c.schema["root"].tables
+# a lazy parquet table (footers at registration, pyarrow at the scan) and
+# the streamed aggregate over it, in batches of fewer rows than it holds
+import tempfile
+with tempfile.TemporaryDirectory() as d:
+    li = chip_smoke.gen_lineitem(3_000)
+    li.to_parquet(f"{d}/li.parquet", row_group_size=1_000)
+    c.create_table("li_pq", f"{d}/li.parquet")
+    lazy = c.schema["root"].tables["li_pq"]
+    from dask_sql_tpu_torch.physical import streaming
+    batches, scan = [], streaming._iter_batches
+    streaming._iter_batches = lambda *a: (
+        b for b in scan(*a) if not batches.append(b.num_rows))
+    got = c.sql(chip_smoke.QUERY.replace("FROM lineitem", "FROM li_pq"),
+                config_options={"sql.streaming.batch_rows": 1_000}).compute()
+    assert got["count_order"].sum() == (
+        li.l_shipdate <= np.datetime64("1998-09-02")).sum(), got
+    assert len(batches) == 3 and lazy._table is None, batches
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dask_sql_tpu"))
 assert not bad, bad
