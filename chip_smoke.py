@@ -56,7 +56,29 @@ card bytes, Q1 on the fused aggregate with one launch and one transfer);
 ``bench.py``'s root select over the lazy table (pyarrow's filter, the
 rows read); and Q3 with ``lineitem`` as 4 parquet files streamed through
 its joins, ``customer`` from a CSV file by CREATE TABLE WITH (location =
-...), against its float64 oracle.  For each loaded frame
+...), against its float64 oracle.  The ``resilience`` phase runs Q1's
+6,000,000 encoded rows down the degradation ladder: under
+``compile:always`` every compiled rung steps down once and the eager
+aggregate answers on the card (its kernel calls held against the plain
+version; its warm ms beside the fused Q1's); the circuit breaker trips on
+the third failure, skips the family's rungs (another date literal too)
+and closes on a clean half-open trial after its cooldown; ``oom:once``
+steps the fused aggregate down; a memory fraction of what is reserved
+plus 8 MiB makes the card raise a real ``torch.cuda.OutOfMemoryError``
+in the fused program and in the eager walk, and the query leaves as a
+degradable ``ResourceExhaustedError`` (the CPU rung serves CPU Contexts
+only; then Q1 is back on the fused aggregate); ``exec_oom:once`` with
+``sql.compile`` off leaves the same way; a GROUP BY of two
+2,500-value string keys over 1,000,000 rows skips the compiled rungs by
+the plan verifier's proof and answers on the sorted scatter against a
+pandas oracle (timed beside ``analysis.verify = off``); and EXPLAIN LINT
+and EXPLAIN ESTIMATE of Q1, the root select and Q3 with their ms, each
+query's resident input plus result bytes inside the estimate's
+``peak_bytes``, the resident bytes plus the card's peak rise at least its
+lower bound and printed beside its ``hi``, and Q1's cold
+planning with the verifier and the estimator on and off.  Every other
+phase fails if a rung steps down, answers on the CPU or moves a breaker.
+For each loaded frame
 it prints the encoded columns and the card memory they take, encoded and,
 for Q1's table, loaded PLAIN, and checks every encoded column's decoded
 buffer against the host's PLAIN values exactly.  It times each query
@@ -81,6 +103,7 @@ exit code and no result line.  Without a CUDA card, or without the
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -436,9 +459,11 @@ def rung_counts(c):
 
 
 def check_not_degraded(c, label) -> None:
-    """No rung stepped down: a degradation would hide the card's path."""
+    """No rung stepped down, none answered on the CPU and no breaker
+    moved: each would hide the card's path."""
     bad = {k: v for k, v in c.metrics.items()
-           if k.startswith("resilience.degraded") and v}
+           if k.startswith(("resilience.degraded", "resilience.rung.cpu",
+                            "resilience.breaker.")) and v}
     if bad:
         fail(f"{label}: a rung stepped down {bad}")
 
@@ -1162,6 +1187,374 @@ def surface_q1(c, df, card, segsum, transfers):
           encodings_after={n: col.encoding.value for n, col in
                            dc.table.columns.items()},
           kernel_max_abs_err=err)
+    return {"launches": launches, "max_abs_err": err}
+
+
+#: the `resilience` phase: the breaker's cooldown (seconds), the card
+#: memory above what is reserved that a forced OOM leaves, and the rows
+#: and keys of the verifier's radix-overflow table (two string keys of
+#: 2,500 values: 2,501 x 2,501 radix slots > 1 << 22)
+BREAKER_COOLDOWN_S = 2.0
+OOM_HEADROOM_BYTES = 8 << 20
+WIDE_ROWS = 1_000_000
+WIDE_KEYS = 2_500
+WIDE_QUERY = "SELECT k1, k2, SUM(v) AS s FROM big GROUP BY k1, k2"
+
+
+def fill_free_blocks(smallest: int = OOM_HEADROOM_BYTES):
+    """Tensors that take the free blocks of at least `smallest` bytes the
+    caching allocator can still serve under the memory fraction: then no
+    buffer larger than the headroom fits."""
+    filler, size = [], 1 << 30
+    while size >= smallest:
+        try:
+            filler.append(torch.empty(size, dtype=torch.uint8, device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            size //= 2
+    return filler
+
+
+def ladder_moves(c, before) -> dict:
+    """The ladder's counters `c` moved since `before`."""
+    return {k: v for k, v in moved(before, dict(c.metrics)).items()
+            if k.startswith(("resilience.", "analysis.rung_skip",
+                             "analysis.findings."))}
+
+
+def expect_moves(c, before, want, label) -> dict:
+    got = ladder_moves(c, before)
+    if got != want:
+        fail(f"resilience {label}: the ladder moved {got}, expected {want}")
+    return got
+
+
+def resident_bytes(c) -> int:
+    """Bytes of every registered table as the estimator counts them
+    (encoded, with the host dictionaries)."""
+    from dask_sql_tpu_torch.columnar.encodings import encoded_nbytes
+
+    return sum(encoded_nbytes(col) for dc in c.schema["root"].tables.values()
+               for col in dc.table.columns.values())
+
+
+def explain_and_bounds(c, sql, label, card) -> dict:
+    """EXPLAIN LINT and EXPLAIN ESTIMATE of `sql` on the card with their
+    ms, then the query run: its resident input bytes plus result bytes
+    must lie in the estimate's ``peak_bytes`` [lo, hi], and the resident
+    bytes plus the card's measured peak rise during the run must reach the
+    provable lower bound lo.  ``hi`` is the reference's model of the
+    retained node outputs, not a bound on the port's fused temporaries:
+    the measured peak is printed beside it."""
+    from dask_sql_tpu_torch.columnar.encodings import encoded_nbytes
+
+    out = {}
+    for kind in ("LINT", "ESTIMATE"):
+        t0 = time.perf_counter()
+        rows = list(c.sql(f"EXPLAIN {kind} {sql}").compute()[kind])
+        out[kind.lower() + "_ms"] = (time.perf_counter() - t0) * 1e3
+        out[kind.lower()] = rows
+    est = c.sql(sql)._plan._dsql_estimate
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    frame = c.sql(sql)
+    result = frame.execute()
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - before
+    measured = resident_bytes(c) + sum(
+        encoded_nbytes(col) for col in result.columns.values())
+    lo, hi = est.peak_bytes.lo, est.peak_bytes.hi
+    if hi is None or not lo <= measured <= hi:
+        fail(f"resilience explain {label}: resident + result {measured} "
+             f"bytes outside the estimate [{lo}, {hi}]")
+    peak = resident_bytes(c) + rise
+    if peak < lo:
+        fail(f"resilience explain {label}: resident + the card's peak rise "
+             f"{peak} bytes under the estimate's lower bound {lo}")
+    phase("resilience", part="explain", card=card, query=label,
+          lint_ms=out["lint_ms"], estimate_ms=out["estimate_ms"],
+          lint=out["lint"], estimate=out["estimate"][:2],
+          peak_bytes=[lo, hi], resident_plus_result=measured,
+          card_peak_rise=rise, card_allocated_before=before,
+          resident_plus_peak_rise=peak, over_hi=peak > hi)
+    return out
+
+
+def resilience(df, want, card, segsum, transfers):
+    """The `resilience` phase on Q1's 6,000,000 encoded rows: injected
+    compile failures (the eager aggregate answers on the card, its kernel
+    calls held against the plain version), the breaker tripping, skipping
+    the family and closing after its cooldown, ``oom:once``, a real
+    ``torch.cuda.OutOfMemoryError`` under a memory fraction and
+    ``exec_oom:once`` (each leaves as a degradable ResourceExhaustedError:
+    the CPU rung serves CPU Contexts only), a verifier skip on a
+    1,000,000-row radix-overflow table, and EXPLAIN LINT / ESTIMATE with the estimate's
+    bounds.  Returns the kernel's launches on each path and the largest
+    error of its checked calls."""
+    import pandas as pd
+
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.resilience import faults
+    from dask_sql_tpu_torch.resilience.retry import CircuitBreaker
+
+    gc.collect()
+    allocated_at_start = torch.cuda.memory_allocated()
+    c, table_card_bytes, _ = load_tables({"lineitem": df})
+    launches = {}
+    # the compiled Q1, for the times beside the interpreted one
+    check_q1(c.sql(QUERY).compute(), want, "resilience Q1")
+    compiled_runs = warm_runs(c, QUERY, transfers,
+                              lambda g: check_q1(g, want, "Q1"))
+
+    # (a) every compiled rung fails to "compile": the eager aggregate
+    # answers, one step down a rung
+    faults.reset()
+    always = {"resilience.inject": "compile:always"}
+    before = dict(c.metrics)
+    reset_launches(segsum)
+    calls = capture_calls(segsum, lambda: check_q1(
+        c.sql(QUERY, config_options=always).compute(), want,
+        "Q1 under compile:always"))
+    launches["resilience_compile_always"] = segsum.LAUNCHES["segsum"]
+    expect_moves(c, before, {
+        "resilience.degraded": 3, "resilience.degraded.compiled_select": 1,
+        "resilience.degraded.compiled_join_aggregate": 1,
+        "resilience.degraded.compiled_aggregate": 1}, "compile:always")
+    if not calls or launches["resilience_compile_always"] < 1:
+        fail("the eager Q1 did not reach the kernel")
+    err = check_calls(segsum, calls, "resilience_compile_always")
+    del calls
+    # timed with the breaker off, so that every run steps down alike
+    interp_runs = []
+    for _ in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        check_q1(c.sql(QUERY, config_options={
+            **always, "resilience.breaker.enabled": False}).compute(),
+            want, "Q1 under compile:always")
+        interp_runs.append((time.perf_counter() - t0) * 1e3)
+    phase("resilience", part="compile_always", card=card, rows=len(df),
+          table_card_bytes=table_card_bytes,
+          card_allocated_at_start=allocated_at_start,
+          card_allocated=torch.cuda.memory_allocated(),
+          launches=launches["resilience_compile_always"],
+          interpreted_ms=float(np.median(interp_runs)),
+          interpreted_runs_ms=interp_runs,
+          compiled_ms=float(np.median(compiled_runs)),
+          compiled_runs_ms=compiled_runs, kernel_max_abs_err=err)
+
+    # (b) the breaker: three failures trip each compiled rung of the
+    # family, the fourth run and another date literal skip them, and after
+    # the cooldown a clean half-open trial closes it
+    c.config.update({"resilience.breaker.threshold": 3,
+                     "resilience.breaker.cooldown_s": BREAKER_COOLDOWN_S})
+    c.breaker = CircuitBreaker.from_config(c.config)
+    faults.reset()
+    before = dict(c.metrics)
+    reset_launches(segsum)
+    for i in range(3):
+        check_q1(c.sql(QUERY, config_options=always).compute(), want,
+                 f"breaker run {i + 1}")
+        trips = c.metrics["resilience.breaker.trip"] - before.get(
+            "resilience.breaker.trip", 0)
+        if trips != (3 if i == 2 else 0):
+            fail(f"breaker run {i + 1}: {trips} trips")
+    step = dict(c.metrics)
+    check_q1(c.sql(QUERY, config_options=always).compute(), want,
+             "breaker run 4")
+    date = FAMILY_DATES[0]
+    check_q1(c.sql(QUERY.replace("DATE '1998-09-02'", f"DATE '{date}'"),
+                   config_options=always).compute(),
+             q1_oracle(df, date), f"breaker run 5 ({date})")
+    expect_moves(c, step, {
+        "resilience.breaker.skip": 6,
+        "resilience.breaker.skip.compiled_select": 2,
+        "resilience.breaker.skip.compiled_join_aggregate": 2,
+        "resilience.breaker.skip.compiled_aggregate": 2}, "breaker open")
+    time.sleep(BREAKER_COOLDOWN_S + 0.1)
+    step = dict(c.metrics)
+    check_q1(c.sql(QUERY).compute(), want, "breaker half-open trial")
+    # the half-open trials: the select and join rungs decline Q1 and settle
+    # nothing, the fused aggregate answers and closes its breaker
+    expect_moves(c, step, {"resilience.rung.compiled_aggregate": 1},
+                 "half-open trial")
+    fp = next(k[0] for k in c.breaker._state)
+    if c.breaker.is_open((fp, "compiled_aggregate")):
+        fail("the half-open trial did not close the breaker")
+    step = dict(c.metrics)
+    check_q1(c.sql(QUERY).compute(), want, "after the breaker closed")
+    expect_moves(c, step, {"resilience.rung.compiled_aggregate": 1,
+                           "resilience.breaker.skip": 2,
+                           "resilience.breaker.skip.compiled_select": 1,
+                           "resilience.breaker.skip.compiled_join_aggregate":
+                               1}, "closed")
+    launches["resilience_breaker"] = segsum.LAUNCHES["segsum"]
+    phase("resilience", part="breaker", card=card,
+          card_allocated=torch.cuda.memory_allocated(),
+          moved=ladder_moves(c, before), cooldown_s=BREAKER_COOLDOWN_S,
+          launches=launches["resilience_breaker"])
+
+    # (c) oom:once inside the fused aggregate
+    c.breaker = CircuitBreaker.from_config(c.config)
+    faults.reset()
+    before = dict(c.metrics)
+    reset_launches(segsum)
+    check_q1(c.sql(QUERY, config_options={"resilience.inject": "oom:once"}
+                   ).compute(), want, "Q1 under oom:once")
+    launches["resilience_oom_once"] = segsum.LAUNCHES["segsum"]
+    expect_moves(c, before, {"resilience.degraded": 1,
+                             "resilience.degraded.compiled_aggregate": 1},
+                 "oom:once")
+    phase("resilience", part="oom_once", card=card,
+          card_allocated=torch.cuda.memory_allocated(),
+          launches=launches["resilience_oom_once"])
+
+    # (d) a real OOM: the card limited to what is reserved and a few MB,
+    # and the free blocks the caching allocator keeps inside what is
+    # reserved taken by a filler, so that the fused program's first large
+    # buffer cannot be served.  The fused aggregate steps down, the eager
+    # walk fails the same way, and with no rung below it on the card the
+    # query leaves as a degradable ResourceExhaustedError
+    from dask_sql_tpu_torch.resilience.errors import ResourceExhaustedError
+
+    c.breaker = CircuitBreaker.from_config(c.config)
+    before = dict(c.metrics)
+    reset_launches(segsum)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    fraction = (reserved + OOM_HEADROOM_BYTES) / total
+    torch.cuda.set_per_process_memory_fraction(fraction)
+    raised = None
+    t0 = time.perf_counter()
+    try:
+        filler = fill_free_blocks()
+        t0 = time.perf_counter()
+        c.sql(QUERY).compute()
+    except ResourceExhaustedError as exc:
+        raised = (type(exc).__name__, exc.degradable,
+                  type(exc.__cause__).__name__,
+                  isinstance(exc.__cause__, torch.cuda.OutOfMemoryError))
+        del exc
+    finally:
+        fail_ms = (time.perf_counter() - t0) * 1e3
+        filler = None
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    gc.collect()
+    launches["resilience_real_oom"] = segsum.LAUNCHES["segsum"]
+    oom_moves = expect_moves(c, before, {
+        "resilience.degraded": 1,
+        "resilience.degraded.compiled_aggregate": 1}, "a real OOM")
+    if raised is None or not (raised[1] and raised[3]):
+        fail(f"the memory fraction gave {raised}, not a degradable "
+             f"ResourceExhaustedError from torch.cuda.OutOfMemoryError")
+    step = dict(c.metrics)
+    check_q1(c.sql(QUERY).compute(), want, "Q1 after the OOM")
+    expect_moves(c, step, {"resilience.rung.compiled_aggregate": 1},
+                 "after the OOM")
+    phase("resilience", part="real_oom", card=card, reserved_bytes=reserved,
+          card_allocated=torch.cuda.memory_allocated(),
+          fraction=fraction, moved=oom_moves, raised=raised,
+          failed_after_ms=fail_ms, launches=launches["resilience_real_oom"])
+
+    # (e) exec_oom:once with the compiled rungs off: the eager walk fails
+    # and, on the card, the failure leaves the query as it is
+    faults.reset()
+    before = dict(c.metrics)
+    reset_launches(segsum)
+    raised = None
+    try:
+        c.sql(QUERY, config_options={"resilience.inject": "exec_oom:once",
+                                     "sql.compile": False}).compute()
+    except ResourceExhaustedError as exc:
+        raised = (type(exc).__name__, exc.degradable)
+    launches["resilience_exec_oom"] = segsum.LAUNCHES["segsum"]
+    expect_moves(c, before, {}, "exec_oom:once")
+    if raised is None or not raised[1]:
+        fail(f"exec_oom:once on the card gave {raised}, not a degradable "
+             f"ResourceExhaustedError")
+    phase("resilience", part="exec_oom", card=card, raised=raised,
+          card_allocated=torch.cuda.memory_allocated(),
+          launches=launches["resilience_exec_oom"])
+
+    # (g) EXPLAIN LINT / ESTIMATE of Q1 and the root select, their bounds,
+    # and Q1's cold planning with the verifier and the estimator on and off
+    explain_and_bounds(c, QUERY, "q1", card)
+    explain_and_bounds(c, SELECT_QUERY, "select", card)
+    cold = {}
+    for label, options in (("on", None), ("off", {"analysis.verify": "off",
+                                                  "analysis.estimate": "off"})):
+        runs_ = []
+        for _ in range(WARM_RUNS):
+            c._plan_cache.clear()
+            c._family_estimates.clear()
+            t0 = time.perf_counter()
+            c.sql(QUERY, config_options=options)
+            runs_.append((time.perf_counter() - t0) * 1e3)
+        cold[label] = runs_
+    phase("resilience", part="plan_stages", card=card, query="q1",
+          cold_ms_on=float(np.median(cold["on"])),
+          cold_ms_off=float(np.median(cold["off"])),
+          cold_runs_ms_on=cold["on"], cold_runs_ms_off=cold["off"])
+    del c
+
+    # (f) the verifier's radix-overflow skip: the compiled rungs are not
+    # attempted, the sorted scatter answers; under analysis.verify = off
+    # the fused aggregate is attempted and declines at run time
+    i = np.arange(WIDE_ROWS)
+    wide = pd.DataFrame({
+        "k1": np.char.add("a", (i % WIDE_KEYS).astype(str)).astype(object),
+        "k2": np.char.add("b", (i % WIDE_KEYS).astype(str)).astype(object),
+        "v": np.random.default_rng(5).random(WIDE_ROWS)})
+    wide_want = wide.groupby(["k1", "k2"], as_index=False)["v"].sum() \
+        .rename(columns={"v": "s"}).sort_values(["k1", "k2"]) \
+        .reset_index(drop=True)
+    cw = Context(device="cuda")
+    cw.create_table("big", wide)
+    del wide
+
+    def check_wide(got):
+        got = got.sort_values(["k1", "k2"]).reset_index(drop=True)
+        if got[["k1", "k2"]].values.tolist() != \
+                wide_want[["k1", "k2"]].values.tolist():
+            fail("the radix-overflow groups differ from the oracle")
+        rel = max_rel(got["s"], wide_want["s"])
+        if not rel <= TPCH_REL:
+            fail(f"the radix-overflow sums: relative error {rel}")
+        return rel
+
+    wide_runs = {}
+    for label, options in (("on", None), ("off", {"analysis.verify": "off"})):
+        before = dict(cw.metrics)
+        reset_launches(segsum)
+        rel = check_wide(cw.sql(WIDE_QUERY, config_options=options).compute())
+        if label == "on":
+            launches["resilience_verifier_skip"] = segsum.LAUNCHES["segsum"]
+            expect_moves(cw, before, {
+                "analysis.rung_skip": 2,
+                "analysis.rung_skip.compiled_aggregate": 1,
+                "analysis.rung_skip.compiled_join_aggregate": 1,
+                "analysis.findings.radix-overflow": 1}, "verifier skip")
+        elif cw.metrics["compiled_aggregate.declined"] != \
+                before.get("compiled_aggregate.declined", 0) + 1:
+            fail("with analysis.verify off the fused aggregate did not "
+                 "decline the radix overflow")
+        runs_ = []
+        for _ in range(WARM_RUNS):
+            t0 = time.perf_counter()
+            rel = max(rel, check_wide(cw.sql(
+                WIDE_QUERY, config_options=options).compute()))
+            runs_.append((time.perf_counter() - t0) * 1e3)
+        wide_runs[label] = (float(np.median(runs_)), runs_, rel)
+    check_not_degraded(cw, "verifier skip")
+    phase("resilience", part="verifier_skip", card=card, rows=WIDE_ROWS,
+          groups=len(wide_want), launches=launches["resilience_verifier_skip"],
+          ms=wide_runs["on"][0], runs_ms=wide_runs["on"][1],
+          verify_off_ms=wide_runs["off"][0],
+          verify_off_runs_ms=wide_runs["off"][1],
+          max_rel_err=max(wide_runs["on"][2], wide_runs["off"][2]))
+    del cw
     return {"launches": launches, "max_abs_err": err}
 
 
@@ -1964,6 +2357,9 @@ def main() -> int:
     # 8c. the `files` phase on the same rows written as parquet files:
     # lazy, streamed, persisted, and the root select over them
     files_q1_out = files_q1(df, want, q1_hbm, card, segsum, TRANSFER_STATS)
+    # 8d. the `resilience` phase on the same rows: the ladder's rungs under
+    # injected and real failures, the breaker, a verifier skip, EXPLAIN
+    resilience_out = resilience(df, want, card, segsum, TRANSFER_STATS)
     del df
 
     # 9. TPC-H Q3 through the compiled join->aggregate pipeline, over the
@@ -2023,6 +2419,9 @@ def main() -> int:
           codespace_pred=c3.metrics["columnar.encoding.codespace_pred"],
           late_rows_per_query=q3_late,
           scan_decodes=c3.metrics["columnar.encoding.decode"])
+    check_not_degraded(c3, "q3")
+    # the `resilience` phase's EXPLAIN LINT / ESTIMATE and bounds for Q3
+    explain_and_bounds(c3, QUERIES[3], "q3", card)
     check_not_degraded(c3, "q3")
     del c3, tables, got
 
@@ -2174,13 +2573,15 @@ def main() -> int:
                                  files_q1_out["files_q1_streamed"],
                              "files_q1_persisted":
                                  files_q1_out["files_q1_persisted"],
-                             "files_q3_streamed": files_q3_out["launches"]},
+                             "files_q3_streamed": files_q3_out["launches"],
+                             **resilience_out["launches"]},
         "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"],
                            tpcds_launches["max_abs_err"],
                            surface_q1_launches["max_abs_err"],
                            surface_launches["max_abs_err"],
                            files_q1_out["max_abs_err"],
-                           files_q3_out["max_abs_err"]),
+                           files_q3_out["max_abs_err"],
+                           resilience_out["max_abs_err"]),
         "ms": t_ms,
         "plain_ms": t_plain_ms,
         "bound_ms": t_bound_ms,

@@ -1,0 +1,674 @@
+"""Static cost and memory abstract interpreter over bound plans.
+
+Counterpart of `dask_sql_tpu/analysis/estimator.py`, a copy on the port's
+imports.  The shapes, dtypes and pad buckets of a query are known before
+it runs, so a **bottom-up walk** of the bound logical plan propagates, per
+node,
+
+- a **cardinality interval** ``[rows_lo, rows_hi]`` seeded from catalog
+  ``statistics.row_count`` (exact at registration, versioned into every
+  cache key), narrowed by LIMIT / Sample / aggregate-domain clamps and
+  widened by joins; filters and joins give a *zero* lower bound, since
+  selectivity is unknowable statically;
+- a **byte-footprint interval** for the node's output table, from the
+  device width of each declared column dtype (``columnar/dtypes.py``;
+  strings are int32 dictionary codes): the lower bound uses the exact row
+  count and data buffers only, the upper bound the padded power-of-two
+  bucket plus a one-byte validity mask per nullable column (a mask exists
+  only when nulls occur, so it is never provable).
+
+The whole-plan verdict (`PlanEstimate`) carries:
+
+- ``peak_bytes.lo``, a **provable lower bound** on peak device bytes: the
+  referenced base tables are resident and the root result must
+  materialize, whatever rung executes;
+- ``peak_bytes.hi``, the reference's model of the retained bytes: the
+  executor keeps every node's output until the query completes, so it
+  sums every node's padded output plus the reference's transient buffers
+  (sort scratch, the compiled aggregate's domain-sized packed matrix,
+  capped by the shared ``1 << 22`` radix gate).  ``None`` means unbounded.
+  It is not an upper bound on the port's card: the fused pipelines'
+  temporaries (`physical/compiled*.py`) are outside the model, and Q1's
+  measured peak on the card exceeds it (PERF.md, ROADMAP.md Queue 3).
+  Nothing in the port acts on it.
+
+Consumers in the port: ``EXPLAIN ESTIMATE <query>``, and the degradation
+ladder: an Aggregate whose compiled intermediate-buffer *lower* bound
+cannot fit ``analysis.estimate.device_budget_bytes`` has its compiled
+rungs pre-skipped (``_dsql_skip_rungs``, ``analysis.rung_skip.*``).  The
+admission byte gate and result-cache admission wait for the serving tier,
+and the profile store's feedback (`apply_feedback`; ROADMAP.md Queue 1
+item 8).  The port runs on one device, so the reference's sharded-scan
+bounds (mesh width, exchange buffers; item 10) are left out, and a PREDICT
+node's transients are unbounded above until the inference port (item 9).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+from ..columnar.dtypes import SqlType, sql_to_np
+from ..planner import plan as p
+from ..planner.expressions import (
+    ExistsExpr,
+    Expr,
+    Field,
+    InSubqueryExpr,
+    ScalarSubqueryExpr,
+    SortKey,
+    walk,
+)
+from ..ops.grouping import RADIX_DOMAIN_LIMIT
+from .verifier import _pow2_bucket, _Verifier
+
+#: compiled rungs a too-big aggregate intermediate buffer dooms (the same
+#: pair the radix-domain proof skips — both planners share the packed
+#: domain-sized output matrix)
+_AGG_RUNGS = frozenset({"compiled_aggregate", "compiled_join_aggregate"})
+
+#: bytes per packed-matrix row slot (outputs ride one f64 matrix,
+#: physical/compiled.py pack_flat)
+_PACKED_SLOT_BYTES = 8
+
+
+# ---------------------------------------------------------------------------
+# interval lattice
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class Interval:
+    """Closed integer interval ``[lo, hi]``; ``hi is None`` = unbounded.
+
+    The lattice is the usual interval domain: lo is always a provable
+    lower bound, hi a conservative upper bound or None when no finite
+    claim can be made.  All arithmetic saturates None."""
+
+    lo: int
+    hi: Optional[int]
+
+    @staticmethod
+    def exact(n: int) -> "Interval":
+        return Interval(int(n), int(n))
+
+    @staticmethod
+    def unknown() -> "Interval":
+        return Interval(0, None)
+
+    def __add__(self, other: "Interval") -> "Interval":
+        hi = None if self.hi is None or other.hi is None \
+            else self.hi + other.hi
+        return Interval(self.lo + other.lo, hi)
+
+    def __mul__(self, other: "Interval") -> "Interval":
+        hi = None if self.hi is None or other.hi is None \
+            else self.hi * other.hi
+        return Interval(self.lo * other.lo, hi)
+
+    def clamp_hi(self, cap: Optional[int]) -> "Interval":
+        """Tighten the upper bound to ``cap`` (lo is clamped along so the
+        interval stays well-formed, e.g. LIMIT under a known row count)."""
+        if cap is None:
+            return self
+        hi = cap if self.hi is None else min(self.hi, cap)
+        return Interval(min(self.lo, hi), hi)
+
+    def drop_lo(self) -> "Interval":
+        """Selectivity unknown: keep the upper bound, lower goes to 0."""
+        return Interval(0, self.hi)
+
+    def fmt(self) -> str:
+        hi = "unbounded" if self.hi is None else str(self.hi)
+        return f"[{self.lo}, {hi}]"
+
+
+ZERO = Interval(0, 0)
+
+
+def _dtype_width(t: SqlType) -> int:
+    """Device bytes per value for one SQL type (strings are int32 codes;
+    the host dictionary is not device memory and is not counted)."""
+    try:
+        return int(sql_to_np(t).itemsize)
+    except Exception:  # an exotic type: the widest claim
+        return 8
+
+
+def _row_bytes(fields: List[Field]) -> Tuple[int, int]:
+    """``(lo, hi)`` device bytes per row of a schema.  Data buffers always
+    count; the 1-byte validity mask of a nullable column counts only in
+    ``hi`` — columnar/column.py materializes a mask only when nulls
+    actually occur, so a nullable *declaration* proves nothing and the
+    lower bound (which admission sheds on) must not charge it."""
+    data = sum(_dtype_width(f.sql_type) for f in fields)
+    masks = sum(1 for f in fields if f.nullable)
+    return data, data + masks
+
+
+def _table_bytes(fields: List[Field], rows: Interval) -> Interval:
+    """Output-table bytes for ``rows`` of ``fields``: lo = exact rows x
+    mask-free width, hi = padded pow2 bucket (the shape the compiled paths
+    actually allocate) x mask-inclusive width."""
+    lo_row, hi_row = _row_bytes(fields)
+    hi = None if rows.hi is None else (_pow2_bucket(rows.hi) or 0) * hi_row
+    return Interval(rows.lo * lo_row, hi)
+
+
+# ---------------------------------------------------------------------------
+# results
+# ---------------------------------------------------------------------------
+@dataclass
+class NodeEstimate:
+    label: str
+    rows: Interval
+    out_bytes: Interval
+    #: transient device buffers beyond the output (sort scratch, packed
+    #: aggregate matrix); lo stays 0 — which buffers exist depends on which
+    #: rung runs, so nothing transient is provable
+    scratch_hi: Optional[int] = 0
+
+
+@dataclass
+class PlanEstimate:
+    """Whole-plan verdict of one estimation walk."""
+
+    rows: Interval              # root cardinality
+    result_bytes: Interval      # d2h bytes of the materialized root table
+    peak_bytes: Interval        # peak device bytes (see module docstring)
+    nodes: List[NodeEstimate]
+    #: [(Aggregate node, rungs, intermediate lower bound)] proofs attached
+    #: by apply() — compiled rungs whose buffers provably cannot fit
+    rung_proofs: List[Tuple[p.LogicalPlan, frozenset, int]]
+    #: provable floor of the RESIDENT base-table scans alone (the scan part
+    #: of ``peak_bytes.lo``): the streaming partitioner (streaming/plan.py)
+    #: divides this by the partition count to derive the per-chunk floor —
+    #: the non-scan remainder (materialized root, per-device exchange) does
+    #: not shrink with partitioning and must stay whole
+    scan_bytes_lo: int = 0
+
+    def format_rows(self) -> List[str]:
+        rows = [
+            "estimate: rows_lo={} rows_hi={} bytes_lo={} bytes_hi={}".format(
+                self.rows.lo,
+                "unbounded" if self.rows.hi is None else self.rows.hi,
+                self.peak_bytes.lo,
+                "unbounded" if self.peak_bytes.hi is None
+                else self.peak_bytes.hi),
+            f"result: bytes={self.result_bytes.fmt()} (d2h transfer)",
+        ]
+        for n in self.nodes:
+            if n.scratch_hi is None:
+                # the node whose transients made bytes_hi unbounded must be
+                # findable in the listing, not look scratch-free
+                scratch = " scratch_hi=unbounded"
+            elif n.scratch_hi:
+                scratch = f" scratch_hi={n.scratch_hi}"
+            else:
+                scratch = ""
+            rows.append(f"node {n.label}: rows={n.rows.fmt()} "
+                        f"bytes={n.out_bytes.fmt()}{scratch}")
+        for node, rungs, lo in self.rung_proofs:
+            rows.append(
+                f"proof {node._label()}: compiled intermediate >= {lo} "
+                f"bytes cannot fit the device budget; rungs pre-skipped "
+                f"({', '.join(sorted(rungs))})")
+        return rows
+
+
+# ---------------------------------------------------------------------------
+# the abstract interpreter
+# ---------------------------------------------------------------------------
+class _Estimator:
+    def __init__(self, context=None):
+        self.context = context
+        # the verifier owns the catalog lookups and the radix-domain proof;
+        # reuse them so the two walks can never disagree about metadata
+        self._v = _Verifier(context=context, collect_info=False)
+        self.nodes: List[NodeEstimate] = []
+        self.agg_intermediates: List[Tuple[p.Aggregate, int]] \
+            = []  # (node, packed-matrix lower bound)
+        self._memo: Dict[int, Tuple[Interval, Interval]] = {}
+        self._scan_lo: Dict[Tuple[str, str], int] = {}
+        #: id(TableScan) -> exact resident bytes when the scanned table is
+        #: registered with compressed encodings (columnar/encodings.py)
+        self._scan_actual: Dict[int, int] = {}
+
+    # ------------------------------------------------------------- walking
+    def estimate(self, node: p.LogicalPlan) -> Tuple[Interval, Interval]:
+        """(rows, out_bytes) of one node; memoized so shared CTE subtrees
+        are counted once (matching the executor's own memoization)."""
+        key = id(node)
+        if key in self._memo:
+            return self._memo[key]
+        rows, out_bytes, scratch_hi = self._node(node)
+        self._memo[key] = (rows, out_bytes)
+        self.nodes.append(NodeEstimate(_short_label(node), rows, out_bytes,
+                                       scratch_hi))
+        return rows, out_bytes
+
+    def _node(self, node: p.LogicalPlan
+              ) -> Tuple[Interval, Interval, Optional[int]]:
+        child = [self.estimate(c) for c in node.inputs()]
+        for sub in _nested_plans(node):
+            # subquery plans execute too: their outputs join the footprint
+            self.estimate(sub)
+        rows = self._rows(node, [r for r, _ in child])
+        actual = self._scan_actual.get(id(node))
+        if actual is not None:
+            # a registered table with compressed encodings: the scan's
+            # output IS the stored buffers, whose bytes are exact — both
+            # bounds tighten to the encoded widths, which is how encodings
+            # shrink peak_bytes.hi and admit bigger working sets
+            out_bytes = Interval(actual, actual)
+        else:
+            out_bytes = _table_bytes(list(node.schema), rows)
+        scratch_hi: Optional[int] = 0
+        if isinstance(node, p.Aggregate):
+            scratch_hi = self._aggregate_scratch(node, child)
+        elif isinstance(node, p.PredictModelNode):
+            scratch_hi = None  # the inference port (item 9) bounds it
+        elif isinstance(node, (p.Sort, p.Distinct, p.Window)):
+            # sort-based paths keep permutation indices + a key copy: bound
+            # by 2x the input's padded bytes
+            in_hi = child[0][1].hi if child else 0
+            scratch_hi = None if in_hi is None else 2 * in_hi
+        return rows, out_bytes, scratch_hi
+
+    # ---------------------------------------------------------- cardinality
+    def _rows(self, node: p.LogicalPlan,
+              child_rows: List[Interval]) -> Interval:
+        if isinstance(node, p.TableScan):
+            n = self._v._table_rows(node.schema_name, node.table_name)
+            if n is None:
+                return Interval.unknown()
+            # the base table is resident at its FULL row count whatever
+            # the scan's pushed filters keep — its projected columns are a
+            # provable part of peak device bytes.  When the stored table
+            # carries compressed encodings, its ACTUAL (encoded) bytes are
+            # both the provable floor and the exact output size.
+            key = (node.schema_name, node.table_name)
+            actual = self._scan_actual_bytes(node)
+            if actual is not None:
+                self._scan_actual[id(node)] = actual
+                scan_lo = actual
+            else:
+                scan_lo = int(n) * _row_bytes(list(node.schema))[0]
+            self._scan_lo[key] = max(self._scan_lo.get(key, 0), scan_lo)
+            rows = Interval.exact(int(n))
+            if node.filters:
+                rows = rows.drop_lo()  # pushed-down filters: selectivity 0..1
+            return rows
+        if isinstance(node, p.Filter):
+            return child_rows[0].drop_lo()
+        if isinstance(node, p.Projection):
+            return child_rows[0]
+        if isinstance(node, p.Join):
+            l, r = child_rows
+            jt = node.join_type.upper()
+            if jt in ("LEFTSEMI", "LEFTANTI"):
+                return Interval(0, l.hi)
+            if jt == "LEFTMARK":
+                return l  # left rows + an appended BOOLEAN flag
+            unknown = l.hi is None or r.hi is None
+            if jt == "LEFT":
+                # every left row survives even against an empty right side
+                hi = None if unknown else l.hi * max(r.hi, 1)
+                return Interval(l.lo, hi)
+            if jt == "RIGHT":
+                hi = None if unknown else r.hi * max(l.hi, 1)
+                return Interval(r.lo, hi)
+            if jt == "FULL":
+                # matched pairs + unmatched left rows + unmatched right rows
+                hi = None if unknown else l.hi * max(r.hi, 1) + r.hi
+                return Interval(max(l.lo, r.lo), hi)
+            hi = None if unknown else l.hi * r.hi
+            return Interval(0, hi)  # INNER: can be empty
+        if isinstance(node, p.CrossJoin):
+            return child_rows[0] * child_rows[1]
+        if isinstance(node, p.Aggregate):
+            if not node.group_exprs:
+                return Interval.exact(1)
+            inp = child_rows[0]
+            lo = 1 if inp.lo > 0 else 0
+            domain, all_known = self._v._radix_domain(node)
+            hi = inp.hi
+            if all_known and domain is not None:
+                hi = domain if hi is None else min(hi, domain)
+            return Interval(lo, hi)
+        if isinstance(node, p.Window):
+            return child_rows[0]
+        if isinstance(node, p.Sort):
+            rows = child_rows[0]
+            return rows.clamp_hi(node.fetch) if node.fetch is not None \
+                else rows
+        if isinstance(node, p.Limit):
+            rows = child_rows[0].clamp_hi(node.fetch)
+            return rows.drop_lo() if node.skip else rows
+        if isinstance(node, p.Distinct):
+            rows = child_rows[0]
+            return Interval(min(rows.lo, 1), rows.hi)
+        if isinstance(node, p.Sample):
+            return child_rows[0].drop_lo()
+        if isinstance(node, p.Union):
+            total = ZERO
+            for r in child_rows:
+                total = total + r
+            if not getattr(node, "all", True):
+                total = Interval(min(total.lo, 1), total.hi)  # dedup
+            return total
+        if isinstance(node, (p.Intersect, p.Except)):
+            return Interval(0, child_rows[0].hi)
+        if isinstance(node, p.Values):
+            return Interval.exact(len(node.rows))
+        if isinstance(node, p.EmptyRelation):
+            return Interval.exact(1 if node.produce_one_row else 0)
+        if isinstance(node, p.Explain):
+            # plain EXPLAIN/LINT/ESTIMATE renders text, never executes its
+            # input; EXPLAIN ANALYZE executes, so it inherits the input walk
+            # (already folded in through child_rows' side effects)
+            return Interval(1, None)
+        if isinstance(node, (p.SubqueryAlias, p.DistributeBy)):
+            return child_rows[0]
+        if isinstance(node, p.PredictModelNode):
+            # PREDICT appends one column per input row — cardinality is the
+            # input's, so inference plans get FINITE bounds and admission /
+            # packing / streaming see them like any other operator
+            return child_rows[0] if child_rows else Interval.unknown()
+        if isinstance(node, p.CustomNode):
+            return Interval(0, None)
+        return child_rows[0] if child_rows else Interval.unknown()
+
+    def _scan_actual_bytes(self, node: p.TableScan) -> Optional[int]:
+        """Exact resident bytes of the scan's projected columns when the
+        registered table carries compressed encodings; None keeps the
+        declared-width formula (byte-identical estimates for PLAIN tables).
+        Encoded widths are what the compiled paths actually read, so both
+        peak bounds tighten — the admission gate sheds less and the
+        device-budget rung proofs skip fewer rungs."""
+        from ..columnar.encodings import encoded_nbytes, resolve_encoded_scan
+
+        got = resolve_encoded_scan(self.context, node)
+        if got is None:
+            return None
+        table, names = got
+        return sum(encoded_nbytes(table.columns[n]) for n in names)
+
+    # --------------------------------------------------------- intermediates
+    def _aggregate_scratch(self, node: p.Aggregate,
+                           child) -> Optional[int]:
+        """Worst-case transient bytes of the aggregate, and (side effect)
+        the compiled packed-matrix *lower* bound for the rung proof.
+
+        The compiled rungs allocate one f64 matrix of
+        ``(len(agg_exprs) + 1) x domain`` (physical/compiled.py pack_flat;
+        row 0 is the group-present indicator) plus an int32 gid per input
+        row.  The radix-domain lower bound (dictionary sizes + BOOLEAN=3,
+        unknown keys contribute factor 1) makes the matrix bound provable;
+        the gate caps the domain at ``1 << 22``, which caps the upper
+        bound even when the true domain is unknown."""
+        domain, all_known = self._v._radix_domain(node)
+        slots = len(node.agg_exprs) + 1
+        cap_hi = RADIX_DOMAIN_LIMIT * slots * _PACKED_SLOT_BYTES
+        if domain is not None and all_known:
+            # every key sized (a global aggregate's domain is exactly 1):
+            # the gate cap tightens to the true matrix size
+            cap_hi = min(domain, RADIX_DOMAIN_LIMIT) * slots \
+                * _PACKED_SLOT_BYTES
+        if domain is not None and node.group_exprs:
+            matrix_lo = domain * slots * _PACKED_SLOT_BYTES
+            self.agg_intermediates.append((node, matrix_lo))
+        in_rows_hi = child[0][0].hi if child else 0
+        gid_hi = None if in_rows_hi is None \
+            else (_pow2_bucket(in_rows_hi) or 0) * 4
+        if gid_hi is None:
+            return None
+        return cap_hi + gid_hi
+
+    # -------------------------------------------------------------- verdict
+    def finish(self, root: p.LogicalPlan, root_rows: Interval,
+               root_bytes: Interval) -> PlanEstimate:
+        # provable lower bound: resident base tables + the materialized
+        # root result (compiled fusion may never materialize anything else,
+        # and a column-aliasing root shares the scan's buffers outright)
+        peak_lo = sum(self._scan_lo.values())
+        if not _aliases_scan(root):
+            peak_lo += root_bytes.lo
+        # the reference's model bound (module docstring): the executor
+        # memoizes every node output until the query completes, plus the
+        # reference's transient buffers
+        peak_hi: Optional[int] = 0
+        for n in self.nodes:
+            if peak_hi is None:
+                break
+            if n.out_bytes.hi is None or n.scratch_hi is None:
+                peak_hi = None
+            else:
+                peak_hi += n.out_bytes.hi + n.scratch_hi
+        if peak_hi is not None:
+            peak_hi = max(peak_hi, peak_lo)
+        return PlanEstimate(
+            rows=root_rows,
+            result_bytes=root_bytes,
+            peak_bytes=Interval(peak_lo, peak_hi),
+            nodes=list(reversed(self.nodes)),  # root first for display
+            rung_proofs=[],
+            scan_bytes_lo=sum(self._scan_lo.values()),
+        )
+
+
+def _aliases_scan(node: p.LogicalPlan) -> bool:
+    """True when the node's output provably *can* share a base table's
+    device buffers (identity projections / aliases over a scan): its
+    materialization must then not be double-counted on top of the resident
+    table in the peak lower bound."""
+    from ..planner.expressions import ColumnRef
+
+    while True:
+        if isinstance(node, p.TableScan):
+            return True
+        if isinstance(node, p.SubqueryAlias):
+            node = node.input
+            continue
+        if isinstance(node, p.Projection) and all(
+                isinstance(e, ColumnRef) for e in node.exprs):
+            node = node.input
+            continue
+        return False
+
+
+def _short_label(node: p.LogicalPlan) -> str:
+    label = node._label()
+    return label if len(label) <= 64 else label[:61] + "..."
+
+
+def _nested_plans(node: p.LogicalPlan) -> List[p.LogicalPlan]:
+    """Subquery plans hanging off one node's expressions (they execute as
+    part of this node, so their footprint belongs to the estimate)."""
+    import dataclasses
+
+    out: List[p.LogicalPlan] = []
+    if not dataclasses.is_dataclass(node):
+        return out
+
+    def exprs_of(v):
+        if isinstance(v, Expr):
+            yield v
+        elif isinstance(v, SortKey):
+            yield v.expr
+        elif isinstance(v, (list, tuple)):
+            for item in v:
+                yield from exprs_of(item)
+
+    for f in dataclasses.fields(node):
+        for e in exprs_of(getattr(node, f.name, None)):
+            for x in walk(e):
+                if isinstance(x, (ScalarSubqueryExpr, InSubqueryExpr,
+                                  ExistsExpr)) and x.plan is not None:
+                    out.append(x.plan)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# public API
+# ---------------------------------------------------------------------------
+def estimate_plan(plan: p.LogicalPlan, context=None) -> PlanEstimate:
+    """Walk a bound plan bottom-up and return its `PlanEstimate`."""
+    target = plan
+    if isinstance(target, p.Explain):
+        # estimate what EXPLAIN reports on (and, for EXPLAIN ANALYZE, what
+        # actually executes) — never the text render, whose trivial output
+        # would otherwise force every bound to unbounded
+        target = target.input
+    est = _Estimator(context=context)
+    rows, out_bytes = est.estimate(target)
+    verdict = est.finish(target, rows, out_bytes)
+    verdict._agg_intermediates = est.agg_intermediates  # for apply()
+    return verdict
+
+
+def device_budget_bytes(config) -> Optional[int]:
+    """The device byte budget the rung proofs compare against:
+    ``analysis.estimate.device_budget_bytes`` when set, else None (no
+    proof — admission uses its own ``serving.admission`` budget)."""
+    from ..config import parse_byte_budget
+
+    return parse_byte_budget(config.get("analysis.estimate.device_budget_bytes"))
+
+
+def collect_rung_proofs(verdict: PlanEstimate, budget: Optional[int]
+                        ) -> List[Tuple[p.LogicalPlan, frozenset, int]]:
+    """``[(Aggregate node, doomed rungs, intermediate lower bound)]`` for
+    compiled intermediates whose lower bound provably cannot fit ``budget``
+    (None = no budget, no proofs).  Pure — callers decide whether to act
+    (`estimate_and_apply` marks the nodes; EXPLAIN ESTIMATE only reports)."""
+    if budget is None:
+        return []
+    return [(node, _AGG_RUNGS, matrix_lo)
+            for node, matrix_lo in getattr(verdict, "_agg_intermediates", [])
+            if matrix_lo > budget]
+
+
+def estimate_and_apply(plan: p.LogicalPlan, context) -> PlanEstimate:
+    """Bind-time entry (Context._get_ral): estimate, record the
+    ``analysis.estimate.*`` metrics, attach the verdict to the plan
+    (``_dsql_estimate``) for the admission gate and result cache, and
+    pre-skip compiled aggregate rungs whose intermediate-buffer lower
+    bound provably cannot fit the device budget (``_dsql_skip_rungs`` —
+    the ladder records ``analysis.rung_skip.*`` with no breaker charge)."""
+    verdict = estimate_plan(plan, context=context)
+    metrics = getattr(context, "metrics", None)
+    if metrics is not None:
+        metrics.inc("analysis.estimate.runs")
+        metrics.observe("analysis.estimate.bytes_lo", verdict.peak_bytes.lo)
+        if verdict.peak_bytes.hi is not None:
+            metrics.observe("analysis.estimate.bytes_hi",
+                            verdict.peak_bytes.hi)
+        if verdict.rows.hi is not None:
+            metrics.observe("analysis.estimate.rows_hi", verdict.rows.hi)
+    for node, rungs, matrix_lo in collect_rung_proofs(
+            verdict, device_budget_bytes(context.config)):
+        existing = getattr(node, "_dsql_skip_rungs", frozenset())
+        node._dsql_skip_rungs = frozenset(existing) | rungs
+        verdict.rung_proofs.append((node, rungs, matrix_lo))
+        if metrics is not None:
+            metrics.inc("analysis.estimate.rung_proof")
+    plan._dsql_estimate = verdict
+    return verdict
+
+
+# ---------------------------------------------------------------------------
+# provable predicate-interval algebra (semantic reuse / subsumption)
+# ---------------------------------------------------------------------------
+#: comparator ops a single ParamRef predicate maps onto a value interval.
+#: ``eq`` included: an equality slot subsumes only the identical value.
+COMPARATOR_OPS = frozenset({"lt", "le", "gt", "ge", "eq"})
+
+#: mirror op when the comparison is written ``literal OP column`` —
+#: normalizing to column-on-the-left so one interval table covers both
+MIRRORED_OPS = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq"}
+
+
+@dataclass(frozen=True)
+class PredInterval:
+    """The value set ``{x : x OP v}`` of one comparator predicate as an
+    interval over the column domain.  ``None`` bound = unbounded on that
+    side; ``*_open`` marks a strict (exclusive) endpoint.  This is the
+    *predicate* lattice the subsumption check reasons in — distinct from
+    the cardinality/byte `Interval` above, which is always closed."""
+
+    lo: Optional[float]
+    hi: Optional[float]
+    lo_open: bool = False
+    hi_open: bool = False
+
+
+def pred_interval(op: str, value) -> Optional[PredInterval]:
+    """The interval of column values ``column OP value`` selects, or None
+    when ``op`` is not a plain comparator (the slot then declines
+    subsumption entirely)."""
+    if op not in COMPARATOR_OPS:
+        return None
+    # keep the native scalar: Python's int/float comparisons are exact
+    # (coercing int64 through float would lose precision past 2**53)
+    v = int(value) if isinstance(value, bool) else value
+    if op == "lt":
+        return PredInterval(None, v, hi_open=True)
+    if op == "le":
+        return PredInterval(None, v)
+    if op == "gt":
+        return PredInterval(v, None, lo_open=True)
+    if op == "ge":
+        return PredInterval(v, None)
+    return PredInterval(v, v)  # eq
+
+
+def _bound_contains(outer_v, outer_open: bool, inner_v, inner_open: bool,
+                    side: str, float_domain: bool) -> bool:
+    """Does the outer interval's ``side`` bound admit the inner's?  PROOF
+    ONLY: returns False whenever the decision rests on exact endpoint
+    equality in a float domain — host-side equality of the two parameter
+    values does not prove the device-cast (e.g. float64 -> float32 column
+    dtype) boundary semantics coincide, so equal float endpoints decline
+    rather than guess."""
+    if outer_v is None:
+        return True      # outer unbounded on this side: anything fits
+    if inner_v is None:
+        return False     # inner unbounded where outer is not
+    if side == "lo":
+        if outer_v < inner_v:
+            return True
+        if outer_v > inner_v:
+            return False
+    else:
+        if outer_v > inner_v:
+            return True
+        if outer_v < inner_v:
+            return False
+    # endpoints exactly equal on the host: the decision IS the boundary
+    if float_domain:
+        return False
+    return (not outer_open) or inner_open
+
+
+def interval_contains(outer: PredInterval, inner: PredInterval,
+                      float_domain: bool = False) -> bool:
+    """PROVABLE containment ``inner ⊆ outer`` — the subsumption oracle.
+    True only when every row the inner predicate selects is provably a row
+    the outer predicate selected; never heuristic.  ``float_domain`` marks
+    a float column or parameter dtype: any containment that would be
+    decided by endpoint *equality* then declines (see `_bound_contains`)."""
+    return (_bound_contains(outer.lo, outer.lo_open, inner.lo,
+                            inner.lo_open, "lo", float_domain)
+            and _bound_contains(outer.hi, outer.hi_open, inner.hi,
+                                inner.hi_open, "hi", float_domain))
+
+
+def param_slot_contains(op: str, cached_value, new_value,
+                        float_domain: bool = False) -> bool:
+    """One family parameter slot's containment verdict: does the cached
+    execution's ``column OP cached_value`` provably cover the incoming
+    ``column OP new_value``?  Both predicates share the op (same family),
+    so this reduces to interval containment of the two value sets."""
+    outer = pred_interval(op, cached_value)
+    inner = pred_interval(op, new_value)
+    if outer is None or inner is None:
+        return False
+    return interval_contains(outer, inner, float_domain=float_domain)

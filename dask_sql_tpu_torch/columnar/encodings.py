@@ -344,6 +344,39 @@ def scan_bytes(table, names=None) -> Tuple[int, int]:
     return enc, dec
 
 
+def resolve_encoded_scan(context, node):
+    """``(table, projected names)`` for a TableScan over a registered table
+    whose projected columns include at least one encoded column; None when
+    there is no context, the table is unknown, the container is lazy (its
+    ``table`` property loads the location, and its scans read PLAIN
+    buffers anyway), a projected name is missing, or everything is PLAIN.
+    Shared by the estimator's encoded-width scan bounds and the verifier's
+    EXPLAIN LINT encoding advisory (`analysis/`), so the two agree on which
+    scans are encoded.  Counterpart of the reference's function of the same
+    name."""
+    if context is None:
+        return None
+    try:
+        dc = context.schema[node.schema_name].tables.get(node.table_name)
+    except (KeyError, AttributeError):
+        return None
+    from ..datacontainer import LazyParquetContainer
+
+    if dc is None or isinstance(dc, LazyParquetContainer):
+        return None
+    table = getattr(dc, "table", None)
+    if table is None:
+        return None
+    names = [str(c) for c in (node.projection if node.projection is not None
+                              else table.column_names)]
+    cols = [table.columns.get(n) for n in names]
+    if any(c is None for c in cols):
+        return None
+    if not any(c.encoding is not Encoding.PLAIN for c in cols):
+        return None
+    return table, names
+
+
 # ---------------------------------------------------------------------------
 # code-space predicate translation (copied from the reference; DICT
 # columns, sorted enc_values)

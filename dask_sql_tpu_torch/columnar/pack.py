@@ -18,11 +18,15 @@ import numpy as np
 import torch
 
 
-def packed_host_arrays(bufs: List[torch.Tensor]) -> Optional[List[np.ndarray]]:
+def packed_host_arrays(bufs: List[torch.Tensor],
+                       config=None) -> Optional[List[np.ndarray]]:
     """All buffers as host numpy arrays through one packed transfer
     (counted in ``TRANSFER_STATS``); None when there are fewer than two,
     or they are not 1-D tensors of one length, device and packable dtype
-    (the caller then converts each on its own)."""
+    (the caller then converts each on its own).  With the Context's
+    `config`, the ``d2h`` fault site arms before the transfer: a
+    `TransientExecutionError`, retryable, never a step down."""
+    from ..resilience import faults
     from ..utils import count_d2h
 
     if len(bufs) < 2:
@@ -50,6 +54,8 @@ def packed_host_arrays(bufs: List[torch.Tensor]) -> Optional[List[np.ndarray]]:
             rows.append(x.to(torch.float64).view(torch.int64))
         else:
             rows.append(x.to(torch.int64))
+    if config is not None:
+        faults.maybe_inject("d2h", config)
     count_d2h()
     packed = torch.stack(rows).cpu().numpy()
     out = []

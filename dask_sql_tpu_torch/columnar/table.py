@@ -142,15 +142,17 @@ class Table:
         return concat_tables(tables)
 
     # -- host materialization ----------------------------------------------
-    def to_pandas(self):
+    def to_pandas(self, config=None):
+        """The rows as a pandas frame; `config` (the Context's) arms the
+        ``d2h`` fault site of the packed transfer."""
         import pandas as pd
 
-        data = self._host_columns()
+        data = self._host_columns(config=config)
         if not data:
             return pd.DataFrame(index=range(self._num_rows))
         return pd.DataFrame(data)
 
-    def _host_columns(self, packed: Optional[bool] = None):
+    def _host_columns(self, packed: Optional[bool] = None, config=None):
         """{name: numpy} with NULLs decoded.  On an accelerator (or with
         ``packed=True``) every buffer rides ONE packed transfer
         (`columnar/pack.py`): encoded columns cross as their codes and
@@ -167,7 +169,7 @@ class Table:
             bufs.append(c.data)
             if c.validity is not None:
                 bufs.append(c.validity)
-        host = packed_host_arrays(bufs)
+        host = packed_host_arrays(bufs, config)
         if host is None:
             return {n: c.to_numpy() for n, c in cols.items()}
         out = {}

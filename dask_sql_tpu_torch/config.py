@@ -7,6 +7,7 @@ pushes a scoped overlay (per-query options of `Context.sql`).
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 from typing import Any, Dict, Optional
 
@@ -35,9 +36,31 @@ DEFAULTS: Dict[str, Any] = {
     # plan families (families/): literals lift into runtime parameters and
     # the compiled pipelines' caches key on the parameterized expressions
     "families.enabled": True,
+    # static plan verification (analysis/verifier.py): "on" cross-checks
+    # every bound plan (error findings raise PlanError at bind time, doomed
+    # compiled rungs are skipped by the ladder), "strict" raises on warn
+    # findings too, "off" verifies nothing
+    "analysis.verify": "on",
+    # static cost and memory estimation (analysis/estimator.py) of every
+    # freshly planned query: "on" | "off" (EXPLAIN ESTIMATE works either way)
+    "analysis.estimate": "on",
+    # device byte budget of the estimator's rung proofs: an aggregate whose
+    # packed-matrix lower bound exceeds it skips its compiled rungs.  None
+    # disables the proof
+    "analysis.estimate.device_budget_bytes": None,
     # the degradation ladder (resilience/ladder.py): off runs each rung bare,
     # so a degradable failure propagates instead of stepping down
     "resilience.ladder.enabled": True,
+    # the last rung, on a CPU Context: re-run the plan with the compiled
+    # rungs off after a degradable failure of the interpreted walk
+    "resilience.ladder.cpu_fallback": True,
+    # the per-(plan family, rung) circuit breaker of the ladder
+    "resilience.breaker.enabled": True,
+    "resilience.breaker.threshold": 3,  # consecutive failures that trip it
+    "resilience.breaker.cooldown_s": 30.0,  # seconds to a half-open trial
+    # fault injection (resilience/faults.py), e.g. "compile:0.5,oom:once"
+    "resilience.inject": None,
+    "resilience.inject.seed": 0,  # PRNG seed of the probabilistic modes
     # load-time column encodings (columnar/encodings.py): auto | off
     "columnar.encoding": "auto",
     "columnar.encoding.min_rows": 1024,
@@ -82,3 +105,39 @@ class Config:
             yield self
         finally:
             stack.pop()
+
+
+def parse_byte_budget(value: Any) -> Optional[int]:
+    """A byte-budget config value as ``int`` bytes, or None (disabled).
+    ``None``, ``""``, ``0``, ``"0"``, ``"none"``, ``"off"``, ``"false"``
+    (any case) and non-positive numbers disable; binary suffixes
+    (``"64MB"``, ``"2gib"``) are accepted; a malformed value disables with
+    a logged warning rather than raising.  Copied from
+    `dask_sql_tpu/config.py`."""
+    if value is None:
+        return None
+    if isinstance(value, str):
+        value = value.strip().lower()
+        if value in ("", "0", "none", "off", "false"):
+            return None
+        scale = 1
+        for suffix, mult in (("kib", 1 << 10), ("mib", 1 << 20),
+                             ("gib", 1 << 30), ("tib", 1 << 40),
+                             ("kb", 1 << 10), ("mb", 1 << 20),
+                             ("gb", 1 << 30), ("tb", 1 << 40)):
+            if value.endswith(suffix):
+                value, scale = value[:-len(suffix)].strip(), mult
+                break
+        try:
+            value = float(value) * scale
+        except ValueError:
+            logging.getLogger(__name__).warning(
+                "unparseable byte budget %r; treating as disabled", value)
+            return None
+    try:
+        n = int(value)
+    except (TypeError, ValueError):
+        logging.getLogger(__name__).warning(
+            "unparseable byte budget %r; treating as disabled", value)
+        return None
+    return n if n > 0 else None

@@ -71,17 +71,35 @@ class TorchFrame:
         return list(self._field_names)
 
     def execute(self) -> Table:
-        """Run the plan to a Table (cached)."""
+        """Run the plan to a Table (cached).  Every failure leaves here as
+        a taxonomy `QueryError` (``code``, ``retryable``, ``degradable``;
+        `resilience/ladder.py` `wrap_boundary`), but for the port's
+        `NotImplementedError` naming a later slice."""
         if self._result is None:
+            from .config import parse_byte_budget
             from .physical.executor import Executor
+            from .resilience.ladder import wrap_boundary
 
-            with self._context.config.set(self._config_options):
-                self._result = Executor(self._context).execute_root(self._plan)
+            ctx = self._context
+            with ctx.config.set(self._config_options):
+                if parse_byte_budget(ctx.config.get(
+                        "serving.admission.max_estimated_bytes")) is not None \
+                        and not _renders_only(self._plan):
+                    # refusing beats silently ignoring a budget the user set
+                    raise NotImplementedError(
+                        "serving.admission.max_estimated_bytes needs the "
+                        "admission gate (serving/admission.py, ROADMAP.md "
+                        "Queue 1 item 8), not in the port yet")
+                self._result = wrap_boundary(
+                    lambda: Executor(ctx).execute_root(self._plan))
         return self._result
 
     def compute(self):
         """Materialize to a pandas DataFrame with the SQL output names."""
-        df = self.execute().to_pandas()
+        table = self.execute()
+        config = self._context.config
+        with config.set(self._config_options):
+            df = table.to_pandas(config)
         df.columns = self._disambiguated_names()
         return df
 
@@ -110,6 +128,15 @@ class Context:
         }
         self.config = Config()
         self.metrics = Metrics()
+        from .resilience.retry import CircuitBreaker
+
+        #: per-(plan family, ladder rung) circuit breaker: a query shape
+        #: that keeps failing a compiled rung skips straight to the rung
+        #: that answers it (resilience/ladder.py)
+        self.breaker = CircuitBreaker.from_config(self.config)
+        #: (family, catalog, config) -> the family's `PlanEstimate`
+        #: (`_run_estimator`), cleared when a table changes
+        self._family_estimates: Dict[Tuple, Any] = {}
         #: plan-cache key -> optimized plan (LRU, `_PLAN_CACHE_CAP` entries)
         self._plan_cache: "OrderedDict[Tuple, Any]" = OrderedDict()
         #: (catalog key, native catalog bytes) of the last native plan
@@ -257,6 +284,7 @@ class Context:
         tkey = (schema_name, table_name)
         epoch = self._table_epochs.get(tkey, 0) + 1
         self._table_epochs[tkey] = epoch
+        self._family_estimates.clear()
         return epoch
 
     # ------------------------------------------------------------ schemas
@@ -526,7 +554,64 @@ class Context:
                                           metrics=self.metrics)
                 if info is not None and info.n_params:
                     self.metrics.inc("families.parameterized")
+        # plain EXPLAIN (LINT, ESTIMATE) never executes its input, so only
+        # executing plans pay the verification and the estimate here
+        wants_verify = not _renders_only(plan)
+        verify_mode = str(self.config.get("analysis.verify", "on")).lower()
+        if wants_verify and verify_mode not in ("off", "false", "0", "none"):
+            from . import analysis
+
+            # error findings raise PlanError now; doomed compiled rungs are
+            # marked on the plan, and the ladder skips them
+            analysis.verify_and_apply(plan, self,
+                                      strict=(verify_mode == "strict"))
+        if wants_verify and not isinstance(plan, plan_nodes.CustomNode) \
+                and self._estimate_enabled():
+            self._run_estimator(plan)
         return plan
+
+    def _estimate_enabled(self) -> bool:
+        mode = str(self.config.get("analysis.estimate", "on")).lower()
+        return mode not in ("off", "false", "0", "none")
+
+    def _run_estimator(self, plan):
+        """`estimate_and_apply`, guarded: estimation is advisory, so a
+        failure of the estimator never blocks a query
+        (``analysis.estimate.internal_error``).  A family's estimate holds
+        for every member (its intervals never read literal values), so
+        later members reuse it (``families.estimate.hit``), unless device
+        budget proofs are armed: those mark the concrete plan's nodes."""
+        from .analysis import estimator
+
+        try:
+            fam = getattr(plan, "_dsql_family", None)
+            key = None
+            if fam is not None and estimator.device_budget_bytes(
+                    self.config) is None:
+                try:
+                    key = (fam.fingerprint, tuple(self._catalog_signature()),
+                           self._catalog_serial,
+                           self.config.effective_items())
+                    hash(key)
+                except TypeError:
+                    key = None
+            if key is not None:
+                cached = self._family_estimates.get(key)
+                if cached is not None:
+                    plan._dsql_estimate = cached
+                    self.metrics.inc("families.estimate.hit")
+                    return cached
+            est = estimator.estimate_and_apply(plan, self)
+            if key is not None and est is not None:
+                if len(self._family_estimates) >= 512:
+                    self._family_estimates.clear()
+                self._family_estimates[key] = est
+            return est
+        except Exception:  # advisory: the query runs unestimated
+            self.metrics.inc("analysis.estimate.internal_error")
+            logger.debug("plan estimation failed; query runs ungated",
+                         exc_info=True)
+            return None
 
     def _encoded_catalog(self, catalog: Catalog) -> Optional[bytes]:
         """Catalog bytes for the native planner, kept until a table, view
@@ -604,6 +689,12 @@ class Context:
 
             return Executor(self).execute(view)
         raise KeyError(f"Table {schema_name}.{table_name} not found")
+
+
+def _renders_only(plan) -> bool:
+    """A plain EXPLAIN (its text, LINT or ESTIMATE): it never runs its
+    input."""
+    return isinstance(plan, plan_nodes.Explain) and not plan.analyze
 
 
 def _catalog_fields(dc) -> List[Field]:

@@ -68,6 +68,7 @@ from ..planner.expressions import (
     transform,
     walk,
 )
+from ..resilience import faults
 from .rex.operations import (
     CALL_VALUED,
     OPERATION_MAPPING,
@@ -1524,6 +1525,7 @@ def try_compiled_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     compiled = None
     try:
         compiled, table, params = _scan_chain_pipeline(rel, chain, executor)
+        faults.maybe_inject("oom", executor.config)
         result = compiled.run(table, params)
     except _Unsupported as e:
         logger.info("compiled aggregate declined the scan chain: %s", e)

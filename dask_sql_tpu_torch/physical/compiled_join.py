@@ -51,6 +51,7 @@ from ..planner.expressions import (
     transform,
     walk,
 )
+from ..resilience import faults
 from .. import families
 from .compiled import (
     PARAMS_SLOT,
@@ -605,6 +606,7 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
         if built_here and compiled.codespace_preds:
             ctx.metrics.inc("columnar.encoding.codespace_pred",
                             compiled.codespace_preds)
+        faults.maybe_inject("oom", executor.config)
         result = compiled.run(probe_table, build_tables, params)
         ctx.metrics.inc("compiled_join.run")
         if compiled.has_encoded:

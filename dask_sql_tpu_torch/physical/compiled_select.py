@@ -40,6 +40,7 @@ from ..columnar.dtypes import STRING_TYPES, SqlType, sql_to_np
 from ..columnar.table import Table
 from ..planner import plan as p
 from ..planner.expressions import ColumnRef
+from ..resilience import faults
 from .. import families
 from ..utils import count_d2h
 from .compiled import (
@@ -433,6 +434,7 @@ def try_compiled_select(root, executor) -> Optional[Table]:
         if built_here and compiled.codespace_preds:
             ctx.metrics.inc("columnar.encoding.codespace_pred",
                             compiled.codespace_preds)
+        faults.maybe_inject("oom", executor.config)
         result = compiled.run(table, params)
         if compiled.has_encoded:
             # late materialization: only the survivors decoded, at the root

@@ -1,8 +1,8 @@
 """Physical executor: walks the logical plan and produces Tables.
 
 Counterpart of `dask_sql_tpu/physical/executor.py` on one device: the plan
-root first tries the compiled root select (`compiled_select.py`) as a rung
-of the degradation ladder (`resilience/ladder.py`), then the interpreted
+root runs under the degradation ladder (`resilience/ladder.py`): the
+compiled root select (`compiled_select.py`) first, then the interpreted
 walk, where each plan node goes to the plugin registered for its node
 type: the relational operators (`rel/logical/`) and the statements
 (`rel/custom/ddl.py`).
@@ -35,18 +35,31 @@ class Executor:
         return plugin_class
 
     def execute_root(self, rel: LogicalPlan) -> Table:
-        """Entry for the plan ROOT, whose result goes straight to the host:
-        a root select chain runs as the compiled select (two programs, two
-        transfers), the `compiled_select` rung of the ladder; anything else,
-        or a degradable failure there, takes the interpreted walk."""
-        from ..resilience import ladder
+        """Entry for the plan ROOT, whose result goes straight to the host.
+        The ``execute`` fault site arms first.  A root select chain runs as
+        the compiled select (two programs, two transfers), the
+        `compiled_select` rung of the ladder (``compile`` site at its
+        entry); anything else, or a degradable failure there, takes the
+        interpreted walk, with the CPU rung under it on a CPU Context.
+        With the ladder off the sites still arm, and a failure
+        propagates."""
+        from ..resilience import faults, ladder
         from .compiled_select import try_compiled_select
 
-        out = ladder.attempt(self, "compiled_select",
-                             lambda: try_compiled_select(rel, self), rel=rel)
+        faults.maybe_inject("execute", self.config)
+        if self.config.get("resilience.ladder.enabled", True):
+            out = ladder.attempt(self, "compiled_select",
+                                 lambda: try_compiled_select(rel, self),
+                                 rel=rel, inject_site="compile")
+            if out is not None:
+                return out
+            return ladder.execute_interpreted(self, rel)
+        faults.maybe_inject("compile", self.config)
+        out = try_compiled_select(rel, self)
         if out is not None:
             return out
-        return ladder.execute_interpreted(self, rel)
+        faults.maybe_inject("exec_oom", self.config)
+        return self.execute(rel)
 
     def execute(self, rel: LogicalPlan) -> Table:
         key = id(rel)

@@ -5,8 +5,9 @@ An aggregate over a lazy parquet table larger than
 ``sql.streaming.batch_rows`` streams it in batches first
 (`physical/streaming.py`); that is not a rung of the ladder, and a failure
 there raises.  Then the rungs of the degradation ladder in the reference's
-single-device order: the join->aggregate pipeline, the fused scan-chain
-aggregate, then the eager aggregate here.  The eager rung runs its input through the
+single-device order, each with the ``compile`` fault site at its entry:
+the join->aggregate pipeline, the fused scan-chain aggregate, then the
+eager aggregate here.  The eager rung runs its input through the
 other plugins and groups it: a mixed radix of small-domain keys
 (`ops.grouping.radix_gid`, no sort; the present groups compacted at the
 end), or one lexicographic sort (`factorize`) with each group's first row
@@ -41,7 +42,8 @@ class AggregatePlugin(BaseRelPlugin):
 
     def convert(self, rel: p.Aggregate, executor) -> Table:
         def rung(name, fn):
-            return ladder.attempt(executor, name, fn, rel=rel)
+            return ladder.attempt(executor, name, fn, rel=rel,
+                                  inject_site="compile")
 
         streamed = try_streaming_aggregate(rel, executor)
         if streamed is not None:

@@ -350,21 +350,41 @@ class DistributeByPlugin(BaseRelPlugin):
 
 @Executor.add_plugin_class
 class ExplainPlugin(BaseRelPlugin):
-    """EXPLAIN: the plan's text, one row a line.  EXPLAIN LINT, ESTIMATE
-    and ANALYZE need the plan verifier and estimator (`analysis/`) and the
-    query traces (`observability/`), which the port does not have yet."""
+    """EXPLAIN: the plan's text, one row a line, as the reference's.
+    EXPLAIN LINT gives the plan verifier's findings (`analysis/verifier.py`,
+    errors and doomed-rung warnings first, then the advisories) and EXPLAIN
+    ESTIMATE the estimator's intervals (`analysis/estimator.py`) with the
+    budget proofs execution would act on; neither runs its input.  EXPLAIN
+    ANALYZE needs the query traces of `observability/` (ROADMAP.md Queue 1
+    item 8)."""
 
     class_name = "Explain"
 
     def convert(self, rel: p.Explain, executor) -> Table:
-        for flag, needs in (("lint", "analysis/ (the plan verifier)"),
-                            ("estimate", "analysis/ (the estimator)"),
-                            ("analyze", "observability/ (query traces)")):
-            if getattr(rel, flag, False):
-                raise NotImplementedError(
-                    f"EXPLAIN {flag.upper()} needs {needs}, not in the "
-                    f"port yet")
-        lines = np.array(rel.input.explain().split("\n"), dtype=object)
+        metrics = executor.context.metrics
+        if getattr(rel, "lint", False):
+            from ....analysis import verify_plan
+
+            verdict = verify_plan(rel.input, context=executor.context,
+                                  collect_info=True)
+            metrics.inc("analysis.explain_lint")
+            rows = verdict.format_rows()
+        elif getattr(rel, "estimate", False):
+            from ....analysis import estimator
+
+            est = estimator.estimate_plan(rel.input, context=executor.context)
+            # reported, not applied: the proofs execution would act on
+            est.rung_proofs = estimator.collect_rung_proofs(
+                est, estimator.device_budget_bytes(executor.config))
+            metrics.inc("analysis.explain_estimate")
+            rows = est.format_rows()
+        elif rel.analyze:
+            raise NotImplementedError(
+                "EXPLAIN ANALYZE needs observability/ (query traces, "
+                "ROADMAP.md Queue 1 item 8), not in the port yet")
+        else:
+            rows = rel.input.explain().split("\n")
+        lines = np.array(rows, dtype=object)
         col = rel.schema[0].name if rel.schema else "PLAN"
         return Table({col: Column.from_numpy(
             lines, device=executor.context.device, encode=False)},

@@ -650,3 +650,22 @@ STRING_VALUED = frozenset({
 #: the three that take numbers as well as strings
 CALL_VALUED = (frozenset(OPERATION_MAPPING) - STRING_VALUED) | {
     "nullif", "greatest", "least"}
+
+
+#: the names `physical/compiled.py` `_TraceEval` evaluates itself (the
+#: core above); with `OPERATION_MAPPING` they are every name of the
+#: reference's `OPERATION_MAPPING`, which the plan verifier checks calls
+#: against (`analysis/verifier.py` ``unknown-op``)
+CORE_OPS = frozenset({
+    "abs", "add", "and", "ceil", "coalesce", "concat", "cos", "datetime_add",
+    "datetime_ceil", "datetime_floor", "datetime_sub",
+    "datetime_sub_interval", "div", "eq", "exp", "extract_century",
+    "extract_day", "extract_decade", "extract_dow", "extract_doy",
+    "extract_epoch", "extract_hour", "extract_isodow", "extract_isoyear",
+    "extract_microsecond", "extract_millennium", "extract_millisecond",
+    "extract_minute", "extract_month", "extract_nanosecond",
+    "extract_quarter", "extract_second", "extract_week", "extract_year",
+    "floor", "ge", "gt", "int_to_interval_days", "is_false", "is_not_false",
+    "is_not_null", "is_not_true", "is_null", "is_true", "le", "ln", "log10",
+    "log2", "lt", "mod", "mul", "ne", "neg", "not", "or", "round", "sign",
+    "sin", "sqrt", "sub", "tan", "upper"})

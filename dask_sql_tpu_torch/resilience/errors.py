@@ -1,6 +1,7 @@
 """Structured error taxonomy for every failure crossing the executor boundary.
 
-Copied from `dask_sql_tpu/resilience/errors.py`; only import paths differ.
+Copied from `dask_sql_tpu/resilience/errors.py`; import paths differ, and
+`classify` knows the card's failures (`_CUDA_FAULT_MARKERS`).
 
 Role parity: the reference delegates fault tolerance to dask.distributed —
 a failed task is retried by the scheduler and the user sees dask's exception
@@ -228,6 +229,13 @@ class InjectedFault(QueryError):
 _OOM_MARKERS = ("RESOURCE_EXHAUSTED", "out of memory", "Out of memory",
                 "failed to allocate")
 _OOM_RE = _re.compile(r"\bOOM\b")
+#: a failure of the card that is not an allocation: torch reports a CUDA
+#: runtime status as "CUDA error: <text>", the kernel wrappers (ops/segsum.py)
+#: theirs as "segsum kernel ... CUDA error <code>", and a kernel that fails
+#: to build carries nvcc's output.  Whatever words such a text holds (the
+#: status text of cudaErrorMemoryAllocation is "out of memory"), it is an
+#: ExecutionError: stepping down would hide a broken kernel or device.
+_CUDA_FAULT_MARKERS = ("CUDA error", "segsum kernel", "nvcc")
 
 
 def classify(exc: BaseException, *, query_id: Optional[str] = None) -> QueryError:
@@ -243,9 +251,15 @@ def classify(exc: BaseException, *, query_id: Optional[str] = None) -> QueryErro
         return exc
     msg = f"{type(exc).__name__}: {exc}"
     text = str(exc)
-    if any(m in text for m in _OOM_MARKERS) or _OOM_RE.search(text):
+    if type(exc).__name__ == "OutOfMemoryError" or isinstance(exc,
+                                                              MemoryError):
+        # torch.cuda.OutOfMemoryError: the caching allocator could not
+        # serve an allocation on the card ("CUDA out of memory. Tried to
+        # allocate ...")
         err: QueryError = ResourceExhaustedError(msg, query_id=query_id)
-    elif isinstance(exc, MemoryError):
+    elif any(m in text for m in _CUDA_FAULT_MARKERS):
+        err = ExecutionError(msg, query_id=query_id)
+    elif any(m in text for m in _OOM_MARKERS) or _OOM_RE.search(text):
         err = ResourceExhaustedError(msg, query_id=query_id)
     elif isinstance(exc, (ConnectionError, TimeoutError)):
         # deliberately NOT all OSError: FileNotFoundError/PermissionError are

@@ -1,23 +1,45 @@
-"""The degradation ladder: compiled rungs, then the interpreted walk.
+"""The degradation ladder: compiled rungs, the interpreted walk, the CPU.
 
-Counterpart of `plan_fingerprint`, `attempt` and `execute_interpreted` in
-`dask_sql_tpu/resilience/ladder.py`.  Each fast path of the executor is a
-rung that returns None to decline a plan it does not take; `attempt` also
-steps down when the rung fails *degradably* (`errors.classify`: a
-`CompileError`, a `ResourceExhaustedError` such as "CUDA out of memory"),
-counting ``resilience.degraded`` and ``resilience.degraded.<rung>``.  Any
-other failure propagates: a kernel that fails to build or launch is an
-`ExecutionError` and must never be hidden by a lower rung.  The rung that
-answers is counted in ``resilience.rung.<rung>``.
+Counterpart of `dask_sql_tpu/resilience/ladder.py`.  Each fast path of the
+executor is a rung that returns None to decline a plan it does not take;
+`attempt` also steps down when the rung fails *degradably*
+(`errors.classify`: a `CompileError`, a `ResourceExhaustedError` such as
+``torch.cuda.OutOfMemoryError``), counting ``resilience.degraded`` and
+``resilience.degraded.<rung>``.  Any other failure propagates: a kernel
+that fails to build or launch is an `ExecutionError` and is never hidden
+by a lower rung.  The rung that answers is counted in
+``resilience.rung.<rung>``.
+
+- Fault injection (`faults.py`): a rung's ``inject_site`` arms at its entry
+  (``compile``), so every step down is provable in a test.
+- A per-(plan family, rung) circuit breaker (`retry.py`, the Context's
+  ``breaker``): a rung that failed ``resilience.breaker.threshold`` times
+  in a row for a family is skipped (``resilience.breaker.skip``) until a
+  half-open trial after ``cooldown_s`` passes.  The key is the family
+  fingerprint, so Q1 with another date literal is the same entity.
+- Verifier skips (`analysis/verifier.py`, `estimator.py`): a rung proven
+  doomed at plan time (``_dsql_skip_rungs`` on the node) is skipped without
+  an attempt or a breaker charge (``analysis.rung_skip``).
+- `execute_interpreted` is the bottom of the device ladder.  On a CPU
+  Context a degradable failure of the eager walk re-runs the whole plan
+  with the compiled rungs off, ``resilience.rung.cpu``, as the reference's
+  CPU rung does.  On the card there is no rung below it: the failure (a
+  device OOM) leaves the query as a degradable `ResourceExhaustedError`,
+  and the caller may submit the query again to a CPU Context.  The port
+  never moves a card query's work to the host behind the caller's back,
+  where the kernels would not run.
 
 Rungs in the port: ``compiled_select`` (physical/compiled_select.py),
 ``compiled_join_aggregate`` (physical/compiled_join.py),
-``compiled_aggregate`` (physical/compiled.py), and the interpreted walk
-under them (the eager plugins, the eager aggregate among them).  Not in
-the port yet: the per-plan circuit breaker, fault injection, reclaim under
-memory pressure, cost-based and verifier skips, and the reference's CPU
-rung under the interpreted walk, which would re-run a failed query on the
-host and so hide the card.
+``compiled_aggregate`` (physical/compiled.py), ``interpreted`` (the eager
+plugins) and ``cpu`` (on a CPU Context).  Left out until the modules they need are ported
+(ROADMAP.md Queue 1): the cost-based skip (`cost_skip`, which reads
+``observability/profiles.py``) and reclaim-before-degrade, which retries a
+rung after `resilience/pressure.py` frees cached bytes (item 8); the
+flight recorder, the live query table and trace events (item 8); the
+predict, streamed, SPMD and distributed rungs (items 8-10).  The
+reference's CPU rung also serves a query on the accelerator (jax steers new
+arrays to the host); the port's does not (ROADMAP.md Queue 3).
 """
 from __future__ import annotations
 
@@ -25,7 +47,8 @@ import hashlib
 import logging
 from typing import Callable, Optional, TypeVar
 
-from .errors import classify
+from . import faults
+from .errors import QueryError, classify
 
 logger = logging.getLogger(__name__)
 
@@ -38,19 +61,63 @@ def plan_fingerprint(rel) -> str:
     return hashlib.sha1(repr(rel).encode()).hexdigest()[:16]
 
 
+def _fingerprint_of(executor, rel) -> str:
+    """Breaker identity of the executing plan: the literal-stripped family
+    fingerprint when plan families are on (a rung that dies for one date
+    literal is the same hazard for another), else the plan fingerprint.
+    Kept on the executor, so every rung of one query shares it."""
+    fp = getattr(executor, "_resilience_fp", None)
+    if fp is None:
+        from ..families import family_of
+
+        info = family_of(rel, executor.config,
+                         metrics=executor.context.metrics)
+        fp = info.fingerprint if info is not None else plan_fingerprint(rel)
+        executor._resilience_fp = fp
+    return fp
+
+
+def _breaker_of(executor):
+    if not executor.config.get("resilience.breaker.enabled", True):
+        return None
+    return getattr(executor.context, "breaker", None)
+
+
 def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
-            rel=None) -> Optional[T]:
+            rel=None, inject_site: Optional[str] = None) -> Optional[T]:
     """Run one rung; None means "step down to the next rung".
 
-    ``fn`` returns None to decline (not an error, not counted).  A
-    degradable failure inside it also returns None, counted in
-    ``resilience.degraded`` and ``resilience.degraded.<rung>``; every other
-    failure propagates as raised.  With ``resilience.ladder.enabled`` off
-    the rung runs bare, so a degradable failure propagates too."""
+    ``fn`` returns None to decline (not an error, not counted).  A rung the
+    plan verifier or estimator proved doomed, or whose breaker is open for
+    this family, is skipped.  A degradable failure inside ``fn`` returns
+    None, counted and charged to the breaker; every other failure
+    propagates.  With ``resilience.ladder.enabled`` off the rung runs bare
+    (its fault site still arms), so a degradable failure propagates too."""
     if not executor.config.get("resilience.ladder.enabled", True):
+        if inject_site is not None:
+            faults.maybe_inject(inject_site, executor.config)
         return fn()
     metrics = executor.context.metrics
+    skip_rungs = getattr(rel, "_dsql_skip_rungs", None)
+    if skip_rungs and rung in skip_rungs:
+        metrics.inc("analysis.rung_skip")
+        metrics.inc(f"analysis.rung_skip.{rung}")
+        logger.debug("plan verifier marked rung %s doomed: skipping", rung)
+        return None
+    breaker = _breaker_of(executor)
+    key = None
+    if breaker is not None and rel is not None:
+        key = (_fingerprint_of(executor, rel), rung)
+        # a declined rung leaves a half-open trial pending; the cooldown
+        # re-arms it (retry.py)
+        if not breaker.allow(key):
+            metrics.inc("resilience.breaker.skip")
+            metrics.inc(f"resilience.breaker.skip.{rung}")
+            logger.debug("breaker open for rung %s: skipping", rung)
+            return None
     try:
+        if inject_site is not None:
+            faults.maybe_inject(inject_site, executor.config)
         out = fn()
     except (KeyboardInterrupt, SystemExit):
         raise
@@ -60,16 +127,73 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
             raise
         metrics.inc("resilience.degraded")
         metrics.inc(f"resilience.degraded.{rung}")
-        logger.info("rung %s degraded (%s) for plan %s; stepping down", rung,
-                    err.code, plan_fingerprint(rel) if rel is not None else "-")
+        if key is not None and breaker.record_failure(key):
+            metrics.inc("resilience.breaker.trip")
+            logger.warning("breaker tripped for rung %s (plan %s): %s",
+                           rung, key[0], err)
+        logger.info("rung %s degraded (%s); stepping down", rung, err.code)
         return None
     if out is not None:
         metrics.inc(f"resilience.rung.{rung}")
+        if key is not None:
+            breaker.record_success(key)
     return out
 
 
 def execute_interpreted(executor, rel):
-    """The bottom of the ladder: the eager per-operator walk.  A failure
-    here propagates; the reference's CPU re-run under it is not in the
-    port (it would answer on the host what failed on the card)."""
-    return executor.execute(rel)
+    """The bottom of the device ladder: the eager per-operator walk, with
+    the CPU rung under it for degradable failures on a CPU Context.
+
+    The CPU rung re-runs the whole plan with the compiled and distributed
+    paths off; a failure of the re-run propagates.  On the card a
+    degradable failure propagates as it is (`wrap_boundary` makes it a
+    `ResourceExhaustedError`, degradable): the rung would run the plan on
+    the host copies of the tables, past the card's kernels."""
+    try:
+        faults.maybe_inject("exec_oom", executor.config)
+        return executor.execute(rel)
+    except (KeyboardInterrupt, SystemExit):
+        raise
+    except BaseException as exc:  # only degradable failures go on below
+        err = classify(exc)
+        if not err.degradable or executor.context.device.type != "cpu" \
+                or not executor.config.get("resilience.ladder.cpu_fallback",
+                                           True):
+            raise
+        code = err.code
+        err = None  # the failed walk's tensors go with its traceback
+    metrics = executor.context.metrics
+    metrics.inc("resilience.degraded")
+    metrics.inc("resilience.degraded.interpreted")
+    logger.warning("interpreted path failed degradably (%s); re-executing "
+                   "with the compiled rungs off", code)
+    executor._memo.clear()  # drop the partial results of the failed walk
+    with executor.config.set({
+            "sql.distributed.aggregate": "off",
+            "sql.distributed.join": "off",
+            "sql.distributed.sort": "off",
+            "sql.compile": False}):
+        out = executor.execute(rel)
+    metrics.inc("resilience.rung.cpu")
+    return out
+
+
+#: the text of the `NotImplementedError` the port raises for what a later
+#: slice brings (each names its subsystem or ROADMAP.md item)
+LATER_SLICE_MARKER = "not in the port yet"
+
+
+def wrap_boundary(fn: Callable[[], T], query_id: Optional[str] = None) -> T:
+    """Run `fn` and re-raise any failure as a taxonomy QueryError, the
+    contract of `TorchFrame.execute`.  The port's `NotImplementedError` for
+    a later slice (`LATER_SLICE_MARKER`) passes as it is: callers test for
+    that type."""
+    try:
+        return fn()
+    except (QueryError, KeyboardInterrupt, SystemExit):
+        raise
+    except BaseException as exc:
+        if isinstance(exc, NotImplementedError) \
+                and LATER_SLICE_MARKER in str(exc):
+            raise
+        raise classify(exc, query_id=query_id) from exc

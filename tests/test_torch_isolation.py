@@ -3,9 +3,10 @@ the card (`chip_smoke.py`, `profile_q1.py`) import JAX or the JAX package,
 even as it plans through its own build of the native planner and runs the
 outer, semi and anti joins, subqueries, SUBSTRING, the set operations,
 window functions, the statements (DDL, INSERT INTO), a registered
-function, and a lazy parquet table streamed through the out-of-core
-aggregate; and the port's entry points refuse to run on the CPU unless asked
-to."""
+function, a lazy parquet table streamed through the out-of-core
+aggregate, EXPLAIN LINT, EXPLAIN ESTIMATE and a query down the degradation
+ladder under ``compile:always``; and the port's entry points refuse to run
+on the CPU unless asked to."""
 import os
 import subprocess
 import sys
@@ -110,6 +111,17 @@ with tempfile.TemporaryDirectory() as d:
     assert got["count_order"].sum() == (
         li.l_shipdate <= np.datetime64("1998-09-02")).sum(), got
     assert len(batches) == 3 and lazy._table is None, batches
+# the plan verifier and the estimator (EXPLAIN LINT, EXPLAIN ESTIMATE) and
+# the degradation ladder under an injected compile failure
+lint = list(c.sql("EXPLAIN LINT " + chip_smoke.QUERY.replace(
+    "FROM lineitem", "FROM li")).compute()["LINT"])
+assert any("DICT" in ln for ln in lint), lint
+est = c.sql("EXPLAIN ESTIMATE " + QUERIES[3]).compute()["ESTIMATE"]
+assert est[0].startswith("estimate: rows_lo="), est
+before = c.metrics["resilience.degraded"]
+c.sql(chip_smoke.QUERY.replace("FROM lineitem", "FROM li"), config_options={
+    "resilience.inject": "compile:always"}).compute()
+assert c.metrics["resilience.degraded"] == before + 3, dict(c.metrics)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dask_sql_tpu"))
 assert not bad, bad

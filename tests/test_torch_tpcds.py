@@ -7,6 +7,9 @@ reference's own TPC-DS test holds the reference.
 The query with its top-level LIMIT runs first (the top-k path), then the
 LIMIT-stripped query, whose full multiset is the well-defined comparand.
 No query may step down the degradation ladder (`resilience.degraded`).
+Only the queries of `RADIX_OVERFLOW` skip compiled rungs by the plan
+verifier's proof (`analysis.rung_skip`), each with its radix-overflow
+finding: group keys whose dictionaries multiply past the 1 << 22 gate.
 
 Set operations (the binder expands every ROLLUP and GROUPING SETS into a
 Union), DISTINCT, INTERSECT, EXCEPT, window functions, string compares
@@ -32,6 +35,9 @@ from tests.ds_oracle import (
 from tests.tpcds import generate
 from tests.tpcds_queries import QUERIES
 from tests.unit.test_queries_ds import INF_IS_NULL, _pandas_q67
+
+#: the queries whose group keys overflow the radix gate at this scale
+RADIX_OVERFLOW = {4, 11, 24, 64}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -72,10 +78,17 @@ def test_query_matches_oracle(port, tables, sqlite_oracle, qnum):
     sql = strip_top_limit(QUERIES[qnum])
     if sql != QUERIES[qnum].rstrip():
         result = port.sql(sql).compute()
-    degraded = {k: v - before.get(k, 0) for k, v in port.metrics.items()
-                if k.startswith("resilience.degraded")
-                and v != before.get(k, 0)}
+    ladder = {k: v - before.get(k, 0) for k, v in port.metrics.items()
+              if k.startswith(("resilience.degraded", "analysis.rung_skip",
+                               "analysis.findings.radix-overflow"))
+              and v != before.get(k, 0)}
+    degraded = {k: v for k, v in ladder.items()
+                if k.startswith("resilience.degraded")}
     assert not degraded, degraded
+    skipped = ladder.get("analysis.rung_skip", 0)
+    assert bool(skipped) == (qnum in RADIX_OVERFLOW), ladder
+    assert bool(ladder.get("analysis.findings.radix-overflow")) == bool(
+        skipped), ladder
     if qnum == 67:
         expected = _pandas_q67(tables)[list(result.columns)]
         assert_same_result(result, expected, qnum)

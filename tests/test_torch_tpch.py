@@ -6,9 +6,11 @@
 Keys, dates and counts must be exact and floats within 1e-9 relative (both
 sides sum float64 columns in float64), in the same row order where the
 query orders, and each query must answer on the reference's rungs: the
-``resilience.rung.*`` counters it moves are the reference's (q14 and q19
-on the join pipeline, q17 on both compiled rungs, q6 on the fused
-aggregate, the others on the eager aggregate, which counts no rung).
+``resilience.rung.*`` and ``analysis.rung_skip.*`` counters it moves are
+the reference's (q14 and q19 on the join pipeline, q17 on both compiled
+rungs, q6 on the fused aggregate, the others on the eager aggregate, which
+counts no rung).  On the same Contexts, EXPLAIN LINT and EXPLAIN ESTIMATE
+of q1-q22 give the reference's rows, at plan time only.
 """
 import numpy as np
 import pandas as pd
@@ -24,18 +26,41 @@ TPCH = (5, 6, 7, 8, 9, 10, 12, 14, 17, 19)
 
 def _rungs(before, after):
     return {k: after[k] - before.get(k, 0) for k in after
-            if k.startswith("resilience.") and after[k] != before.get(k, 0)}
+            if k.startswith(("resilience.", "analysis.rung_skip"))
+            and after[k] != before.get(k, 0)}
 
 
 @pytest.fixture(scope="module")
-def answers():
-    """{query: (port frame, reference frame, port rungs, reference rungs)}."""
+def contexts():
+    """(reference, port, EXPLAIN rows) over the same eight tables.  The
+    rows, {(query, LINT | ESTIMATE): (port rows, reference rows)}, are
+    taken before either Context runs a query, the reference's stem
+    materialization off (`tests/test_torch_analysis.py` `REF_EXPLAIN`):
+    after it has run q6, the reference explains q6's scan with all its
+    rows, and a stem its EXPLAINs pinned would change the rungs of q6."""
+    from tests.test_torch_analysis import REF_EXPLAIN
+
     tables = generate(2000)
     rc = dask_sql_tpu.Context()
     pc = Context(device="cpu")
     for name, frame in tables.items():
         rc.create_table(name, frame)
         pc.create_table(name, frame)
+    explains = {}
+    for q in range(1, 23):
+        for kind in ("LINT", "ESTIMATE"):
+            sql = f"EXPLAIN {kind} {QUERIES[q]}"
+            explains[q, kind] = (
+                list(pc.sql(sql).compute()[kind]),
+                list(rc.sql(sql, return_futures=False,
+                            config_options=REF_EXPLAIN)[kind]))
+    return rc, pc, explains
+
+
+@pytest.fixture(scope="module")
+def answers(contexts):
+    """{query: (port frame, reference frame, port rungs, reference rungs)}."""
+    rc, pc, _ = contexts
     out = {}
     for q in TPCH:
         before = dict(rc.metrics.snapshot()["counters"])
@@ -66,10 +91,23 @@ def test_tpch_matches_reference(answers, q):
 
 def test_expected_rungs(answers):
     """The rungs the reference answers each query on at this scale."""
-    rung = {q: sorted(k[len("resilience.rung."):] for k in answers[q][3])
+    rung = {q: sorted(k[len("resilience.rung."):] for k in answers[q][3]
+                      if k.startswith("resilience.rung."))
             for q in TPCH}
     assert rung[6] == ["compiled_aggregate"]
     assert rung[14] == rung[19] == ["compiled_join_aggregate"]
     assert rung[17] == ["compiled_aggregate", "compiled_join_aggregate"]
     for q in (5, 7, 8, 9, 10, 12):
         assert rung[q] == [], q
+
+
+@pytest.mark.parametrize("q", range(1, 23))
+def test_explain_lint_and_estimate_match_reference(contexts, q):
+    """EXPLAIN LINT and EXPLAIN ESTIMATE of q1-q22 (Q3 among them) give the
+    reference's rows, but for the reworded recompile-hazard messages
+    (`tests/test_torch_analysis.py` `REWORDED`); nothing executes."""
+    from tests.test_torch_analysis import reworded
+
+    for kind in ("LINT", "ESTIMATE"):
+        got, want = contexts[2][q, kind]
+        assert got == reworded(want), (q, kind)

@@ -11,8 +11,8 @@ default segment sum (scatter) adds in float64, as the port does; its
 pandas sum, where the port and the scatter mode agree with it.  Keys,
 dates and counts must be
 exact, floats within 1e-9 relative, rows in the same order, and each
-query must move the reference's ``resilience.rung.*`` counters and leave
-``resilience.degraded`` at 0.  At this scale q20 and q21 return no rows,
+query must move the reference's ``resilience.rung.*`` and
+``analysis.rung_skip.*`` counters and leave ``resilience.degraded`` at 0.  At this scale q20 and q21 return no rows,
 so two variants with wider predicates hold their joins on rows too.
 """
 import numpy as np
@@ -43,7 +43,8 @@ def _sql(case):
 
 def _resilience(before, after):
     return {k: after[k] - before.get(k, 0) for k in after
-            if k.startswith("resilience.") and after[k] != before.get(k, 0)}
+            if k.startswith(("resilience.", "analysis.rung_skip"))
+            and after[k] != before.get(k, 0)}
 
 
 @pytest.fixture(scope="module")
