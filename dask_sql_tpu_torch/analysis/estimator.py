@@ -22,15 +22,17 @@ The whole-plan verdict (`PlanEstimate`) carries:
 - ``peak_bytes.lo``, a **provable lower bound** on peak device bytes: the
   referenced base tables are resident and the root result must
   materialize, whatever rung executes;
-- ``peak_bytes.hi``, the reference's model of the retained bytes: the
-  executor keeps every node's output until the query completes, so it
-  sums every node's padded output plus the reference's transient buffers
-  (sort scratch, the compiled aggregate's domain-sized packed matrix,
-  capped by the shared ``1 << 22`` radix gate).  ``None`` means unbounded.
-  It is not an upper bound on the port's card: the fused pipelines'
-  temporaries (`physical/compiled*.py`) are outside the model, and Q1's
-  measured peak on the card exceeds it (PERF.md, ROADMAP.md Queue 3).
-  Nothing in the port acts on it.
+- ``peak_bytes.hi``, a **conservative upper bound** on the port's peak
+  device bytes: the executor keeps every node's output until the query
+  completes, so it sums every node's padded output plus its transient
+  buffers: sort scratch, and on a node a compiled rung runs the larger of
+  the reference's charge (the aggregate's domain-sized packed matrix,
+  capped by the shared ``1 << 22`` radix gate, and its gid) and the port's
+  fused program at its peak (`fused.py`: decoded columns, expression
+  temporaries, masks, gid, the select's survivor bucket).  ``None`` means
+  unbounded.  Where a compiled rung runs, ``hi`` is therefore at least the
+  reference's, a deliberate divergence (ROADMAP.md Queue 3).  Nothing in
+  the port acts on it.
 
 Consumers in the port: ``EXPLAIN ESTIMATE <query>``, and the degradation
 ladder: an Aggregate whose compiled intermediate-buffer *lower* bound
@@ -263,6 +265,9 @@ class _Estimator:
         scratch_hi: Optional[int] = 0
         if isinstance(node, p.Aggregate):
             scratch_hi = self._aggregate_scratch(node, child)
+            fused = self._fused_aggregate_scratch(node)
+            if fused is not None and scratch_hi is not None:
+                scratch_hi = max(scratch_hi, fused)
         elif isinstance(node, p.PredictModelNode):
             scratch_hi = None  # the inference port (item 9) bounds it
         elif isinstance(node, (p.Sort, p.Distinct, p.Window)):
@@ -394,8 +399,10 @@ class _Estimator:
     # --------------------------------------------------------- intermediates
     def _aggregate_scratch(self, node: p.Aggregate,
                            child) -> Optional[int]:
-        """Worst-case transient bytes of the aggregate, and (side effect)
-        the compiled packed-matrix *lower* bound for the rung proof.
+        """The reference's worst-case transient bytes of the aggregate
+        (`_fused_aggregate_scratch` adds the port's fused program), and
+        (side effect) the compiled packed-matrix *lower* bound for the rung
+        proof.
 
         The compiled rungs allocate one f64 matrix of
         ``(len(agg_exprs) + 1) x domain`` (physical/compiled.py pack_flat;
@@ -421,6 +428,61 @@ class _Estimator:
         if gid_hi is None:
             return None
         return cap_hi + gid_hi
+
+    def _compiles(self, key: str) -> bool:
+        config = getattr(self.context, "config", None)
+        return config is None or bool(config.get(key, True))
+
+    def _fused_aggregate_scratch(self, node: p.Aggregate) -> Optional[int]:
+        """The port's fused aggregate at its peak (`fused.py`): the scan
+        chain's `compiled_aggregate` or the join chain's
+        `compiled_join_aggregate`, when the config lets it run; None when
+        neither takes the node."""
+        from . import fused
+
+        if not self._compiles("sql.compile"):
+            return None
+        domain, all_known = self._v._radix_domain(node)
+        domain = domain if all_known else None
+        from ..physical.compiled import _extract_chain
+
+        chain = _extract_chain(node)
+        if chain is not None:
+            scan = chain[0]
+            return fused.aggregate_scratch(
+                node, self._v._table_rows(scan.schema_name, scan.table_name),
+                domain, self.context)
+        if not self._compiles("sql.compile.join_pipeline"):
+            return None
+        from ..physical.compiled_join import _extract
+
+        got = _extract(node)
+        if got is None:
+            return None
+        ext = got[0]
+        build_rows = [self._memo[id(j["plan"])][0].hi
+                      if id(j["plan"]) in self._memo else None
+                      for j in ext.joins]
+        return fused.join_aggregate_scratch(
+            node, self._v._table_rows(ext.scan.schema_name,
+                                      ext.scan.table_name),
+            build_rows, domain, self.context)
+
+    def fused_select_scratch(self, root: p.LogicalPlan) -> Optional[int]:
+        """The port's compiled root select at its peak (`fused.py`), when
+        the config lets it run; None when the root is no such chain."""
+        from . import fused
+        from ..physical.compiled_select import _extract
+
+        if not self._compiles("sql.compile"):
+            return None
+        got = _extract(root)
+        if got is None:
+            return None
+        scan = got[0]
+        return fused.select_scratch(
+            root, self._v._table_rows(scan.schema_name, scan.table_name),
+            self.context)
 
     # -------------------------------------------------------------- verdict
     def finish(self, root: p.LogicalPlan, root_rows: Interval,
@@ -519,6 +581,13 @@ def estimate_plan(plan: p.LogicalPlan, context=None) -> PlanEstimate:
         target = target.input
     est = _Estimator(context=context)
     rows, out_bytes = est.estimate(target)
+    if target is plan:
+        # a plan root runs the compiled select first (executor.execute_root;
+        # EXPLAIN ANALYZE walks its input without it)
+        fused = est.fused_select_scratch(target)
+        root = est.nodes[-1]
+        if fused is not None and root.scratch_hi is not None:
+            root.scratch_hi = max(root.scratch_hi, fused)
     verdict = est.finish(target, rows, out_bytes)
     verdict._agg_intermediates = est.agg_intermediates  # for apply()
     return verdict

@@ -61,6 +61,21 @@ DEFAULTS: Dict[str, Any] = {
     # fault injection (resilience/faults.py), e.g. "compile:0.5,oom:once"
     "resilience.inject": None,
     "resilience.inject.seed": 0,  # PRNG seed of the probabilistic modes
+    # per-plan-node tracing of every execution, folded into the metrics
+    # registry (``executor.node.*``; on the card each node then waits for
+    # its device work, tracing.py)
+    "serving.metrics.node_traces": False,
+    # query-lifecycle tracing (observability/): a span trace per query
+    # (EXPLAIN ANALYZE's header, `Context.last_trace`)
+    "observability.trace.enabled": True,
+    "observability.trace.keep": 256,  # finished traces kept (LRU)
+    # slow-query log threshold, ms (None = off; 0 logs every query)
+    "observability.slow_query_ms": None,
+    # JSONL sink of the slow-query log (None = the python logger)
+    "observability.slow_query_path": None,
+    # rolling samples kept per fingerprint (exec, compile, bytes)
+    "observability.profiles.window": 64,
+    "observability.profiles.keep": 512,  # fingerprints kept (LRU)
     # load-time column encodings (columnar/encodings.py): auto | off
     "columnar.encoding": "auto",
     "columnar.encoding.min_rows": 1024,

@@ -13,18 +13,26 @@ pruning), then plan-family parameterization (`families/`).  A plan cache
 keyed by the SQL text, the catalog's versions and the config lets a
 repeated single statement skip all of that.  The statements (DDL, SHOW,
 INSERT INTO, ANALYZE) run as they are planned (`physical/rel/custom/`).
-The serving, result-cache, materialization, admission and observability
-tiers of the reference are not ported yet.
+Each `sql` call records a lifecycle trace (`observability/`: the stages
+parse, bind, optimize, parameterize, verify, estimate, execute and d2h,
+kept in `traces` and `last_trace`), every execution feeds the metrics
+registry (`metrics`, `serving/metrics.py`) and the per-fingerprint
+profiles (`profiles`), which SHOW METRICS and SHOW PROFILES read.  The
+serving, result-cache, materialization and admission tiers of the
+reference are not ported yet (ROADMAP.md Queue 1 item 8b, 8c).
 """
 from __future__ import annotations
 
+import contextlib
 import logging
+import time
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from . import observability
 from .columnar.dtypes import SqlType, np_to_sql
 from .columnar.table import Table, normalize_device
 from .config import Config
@@ -38,7 +46,7 @@ from .planner.binder import Binder
 from .planner.catalog import Catalog, CatalogTable
 from .planner.expressions import Field
 from .planner.parser import parse_sql
-from .utils import Metrics
+from .serving.metrics import MetricsRegistry
 
 logger = logging.getLogger(__name__)
 
@@ -65,6 +73,12 @@ class TorchFrame:
         self._field_names = field_names
         self._result: Optional[Table] = None
         self._config_options = dict(config_options or {})
+        #: the lifecycle trace active when this frame was planned
+        #: (observability/spans.py): a lazy execute or compute activates it
+        #: again, so plan-time and run-time spans land on one trace
+        self._trace: Optional[observability.QueryTrace] = None
+        #: the full statement text, for the fingerprint's profile
+        self._sql: Optional[str] = None
 
     @property
     def columns(self) -> List[str]:
@@ -74,14 +88,45 @@ class TorchFrame:
         """Run the plan to a Table (cached).  Every failure leaves here as
         a taxonomy `QueryError` (``code``, ``retryable``, ``degradable``;
         `resilience/ladder.py` `wrap_boundary`), but for the port's
-        `NotImplementedError` naming a later slice."""
+        `NotImplementedError` naming a later slice.  The run is the
+        ``execute`` stage of the query's trace; it counts
+        ``query.executed``, observes ``query.execute_ms`` and records the
+        fingerprint's profile, with tracing on or off."""
         if self._result is None:
             from .config import parse_byte_budget
             from .physical.executor import Executor
-            from .resilience.ladder import wrap_boundary
+            from .resilience.ladder import plan_fingerprint, wrap_boundary
 
             ctx = self._context
-            with ctx.config.set(self._config_options):
+            tr = self._trace
+            # a parameterized plan's family fingerprint keys its profile,
+            # so `l_shipdate <= DATE '1998-09-02'` and another date are one
+            family = getattr(self._plan, "_dsql_family", None)
+            family_fp = family.fingerprint if family is not None else None
+            fp = family_fp or plan_fingerprint(self._plan)
+            sql_text = self._sql or (tr.sql if tr is not None else None)
+
+            def _finish_on_error(exc_type, exc, tb):
+                # a failing query's lifecycle ends here, so it reaches the
+                # slow-query check too
+                if exc is not None and tr is not None:
+                    tr.finish(ctx.config, ctx.metrics)
+                return False
+
+            with contextlib.ExitStack() as stack:
+                # entered before the finish hook, so the hook still sees
+                # this query's config overrides (a per-query slow_query_ms)
+                stack.enter_context(ctx.config.set(self._config_options))
+                stack.push(_finish_on_error)
+                if tr is not None:
+                    if observability.current_trace() is not tr:
+                        stack.enter_context(observability.activate(tr))
+                    tr.fingerprint = fp
+                # compile histograms and profiles record through the sink
+                # with tracing off too
+                stack.enter_context(observability.compile_sink(
+                    ctx.metrics, ctx.profiles, fp, sql_text,
+                    family=family_fp))
                 if parse_byte_budget(ctx.config.get(
                         "serving.admission.max_estimated_bytes")) is not None \
                         and not _renders_only(self._plan):
@@ -89,17 +134,53 @@ class TorchFrame:
                     raise NotImplementedError(
                         "serving.admission.max_estimated_bytes needs the "
                         "admission gate (serving/admission.py, ROADMAP.md "
-                        "Queue 1 item 8), not in the port yet")
-                self._result = wrap_boundary(
-                    lambda: Executor(ctx).execute_root(self._plan))
+                        "Queue 1 item 8b), not in the port yet")
+                trace = bool(ctx.config.get("serving.metrics.node_traces",
+                                            False))
+                executor = Executor(ctx, trace=trace)
+                t0 = time.perf_counter()
+                with observability.stage("execute"):
+                    self._result = wrap_boundary(
+                        lambda: executor.execute_root(self._plan))
+                exec_ms = (time.perf_counter() - t0) * 1000.0
+                ctx.metrics.observe("query.execute_ms", exec_ms)
+                ctx.metrics.inc("query.executed")
+                if trace:
+                    executor.tracer.publish(ctx.metrics)
+                    if tr is not None:
+                        tr.attach_node_tree(executor.tracer.root)
+                ctx.profiles.record_exec(
+                    fp, sql=sql_text, exec_ms=exec_ms,
+                    result_bytes=sum(col.device_nbytes() for col in
+                                     self._result.columns.values()),
+                    family=family_fp, rows=self._result.num_rows)
+                est = getattr(self._plan, "_dsql_estimate", None)
+                if est is not None:
+                    # the estimated side of SHOW PROFILES' rows, recorded
+                    # now that the entry exists
+                    ctx.profiles.record_estimate(fp, est.rows.hi,
+                                                 family=family_fp)
         return self._result
 
     def compute(self):
-        """Materialize to a pandas DataFrame with the SQL output names."""
+        """Materialize to a pandas DataFrame with the SQL output names.
+        The transfer is observed as ``query.d2h_ms`` on every call, and is
+        the trace's ``d2h`` stage (once), which ends its lifecycle."""
         table = self.execute()
         config = self._context.config
+        t0 = time.perf_counter()
         with config.set(self._config_options):
             df = table.to_pandas(config)
+        t1 = time.perf_counter()
+        self._context.metrics.observe("query.d2h_ms", (t1 - t0) * 1e3)
+        tr = self._trace
+        if tr is not None:
+            # add-once: a repeated compute() must not add stages to a
+            # finished (possibly already slow-logged) trace
+            tr.add_span_once("d2h", t0, t1, rows=table.num_rows,
+                             cols=len(self._field_names))
+            with config.set(self._config_options):
+                tr.finish(config, self._context.metrics)
         df.columns = self._disambiguated_names()
         return df
 
@@ -127,7 +208,18 @@ class Context:
             self.DEFAULT_SCHEMA_NAME: SchemaContainer(self.DEFAULT_SCHEMA_NAME)
         }
         self.config = Config()
-        self.metrics = Metrics()
+        #: counters, gauges and histograms of this Context (SHOW METRICS)
+        self.metrics = MetricsRegistry()
+        #: per-fingerprint rolling profiles (compile, exec, bytes) behind
+        #: SHOW PROFILES
+        self.profiles = observability.ProfileStore(
+            window=int(self.config.get("observability.profiles.window", 64)),
+            keep=int(self.config.get("observability.profiles.keep", 512)))
+        #: finished lifecycle traces, qid -> QueryTrace
+        self.traces = observability.TraceStore(
+            int(self.config.get("observability.trace.keep", 256)))
+        #: the most recently started lifecycle trace
+        self.last_trace: Optional[observability.QueryTrace] = None
         from .resilience.retry import CircuitBreaker
 
         #: per-(plan family, ladder rung) circuit breaker: a query shape
@@ -165,7 +257,7 @@ class Context:
         row count come from the footers, and each query reads the columns
         and row groups it needs.  Loading picks each column's compressed
         encoding (``columnar.encoding*`` keys); the encoded columns are
-        counted in ``metrics["columnar.encoding.encoded_columns"]`` and the
+        counted in ``metrics.counter("columnar.encoding.encoded_columns")`` and the
         resident bytes, encoded and as they would be decoded, recorded
         under ``columnar.encoding.encoded_bytes`` / ``decoded_bytes``.  The
         row count becomes the table's statistics unless ``statistics`` is
@@ -388,18 +480,44 @@ class Context:
         single statement's plan is kept in the plan cache."""
         if not isinstance(sql, str):
             raise ValueError("sql must be a string")
-        with self.config.set(config_options):
+        with contextlib.ExitStack() as scope:
+            scope.enter_context(self.config.set(config_options))
+            # the lifecycle trace of this call: an outer scope's active
+            # trace is reused, else this call opens (and owns) one
+            tr = None
+            owned = False
+            if self._trace_enabled():
+                tr = observability.current_trace()
+                if tr is None:
+                    tr = observability.QueryTrace(
+                        sql=sql, metrics=self.metrics, profiles=self.profiles)
+                    self.traces.put(tr.qid, tr)
+                    owned = True
+                    scope.enter_context(observability.activate(tr))
+                self.last_trace = tr
+
+            def _finish_owned_on_error(exc_type, exc, tb):
+                # a parse, bind or verify failure ends the lifecycle of a
+                # trace this call opened
+                if exc is not None and owned and tr is not None:
+                    tr.finish(self.config, self.metrics)
+                return False
+
+            scope.push(_finish_owned_on_error)
             key = self._plan_cache_key(sql, config_options)
             plans = None if key is None else self._plan_cache.get(key)
             result = None
             if plans is not None:
                 self._plan_cache.move_to_end(key)
                 self.metrics.inc("query.plan_cache.hit")
+                if tr is not None:
+                    tr.event("plan_cache_hit")
                 for plan in plans:
                     result = self._run_plan(plan, config_options)
             else:
                 self.metrics.inc("query.plan_cache.miss")
-                statements = parse_sql(sql)
+                with observability.stage("parse"):
+                    statements = parse_sql(sql)
                 plans = []
                 for stmt in statements:
                     plan = self._get_ral(
@@ -412,9 +530,16 @@ class Context:
                     self._plan_cache[key] = plans
                     while len(self._plan_cache) > self._PLAN_CACHE_CAP:
                         self._plan_cache.popitem(last=False)
-        if result is None or return_futures:
-            return result
-        return result.compute()
+            if result is None:
+                # no result frame (DDL): the lifecycle ends here
+                if owned and tr is not None:
+                    tr.finish(self.config, self.metrics)
+                return None
+            result._trace = tr
+            result._sql = sql
+            if return_futures:
+                return result
+            return result.compute()
 
     def _run_plan(self, plan, config_options=None) -> Optional[TorchFrame]:
         """A query's lazy frame; a statement runs now, and its frame holds
@@ -501,45 +626,51 @@ class Context:
         core_optimized = False
         native_mode = str(self.config.get("sql.native.binder", "auto")).lower()
         want_opt = bool(self.config.get("sql.optimize", True))
-        if sql_text is not None and native_mode in ("auto", "on", "true"):
-            from .planner.native_bridge import native_bind, native_plan
+        with observability.stage("bind") as bind_attrs:
+            if sql_text is not None and native_mode in ("auto", "on", "true"):
+                from .planner.native_bridge import native_bind, native_plan
 
-            cat_buf = self._encoded_catalog(catalog)
-            strict = native_mode != "auto"
-            if want_opt:
-                plan = native_plan(
-                    sql_text, catalog, cat_buf=cat_buf,
-                    predicate_pushdown=bool(
-                        self.config.get("sql.predicate_pushdown", True)),
-                    strict=strict,
-                    fact_dimension_ratio=float(self.config.get(
-                        "sql.optimizer.fact_dimension_ratio", 0.7)),
-                    max_fact_tables=int(self.config.get(
-                        "sql.optimizer.max_fact_tables", 2)),
-                    preserve_user_order=bool(self.config.get(
-                        "sql.optimizer.preserve_user_order", True)),
-                    filter_selectivity=float(self.config.get(
-                        "sql.optimizer.filter_selectivity", 1.0)))
-                core_optimized = plan is not None
-                if core_optimized:
-                    self.metrics.inc("planner.native.plan")
+                cat_buf = self._encoded_catalog(catalog)
+                strict = native_mode != "auto"
+                if want_opt:
+                    plan = native_plan(
+                        sql_text, catalog, cat_buf=cat_buf,
+                        predicate_pushdown=bool(
+                            self.config.get("sql.predicate_pushdown", True)),
+                        strict=strict,
+                        fact_dimension_ratio=float(self.config.get(
+                            "sql.optimizer.fact_dimension_ratio", 0.7)),
+                        max_fact_tables=int(self.config.get(
+                            "sql.optimizer.max_fact_tables", 2)),
+                        preserve_user_order=bool(self.config.get(
+                            "sql.optimizer.preserve_user_order", True)),
+                        filter_selectivity=float(self.config.get(
+                            "sql.optimizer.filter_selectivity", 1.0)))
+                    core_optimized = plan is not None
+                    if core_optimized:
+                        self.metrics.inc("planner.native.plan")
+                if plan is None:
+                    plan = native_bind(sql_text, catalog, cat_buf=cat_buf,
+                                       strict=strict)
+                    if plan is not None:
+                        self.metrics.inc("planner.native.bind")
+            bind_attrs["native"] = plan is not None
             if plan is None:
-                plan = native_bind(sql_text, catalog, cat_buf=cat_buf,
-                                   strict=strict)
-                if plan is not None:
-                    self.metrics.inc("planner.native.bind")
-        if plan is None:
-            plan = Binder(catalog, case_sensitive=case_sensitive).bind_statement(stmt)
-            self.metrics.inc("planner.python.bind")
+                plan = Binder(catalog, case_sensitive=case_sensitive
+                              ).bind_statement(stmt)
+                self.metrics.inc("planner.python.bind")
         if want_opt:
             from .planner.optimizer.driver import optimize_core, optimize_post
             from .resilience.errors import QueryError
 
             try:
-                if not core_optimized:
-                    plan = optimize_core(plan, self.config, catalog)
-                plan = optimize_post(plan, self.config, catalog, context=self,
-                                     skip_reorder=core_optimized)
+                with observability.stage("optimize",
+                                         core_native=core_optimized):
+                    if not core_optimized:
+                        plan = optimize_core(plan, self.config, catalog)
+                    plan = optimize_post(plan, self.config, catalog,
+                                         context=self,
+                                         skip_reorder=core_optimized)
             except QueryError:
                 raise
             except Exception:
@@ -550,10 +681,14 @@ class Context:
             from . import families
 
             if families.enabled(self.config):
-                info = families.family_of(plan, self.config,
-                                          metrics=self.metrics)
-                if info is not None and info.n_params:
-                    self.metrics.inc("families.parameterized")
+                with observability.stage("parameterize") as fam_attrs:
+                    info = families.family_of(plan, self.config,
+                                              metrics=self.metrics)
+                    if info is not None:
+                        fam_attrs["family"] = info.fingerprint
+                        fam_attrs["params"] = info.n_params
+                        if info.n_params:
+                            self.metrics.inc("families.parameterized")
         # plain EXPLAIN (LINT, ESTIMATE) never executes its input, so only
         # executing plans pay the verification and the estimate here
         wants_verify = not _renders_only(plan)
@@ -563,15 +698,25 @@ class Context:
 
             # error findings raise PlanError now; doomed compiled rungs are
             # marked on the plan, and the ladder skips them
-            analysis.verify_and_apply(plan, self,
-                                      strict=(verify_mode == "strict"))
+            with observability.stage("verify", mode=verify_mode):
+                analysis.verify_and_apply(plan, self,
+                                          strict=(verify_mode == "strict"))
         if wants_verify and not isinstance(plan, plan_nodes.CustomNode) \
                 and self._estimate_enabled():
-            self._run_estimator(plan)
+            with observability.stage("estimate") as est_attrs:
+                est = self._run_estimator(plan)
+                if est is not None:
+                    est_attrs["rows_hi"] = est.rows.hi
+                    est_attrs["bytes_lo"] = est.peak_bytes.lo
         return plan
 
     def _estimate_enabled(self) -> bool:
         mode = str(self.config.get("analysis.estimate", "on")).lower()
+        return mode not in ("off", "false", "0", "none")
+
+    def _trace_enabled(self) -> bool:
+        mode = str(self.config.get("observability.trace.enabled",
+                                   True)).lower()
         return mode not in ("off", "false", "0", "none")
 
     def _run_estimator(self, plan):

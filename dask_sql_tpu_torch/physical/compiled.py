@@ -17,8 +17,10 @@ only the group table's rows decode, on the host.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import re
+import weakref
 from dataclasses import replace
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -1425,16 +1427,58 @@ class CompiledAggregate:
         return group_table(self.agg, cols, present)
 
 
-def singleflight_get_or_build(cache: "OrderedDict", key: Tuple, build):
+def singleflight_get_or_build(cache: "OrderedDict", key: Tuple, build,
+                              rung: str, context, cap: int):
     """The miss protocol of the compiled-pipeline caches: look up (LRU
-    touch) or build.  ``build()`` constructs, inserts into `cache` and
-    returns the pipeline.  Returns (pipeline, built_here).  The port plans
+    touch) or build, insert and evict past `cap` entries.  ``build()``
+    constructs the pipeline; the build is the rung's compile
+    (`observability.timed_build`: ``resilience.compile_ms.<rung>``, a
+    ``compile:<rung>`` span, the profile's compile entry), and a hit
+    records nothing.  The key is prefixed with the Context's owner token,
+    so the entry leaves the cache when its Context is collected
+    (`pipeline_owner`).  Returns (pipeline, built_here).  The port plans
     and runs on one thread, so no construction waits for another."""
+    from ..observability import timed_build
+
+    key = (pipeline_owner(context),) + tuple(key)
     compiled = cache.get(key)
     if compiled is not None:
         cache.move_to_end(key)
         return compiled, False
-    return build(), True
+    compiled = timed_build(rung, build)
+    cache[key] = compiled
+    while len(cache) > cap:
+        cache.popitem(last=False)
+    return compiled, True
+
+
+#: owner token source of `pipeline_owner`
+_owners = itertools.count(1)
+
+
+def pipeline_owner(context) -> int:
+    """The token that marks a Context's entries in the module-level
+    pipeline caches (this module's, `compiled_join.py`'s and
+    `compiled_select.py`'s).  A pipeline keeps device tensors made from
+    its Context's tables (lookup tables, dictionary values), so when the
+    Context is collected a finalizer evicts its entries, and their card
+    memory goes with it.  The finalizer holds the token, not the
+    Context."""
+    token = context.__dict__.get("_pipeline_owner")
+    if token is None:
+        token = context._pipeline_owner = next(_owners)
+        # at interpreter exit the process frees the card anyway
+        weakref.finalize(context, evict_owner, token).atexit = False
+    return token
+
+
+def evict_owner(token: int) -> None:
+    """Drop every cached pipeline of the Context whose token this is."""
+    from . import compiled_join, compiled_select
+
+    for cache in (_cache, compiled_join._cache, compiled_select._cache):
+        for key in [k for k in cache if k[0] == token]:
+            del cache[key]
 
 
 def evict(cache: "OrderedDict", compiled) -> None:
@@ -1448,7 +1492,8 @@ def evict(cache: "OrderedDict", compiled) -> None:
         del cache[key]
 
 
-#: LRU of scan-chain pipelines, keyed by the table version and the plan
+#: LRU of scan-chain pipelines, keyed by the Context's owner token, the
+#: table version and the plan
 _CACHE_CAP = 32
 _cache: "OrderedDict[tuple, CompiledAggregate]" = OrderedDict()
 
@@ -1456,7 +1501,7 @@ _cache: "OrderedDict[tuple, CompiledAggregate]" = OrderedDict()
 def _scan_chain_pipeline(rel, chain, executor):
     """(pipeline, table, params) for an aggregate over a scan chain, the
     pipeline from the cache or built and cached (a build counts its
-    code-space predicates in ``metrics["columnar.encoding.codespace_pred"]``,
+    code-space predicates in ``metrics.counter("columnar.encoding.codespace_pred")``,
     a reuse with parameters ``families.hit``); raises _Unsupported when the
     pipeline declines the chain.  The filters' and the aggregate
     arguments' literals lift into parameters first, so the key, and the
@@ -1486,14 +1531,11 @@ def _scan_chain_pipeline(rel, chain, executor):
     )
 
     def build():
-        obj = CompiledAggregate(rel, table, filters, group_exprs, agg_exprs,
-                                executor.config)
-        _cache[key] = obj
-        while len(_cache) > _CACHE_CAP:
-            _cache.popitem(last=False)
-        return obj
+        return CompiledAggregate(rel, table, filters, group_exprs, agg_exprs,
+                                 executor.config)
 
-    compiled, built_here = singleflight_get_or_build(_cache, key, build)
+    compiled, built_here = singleflight_get_or_build(
+        _cache, key, build, "compiled_aggregate", ctx, _CACHE_CAP)
     if not built_here and params:
         ctx.metrics.inc("families.hit")
     if built_here and compiled.codespace_preds:
@@ -1505,13 +1547,13 @@ def _scan_chain_pipeline(rel, chain, executor):
 def try_compiled_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     """Run an Aggregate over a scan chain as one fused pipeline; None when
     the plan is not a scan chain or the pipeline declines it (a decline of
-    a chain is counted in ``metrics["compiled_aggregate.declined"]``), and
+    a chain is counted in ``metrics.counter("compiled_aggregate.declined")``), and
     the next rung answers.
 
     The scan under filters and projections is read in place, its filters
     deferred as a mask and its encoded columns as codes; each run counts
     the rows it decodes on the host in
-    ``metrics["columnar.encoding.late_rows"]``."""
+    ``metrics.counter("columnar.encoding.late_rows")``."""
     if not executor.config.get("sql.compile", True):
         return None
     chain = _extract_chain(rel)

@@ -508,7 +508,8 @@ def _plan_nodes(node):
 
 #: LRU of pipelines; an entry keeps its lookup tables on the device across
 #: runs of the same table versions, capped so stale versions cannot pin
-#: device memory for ever
+#: device memory for ever, and evicted with its Context
+#: (`compiled.pipeline_owner`)
 _CACHE_CAP = 16
 _cache: "OrderedDict[tuple, CompiledJoinAggregate]" = OrderedDict()
 #: plan shapes known ineligible, checked before any build side runs; keys
@@ -519,9 +520,9 @@ _declined: set = set()
 
 def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     """Run an Aggregate over a join chain as one pipeline (each run counted
-    in ``metrics["compiled_join.run"]``); None when the plan is not such a
+    in ``metrics.counter("compiled_join.run")``); None when the plan is not such a
     chain or the pipeline declines it (counted in
-    ``metrics["compiled_join.declined"]`` and logged)."""
+    ``metrics.counter("compiled_join.declined")`` and logged)."""
     if not executor.config.get("sql.compile", True):
         return None
     if not executor.config.get("sql.compile.join_pipeline", True):
@@ -593,14 +594,11 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
         )
 
         def build():
-            obj = CompiledJoinAggregate(rel, ext, group_exprs, agg_exprs,
-                                        probe_table, build_tables, executor)
-            _cache[key] = obj
-            while len(_cache) > _CACHE_CAP:
-                _cache.popitem(last=False)
-            return obj
+            return CompiledJoinAggregate(rel, ext, group_exprs, agg_exprs,
+                                         probe_table, build_tables, executor)
 
-        compiled, built_here = singleflight_get_or_build(_cache, key, build)
+        compiled, built_here = singleflight_get_or_build(
+            _cache, key, build, "compiled_join_aggregate", ctx, _CACHE_CAP)
         if not built_here and params:
             ctx.metrics.inc("families.hit")
         if built_here and compiled.codespace_preds:

@@ -355,6 +355,8 @@ def _dictionary_sorted(dic) -> bool:
     return bool(all(str(a[i]) <= str(a[i + 1]) for i in range(len(a) - 1)))
 
 
+#: LRU of root-select pipelines, evicted with their Context
+#: (`compiled.pipeline_owner`)
 _CACHE_CAP = 32
 _cache: "OrderedDict[Tuple, CompiledSelect]" = OrderedDict()
 
@@ -381,7 +383,7 @@ def try_compiled_select(root, executor) -> Optional[Table]:
     """Run a ROOT select chain as the two programs and two transfers; None
     when the plan is not such a chain or the pipeline declines it.  A build
     counts its code-space predicates in
-    ``metrics["columnar.encoding.codespace_pred"]``; a run over encoded
+    ``metrics.counter("columnar.encoding.codespace_pred")``; a run over encoded
     columns counts its result rows in ``columnar.encoding.late_rows``."""
     if not executor.config.get("sql.compile", True):
         return None
@@ -420,15 +422,12 @@ def try_compiled_select(root, executor) -> Optional[Table]:
         ctx = executor.context
 
         def build():
-            obj = CompiledSelect(table, p_upper, p_scan_flts, proj, p_exprs,
-                                 sort_keys, sort_fetch, limit, inner_limit,
-                                 params)
-            _cache[key] = obj
-            while len(_cache) > _CACHE_CAP:
-                _cache.popitem(last=False)
-            return obj
+            return CompiledSelect(table, p_upper, p_scan_flts, proj, p_exprs,
+                                  sort_keys, sort_fetch, limit, inner_limit,
+                                  params)
 
-        compiled, built_here = singleflight_get_or_build(_cache, key, build)
+        compiled, built_here = singleflight_get_or_build(
+            _cache, key, build, "compiled_select", ctx, _CACHE_CAP)
         if not built_here and params:
             ctx.metrics.inc("families.hit")
         if built_here and compiled.codespace_preds:

@@ -5,7 +5,9 @@ root runs under the degradation ladder (`resilience/ladder.py`): the
 compiled root select (`compiled_select.py`) first, then the interpreted
 walk, where each plan node goes to the plugin registered for its node
 type: the relational operators (`rel/logical/`) and the statements
-(`rel/custom/ddl.py`).
+(`rel/custom/ddl.py`).  With ``trace`` on, each plan node runs under the
+per-node `Tracer` (tracing.py): EXPLAIN ANALYZE and
+``serving.metrics.node_traces``.
 """
 from __future__ import annotations
 
@@ -20,10 +22,15 @@ from .rex.convert import RexConverter
 class Executor:
     _plugins: Dict[str, BaseRelPlugin] = {}
 
-    def __init__(self, context):
+    def __init__(self, context, trace: bool = False):
+        from ..tracing import Tracer
+
         self.context = context
         self.rex = RexConverter(self)
         self._memo: Dict[int, Table] = {}
+        self.tracer = Tracer(context.device)
+        if trace:
+            self.tracer.start()
         #: (schema, table) -> the Table that a scan of it reads instead
         #: (a batch of the streamed aggregate, `streaming.py`)
         self.table_overrides: Dict[tuple, Table] = {}
@@ -69,7 +76,12 @@ class Executor:
         if plugin is None:
             raise NotImplementedError(
                 f"No rel plugin for node type {rel.node_type!r} in the port yet")
-        out = plugin.convert(rel, self)
+        if self.tracer.enabled:
+            with self.tracer.node(rel) as ctx:
+                out = plugin.convert(rel, self)
+                ctx.rows = out.num_rows
+        else:
+            out = plugin.convert(rel, self)
         self._memo[key] = out
         return out
 

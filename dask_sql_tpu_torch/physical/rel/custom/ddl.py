@@ -11,10 +11,13 @@ the rows in place (`Context.append_rows`).
 CREATE TABLE ... WITH (location = ..., format = ..., persist = ...)
 registers files or a published dataset through `Context.create_table`.
 
+SHOW METRICS reads the Context's metrics registry (`serving/metrics.py`)
+and SHOW PROFILES its profile store (`observability/profiles.py`).
+
 The statements whose subsystem the port does not have yet raise
 `NotImplementedError`, naming it and its item in ROADMAP.md's Queue 1:
-SHOW MODELS (item 9), SHOW METRICS, PROFILES, QUERIES and MATERIALIZED and CANCEL
-QUERY (item 8), SHOW REPLICAS (item 10).
+SHOW MODELS (item 9), SHOW QUERIES and CANCEL QUERY (item 8b), SHOW
+MATERIALIZED (item 8c), SHOW REPLICAS (item 10).
 """
 from __future__ import annotations
 
@@ -283,20 +286,88 @@ class AnalyzeTablePlugin(BaseRelPlugin):
         return _string_table(combined)
 
 
+def _like_match(pattern: str, name: str) -> bool:
+    """SQL LIKE semantics when the pattern has a % wildcard (then _ is the
+    single-character wildcard too); substring containment otherwise, since
+    metric names hold literal underscores.  Copied from the reference's
+    `ddl.py`."""
+    if "%" in pattern:
+        import re
+
+        from ....ops.strings import like_to_regex
+
+        return re.match(like_to_regex(pattern), name) is not None
+    return pattern in name
+
+
+def _flatten_metrics(prefix: str, value) -> list:
+    """Nested snapshot dicts -> sorted (dotted-name, str) rows."""
+    if isinstance(value, dict):
+        out = []
+        for k in sorted(value):
+            out.extend(_flatten_metrics(f"{prefix}.{k}", value[k]))
+        return out
+    return [(prefix, "" if value is None else str(value))]
+
+
+@Executor.add_plugin_class
+class ShowMetricsPlugin(BaseRelPlugin):
+    """SHOW METRICS [LIKE 'pat']: the Context's metrics registry as rows of
+    (Metric, Value): counters, gauges, histograms (count, avg, p50, p95,
+    p99, max), the plan cache's entries and the circuit breaker's
+    snapshot.  The reference's result-cache and serving-runtime rows come
+    with those tiers (ROADMAP.md Queue 1 item 8b)."""
+
+    class_name = "ShowMetricsNode"
+
+    def convert(self, rel: p.ShowMetricsNode, executor) -> Table:
+        ctx = executor.context
+        rows = list(ctx.metrics.rows())
+        rows.append(("plan_cache.entries", str(len(ctx._plan_cache))))
+        rows.extend(_flatten_metrics("resilience.breaker",
+                                     ctx.breaker.snapshot()))
+        if rel.like:
+            rows = [r for r in rows if _like_match(rel.like, r[0])]
+        rows.sort()
+        return _string_table({"Metric": [r[0] for r in rows],
+                              "Value": [r[1] for r in rows]})
+
+
+@Executor.add_plugin_class
+class ShowProfilesPlugin(BaseRelPlugin):
+    """SHOW PROFILES [LIKE 'pat']: the per-fingerprint profile store as
+    rows of (Fingerprint, Family, Metric, Value): hits, rolling exec wall
+    times, result bytes, rows, the rungs that answered and the per-rung
+    compile (pipeline build) times.  LIKE filters on the fingerprint, the
+    family or the metric name."""
+
+    class_name = "ShowProfilesNode"
+
+    def convert(self, rel: p.ShowProfilesNode, executor) -> Table:
+        rows = executor.context.profiles.rows()
+        if rel.like:
+            rows = [r for r in rows
+                    if _like_match(rel.like, r[0])
+                    or _like_match(rel.like, r[1])
+                    or _like_match(rel.like, r[2])]
+        return _string_table({"Fingerprint": [r[0] for r in rows],
+                              "Family": [r[1] for r in rows],
+                              "Metric": [r[2] for r in rows],
+                              "Value": [r[3] for r in rows]})
+
+
 for _node, _statement, _needs in (
         ("ShowModelsNode", "SHOW MODELS",
          "the model registry (ml/, ROADMAP.md Queue 1 item 9)"),
-        ("ShowMetricsNode", "SHOW METRICS",
-         "the serving metrics registry (serving/, ROADMAP.md Queue 1 item 8)"),
-        ("ShowProfilesNode", "SHOW PROFILES",
-         "the profile store (observability/, ROADMAP.md Queue 1 item 8)"),
         ("ShowQueriesNode", "SHOW QUERIES",
-         "the live query table (observability/, ROADMAP.md Queue 1 item 8)"),
+         "the live query table (observability/live.py, ROADMAP.md Queue 1 "
+         "item 8b)"),
         ("ShowMaterializedNode", "SHOW MATERIALIZED",
-         "the semantic-reuse state (materialize/, ROADMAP.md Queue 1 item 8)"),
+         "the semantic-reuse state (materialize/, ROADMAP.md Queue 1 "
+         "item 8c)"),
         ("CancelQueryNode", "CANCEL QUERY",
-         "the live query registry (observability/, ROADMAP.md Queue 1 "
-         "item 8)"),
+         "the live query registry (observability/live.py, ROADMAP.md "
+         "Queue 1 item 8b)"),
         ("ShowReplicasNode", "SHOW REPLICAS",
          "the fleet router (fleet/, ROADMAP.md Queue 1 item 10)")):
     Executor.add_plugin_class(type(

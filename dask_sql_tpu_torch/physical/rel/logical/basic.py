@@ -42,7 +42,7 @@ class TableScanPlugin(BaseRelPlugin):
     """Projection + pushed-down filters over a registered table.  The eager
     operators work in value space, so an encoded table (columnar/
     encodings.py) decodes once here, counted in
-    ``metrics["columnar.encoding.decode"]``; the compiled pipelines read the
+    ``metrics.counter("columnar.encoding.decode")``; the compiled pipelines read the
     codes and never reach this plugin.  A batch of the streamed aggregate
     (`executor.table_overrides`) stands in for its table; a lazy parquet
     table reads only the projected columns, with the filters pyarrow can
@@ -355,8 +355,11 @@ class ExplainPlugin(BaseRelPlugin):
     errors and doomed-rung warnings first, then the advisories) and EXPLAIN
     ESTIMATE the estimator's intervals (`analysis/estimator.py`) with the
     budget proofs execution would act on; neither runs its input.  EXPLAIN
-    ANALYZE needs the query traces of `observability/` (ROADMAP.md Queue 1
-    item 8)."""
+    ANALYZE runs its input under the per-node tracer (`tracing.py`; on the
+    card each node waits for its device work) and prints the node tree
+    under the query's lifecycle stages so far (`observability/spans.py`;
+    the ``execute`` stage is still open while it renders); with FORMAT
+    JSON it gives the lifecycle trace as Chrome-trace JSON."""
 
     class_name = "Explain"
 
@@ -379,9 +382,30 @@ class ExplainPlugin(BaseRelPlugin):
             metrics.inc("analysis.explain_estimate")
             rows = est.format_rows()
         elif rel.analyze:
-            raise NotImplementedError(
-                "EXPLAIN ANALYZE needs observability/ (query traces, "
-                "ROADMAP.md Queue 1 item 8), not in the port yet")
+            import json
+
+            from ....observability import QueryTrace, current_trace
+            from ...executor import Executor
+
+            traced = Executor(executor.context, trace=True)
+            traced.execute(rel.input)
+            root = traced.tracer.root
+            tr = current_trace()
+            if tr is not None and root is not None:
+                tr.attach_node_tree(root)
+            if getattr(rel, "fmt_json", False):
+                if tr is None:
+                    # tracing off: the node tree alone, still a loadable
+                    # Chrome trace
+                    tr = QueryTrace(sql="EXPLAIN ANALYZE")
+                    tr.attach_node_tree(root)
+                rows = [json.dumps(tr.to_chrome_trace())]
+            else:
+                rows = []
+                if tr is not None:
+                    rows.extend(tr.format_lines())
+                    rows.append("")
+                rows.extend((root.format() if root else "").split("\n"))
         else:
             rows = rel.input.explain().split("\n")
         lines = np.array(rows, dtype=object)

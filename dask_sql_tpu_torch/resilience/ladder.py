@@ -35,9 +35,13 @@ Rungs in the port: ``compiled_select`` (physical/compiled_select.py),
 plugins) and ``cpu`` (on a CPU Context).  Left out until the modules they need are ported
 (ROADMAP.md Queue 1): the cost-based skip (`cost_skip`, which reads
 ``observability/profiles.py``) and reclaim-before-degrade, which retries a
-rung after `resilience/pressure.py` frees cached bytes (item 8); the
-flight recorder, the live query table and trace events (item 8); the
-predict, streamed, SPMD and distributed rungs (items 8-10).  The
+rung after `resilience/pressure.py` frees cached bytes (item 8b); the
+flight recorder and the live query table (item 8b); the predict,
+streamed, SPMD and distributed rungs (items 8-10), with the ``rung:<rung>``
+event the reference records for an SPMD rung.  Each skip and step down is
+an event on the query's lifecycle trace (`observability/spans.py`), and a
+step down a marker in EXPLAIN ANALYZE's node tree; a rung that answers
+records its wall time on the fingerprint's profile (SHOW PROFILES).  The
 reference's CPU rung also serves a query on the accelerator (jax steers new
 arrays to the host); the port's does not (ROADMAP.md Queue 3).
 """
@@ -45,8 +49,10 @@ from __future__ import annotations
 
 import hashlib
 import logging
+import time
 from typing import Callable, Optional, TypeVar
 
+from ..observability import trace_event
 from . import faults
 from .errors import QueryError, classify
 
@@ -102,6 +108,7 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
     if skip_rungs and rung in skip_rungs:
         metrics.inc("analysis.rung_skip")
         metrics.inc(f"analysis.rung_skip.{rung}")
+        trace_event(f"rung_proof_skip:{rung}")
         logger.debug("plan verifier marked rung %s doomed: skipping", rung)
         return None
     breaker = _breaker_of(executor)
@@ -113,8 +120,10 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
         if not breaker.allow(key):
             metrics.inc("resilience.breaker.skip")
             metrics.inc(f"resilience.breaker.skip.{rung}")
+            trace_event(f"breaker_skip:{rung}", fingerprint=key[0])
             logger.debug("breaker open for rung %s: skipping", rung)
             return None
+    t0 = time.perf_counter()
     try:
         if inject_site is not None:
             faults.maybe_inject(inject_site, executor.config)
@@ -127,6 +136,9 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
             raise
         metrics.inc("resilience.degraded")
         metrics.inc(f"resilience.degraded.{rung}")
+        trace_event(f"degraded:{rung}", code=err.code)
+        if executor.tracer.enabled:
+            executor.tracer.event(f"degraded: {rung} [{err.code}]")
         if key is not None and breaker.record_failure(key):
             metrics.inc("resilience.breaker.trip")
             logger.warning("breaker tripped for rung %s (plan %s): %s",
@@ -137,6 +149,12 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
         metrics.inc(f"resilience.rung.{rung}")
         if key is not None:
             breaker.record_success(key)
+        if rel is not None:
+            # the per-(family, rung) wall time SHOW PROFILES shows (a build
+            # on a pipeline-cache miss included)
+            executor.context.profiles.record_rung_exec(
+                key[0] if key is not None else _fingerprint_of(executor, rel),
+                rung, (time.perf_counter() - t0) * 1000.0)
     return out
 
 
@@ -165,6 +183,9 @@ def execute_interpreted(executor, rel):
     metrics = executor.context.metrics
     metrics.inc("resilience.degraded")
     metrics.inc("resilience.degraded.interpreted")
+    trace_event("degraded:interpreted", code=code)
+    if executor.tracer.enabled:
+        executor.tracer.event(f"degraded: interpreted [{code}]")
     logger.warning("interpreted path failed degradably (%s); re-executing "
                    "with the compiled rungs off", code)
     executor._memo.clear()  # drop the partial results of the failed walk

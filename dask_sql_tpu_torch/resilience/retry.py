@@ -1,10 +1,11 @@
 """The per-(plan family, rung) circuit breaker of the degradation ladder.
 
 Copied from `dask_sql_tpu/resilience/retry.py`, the breaker only: the
-ladder (`ladder.attempt`) consults it.  The reference's retry with backoff
-(`BackoffPolicy`, `retry_call`), its `resilience.retry.*` keys and the
-breaker's snapshot and persistence come with their callers, the serving
-worker and its checkpoints (ROADMAP.md Queue 1 item 8).
+ladder (`ladder.attempt`) consults it and SHOW METRICS reads its
+`snapshot`.  The reference's retry with backoff (`BackoffPolicy`,
+`retry_call`), its `resilience.retry.*` keys and the breaker's persistence
+come with their callers, the serving worker and its checkpoints
+(ROADMAP.md Queue 1 item 8b).
 
 A plan fingerprint whose compiled rung failed `threshold` consecutive
 times skips that rung for `cooldown_s` and goes straight to its known-good
@@ -84,6 +85,14 @@ class CircuitBreaker:
         with self._lock:
             st = self._state.get(key)
             return bool(st and st[1] is not None)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            open_keys = sum(1 for st in self._state.values()
+                            if st[1] is not None)
+            return {"keys": len(self._state), "open": open_keys,
+                    "threshold": self.threshold,
+                    "cooldownSeconds": self.cooldown_s}
 
     def _evict_locked(self) -> None:
         # bounded memory: drop oldest entries past the cap (dict preserves

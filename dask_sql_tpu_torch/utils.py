@@ -1,9 +1,8 @@
-"""Device-to-host transfer accounting and counters (counterparts of the
-TRANSFER_STATS counter and `host_ints` in `dask_sql_tpu/utils.py`)."""
+"""Device-to-host transfer accounting (counterparts of the TRANSFER_STATS
+counter and `host_ints` in `dask_sql_tpu/utils.py`)."""
 from __future__ import annotations
 
-from collections import Counter
-from typing import Dict, List
+from typing import Dict
 
 #: device->host transfers made through the port's own seams (the packed
 #: aggregate pull, host bounds of integer group keys, column
@@ -26,20 +25,3 @@ def host_ints(*vals):
     count_d2h()
     return tuple(int(v) for v in torch.stack(
         [torch.as_tensor(v).to(torch.int64) for v in vals]).cpu().tolist())
-
-
-class Metrics(Counter):
-    """Named event counters of one Context (``planner.optimize.fallback``,
-    ``query.plan_cache.hit``/``miss``, ``compiled_join.run``/``declined``,
-    ``resilience.rung.<rung>``, ``columnar.encoding.*``), and the values
-    observed under a name (``observed``)."""
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.observed: Dict[str, List[float]] = {}
-
-    def inc(self, name: str, n: int = 1) -> None:
-        self[name] += n
-
-    def observe(self, name: str, value: float) -> None:
-        self.observed.setdefault(name, []).append(value)

@@ -87,6 +87,37 @@ def reworded(rows):
     return out
 
 
+_HI = re.compile(r"( bytes_hi=| scratch_hi=)(\d+|unbounded)")
+
+
+def _his(row: str):
+    """The row with its hi fields blanked, and those fields' values (a
+    node line without ``scratch_hi`` has 0, ``unbounded`` is None)."""
+    his = [None if v == "unbounded" else int(v) for _, v in _HI.findall(row)]
+    if row.startswith("node ") and " scratch_hi=" not in row:
+        his.append(0)
+    return _HI.sub(r"\1", row), his
+
+
+def assert_estimate_rows(got, want):
+    """EXPLAIN ESTIMATE rows of the port against the reference's: every
+    field equal but ``peak_bytes.hi``, which the port charges with its
+    fused programs' temporaries (`analysis/fused.py`) on the nodes a
+    compiled rung runs (an Aggregate, or the root select chain's root):
+    there, and in the header's ``bytes_hi``, the port's hi is at least the
+    reference's (a deliberate divergence, ROADMAP.md Queue 3)."""
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        (g_row, g_his), (w_row, w_his) = _his(g), _his(w)
+        assert g_row.replace(" scratch_hi=", "") == \
+            w_row.replace(" scratch_hi=", ""), (g, w)
+        for gh, wh in zip(g_his, w_his):
+            if gh != wh:
+                assert wh is not None and (gh is None or gh > wh), (g, w)
+                assert g.startswith(("estimate:", "node Aggregate:")) or (
+                    i == 2 and g.startswith("node ")), g
+
+
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """The port's tensors here are tiny: one thread runs them fastest on
@@ -178,7 +209,7 @@ def test_explain_lint_native_binder_path(ctx):
                   config_options={"sql.native.binder": "on"}).compute()
     assert list(out.columns) == ["LINT"]
     assert "summary:" in "\n".join(out["LINT"])
-    assert ctx.metrics["analysis.explain_lint"] == 1
+    assert ctx.metrics.counter("analysis.explain_lint") == 1
 
 
 def test_dtype_mismatch_raises_plan_error(ctx):
@@ -276,9 +307,9 @@ def test_radix_overflow_skips_rungs_and_still_answers(wide_ctx):
     out = wide_ctx.sql(WIDE_QUERY).compute()
     assert len(out) == 2500
     m = wide_ctx.metrics
-    assert m["analysis.rung_skip.compiled_aggregate"] == 1
-    assert m["analysis.findings.radix-overflow"] == 1
-    assert m["resilience.degraded"] == 0  # skipped, not attempted
+    assert m.counter("analysis.rung_skip.compiled_aggregate") == 1
+    assert m.counter("analysis.findings.radix-overflow") == 1
+    assert m.counter("resilience.degraded") == 0  # skipped, not attempted
 
 
 def test_radix_overflow_raises_at_bind_time_under_strict(wide_ctx):
@@ -403,6 +434,11 @@ def test_explain_analyze_estimate_is_bounded(est_ctx):
     est = getattr(plan, "_dsql_estimate", None)
     assert est is not None
     assert est.rows.hi is not None and est.peak_bytes.hi is not None
+    # and it answers: the traced tree's Aggregate shows the groups
+    rows = est_ctx.sql(sql).compute()["PLAN"].tolist()
+    groups = est_ctx.sql("SELECT DISTINCT b FROM t").compute()
+    assert any(r.lstrip().startswith("Aggregate: ")
+               and r.endswith(f" {len(groups)} rows]") for r in rows), rows
 
 
 def test_peak_lower_bound_counts_resident_scans(est_ctx):
@@ -421,7 +457,7 @@ def test_explain_estimate_shape(est_ctx):
         assert token in head
     text = "\n".join(out["ESTIMATE"])
     assert "result: bytes=" in text and "node " in text
-    assert est_ctx.metrics["analysis.explain_estimate"] == 1
+    assert est_ctx.metrics.counter("analysis.explain_estimate") == 1
 
 
 def test_explain_estimate_native_python_parity(est_ctx):
@@ -480,9 +516,9 @@ def test_rung_proof_preskips_compiled_aggregate(est_ctx):
                       ).compute()
     assert len(out) == 7
     m = est_ctx.metrics
-    assert m["analysis.estimate.rung_proof"] == 1
-    assert m["analysis.rung_skip.compiled_aggregate"] == 1
-    assert m["resilience.degraded"] == 0
+    assert m.counter("analysis.estimate.rung_proof") == 1
+    assert m.counter("analysis.rung_skip.compiled_aggregate") == 1
+    assert m.counter("resilience.degraded") == 0
 
 
 def test_explain_estimate_renders_rung_proof(est_ctx):
@@ -495,8 +531,8 @@ def test_explain_estimate_renders_rung_proof(est_ctx):
 def test_rung_proof_absent_with_roomy_budget(est_ctx):
     est_ctx.sql("SELECT b, SUM(v) AS s FROM t GROUP BY b", config_options={
         "analysis.estimate.device_budget_bytes": 1 << 34}).compute()
-    assert est_ctx.metrics["analysis.estimate.rung_proof"] == 0
-    assert est_ctx.metrics["resilience.rung.compiled_aggregate"] == 1
+    assert est_ctx.metrics.counter("analysis.estimate.rung_proof") == 0
+    assert est_ctx.metrics.counter("resilience.rung.compiled_aggregate") == 1
 
 
 def test_family_members_share_an_estimate():
@@ -504,8 +540,8 @@ def test_family_members_share_an_estimate():
     c.create_table("lineitem", bench.gen_lineitem(2_000, seed=0))
     c.sql(bench.QUERY).compute()
     c.sql(bench.QUERY.replace("1998-09-02", "1998-08-01")).compute()
-    assert c.metrics["analysis.estimate.runs"] == 1
-    assert c.metrics["families.estimate.hit"] == 1
+    assert c.metrics.counter("analysis.estimate.runs") == 1
+    assert c.metrics.counter("families.estimate.hit") == 1
 
 
 def test_upper_bound_dominates_actual_q1_shape():
@@ -550,11 +586,17 @@ def test_explain_rows_match_reference(both, kind, sql):
                   config_options=REF_EXPLAIN)
     got = pc.sql(f"EXPLAIN {kind} {sql}").compute()
     assert list(got.columns) == list(want.columns) == [kind]
-    assert list(got[kind]) == reworded(list(want[kind]))
+    if kind == "ESTIMATE":
+        assert_estimate_rows(list(got[kind]), list(want[kind]))
+    else:
+        assert list(got[kind]) == reworded(list(want[kind]))
 
 
 def test_q1_rows_are_the_references_numbers(both):
-    """The rows the reference gives for Q1 at 20,000 rows, as recorded."""
+    """The rows the reference gives for Q1 at 20,000 rows, as recorded, but
+    for ``bytes_hi``: the reference's 638149 plus the port's fused
+    aggregate at its peak over the 20,000 rows (`analysis/fused.py`) in
+    place of the reference's gid and matrix."""
     _, pc = both
     lint = _lines(pc, "EXPLAIN LINT " + bench.QUERY)
     assert "l_quantity=DICT(50)" in lint[0] and "l_shipdate=DICT(2526)" in \
@@ -562,7 +604,7 @@ def test_q1_rows_are_the_references_numbers(both):
     assert lint[1].endswith("rows=20000 bucket=32768")
     est = _lines(pc, "EXPLAIN ESTIMATE " + bench.QUERY)
     assert est[0] == ("estimate: rows_lo=0 rows_hi=12 bytes_lo=500453 "
-                      "bytes_hi=638149")
+                      "bytes_hi=1649477")
     assert est[1] == "result: bytes=[0, 1152] (d2h transfer)"
 
 
@@ -592,6 +634,6 @@ def test_lazy_table_is_never_loaded(tmp_path, monkeypatch):
     assert list(got["n"]) == [1500] * 4
     np.testing.assert_allclose(
         got["s"], frame.groupby("g")["v"].sum().sort_index().to_numpy())
-    assert c.metrics["analysis.verify.runs"] == 1
-    assert c.metrics["analysis.estimate.runs"] == 1
+    assert c.metrics.counter("analysis.verify.runs") == 1
+    assert c.metrics.counter("analysis.estimate.runs") == 1
     assert dc._table is None

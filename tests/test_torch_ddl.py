@@ -199,17 +199,44 @@ def test_views_describe_and_drop_view(c, df):
     ("CREATE TABLE f WITH (location = '/nowhere.csv', format = 'csv', "
      "distributed = True)", "multi-device storage"),
     ("SHOW MODELS", "model registry"),
-    ("SHOW METRICS", "metrics registry"),
-    ("SHOW PROFILES", "profile store"),
-    ("SHOW QUERIES", "live query table"),
-    ("SHOW MATERIALIZED", "semantic-reuse state"),
+    ("SHOW QUERIES", "live query table.*item 8b"),
+    ("SHOW MATERIALIZED", "semantic-reuse state.*item 8c"),
     ("SHOW REPLICAS", "fleet router"),
-    ("CANCEL QUERY 'q1'", "live query registry"),
-    ("EXPLAIN ANALYZE SELECT a FROM df", "observability"),
+    ("CANCEL QUERY 'q1'", "live query registry.*item 8b"),
 ])
 def test_statements_of_later_items_raise(c, sql, needs):
     with pytest.raises(NotImplementedError, match=needs):
         c.sql(sql, return_futures=False)
+
+
+@pytest.mark.parametrize("statement", ["SHOW METRICS", "SHOW PROFILES",
+                                       "EXPLAIN ANALYZE"])
+def test_observability_statements_answer(c, statement):
+    """The statements that raised before the observability slice answer:
+    the registry, the profile store and the traced node tree of the
+    query run just before (`tests/test_torch_observability.py` holds
+    them against the reference)."""
+    sql = "SELECT a, SUM(b) AS s FROM df GROUP BY a"
+    c.sql(sql, return_futures=False)
+    if statement == "EXPLAIN ANALYZE":
+        lines = c.sql(f"EXPLAIN ANALYZE {sql}").compute()["PLAN"].tolist()
+        assert lines[0].startswith("-- query lifecycle")
+        assert any(line.lstrip().startswith("Aggregate: ")
+                   and line.endswith("3 rows]")
+                   for line in lines)
+        return
+    got = c.sql(statement, return_futures=False)
+    if statement == "SHOW METRICS":
+        values = dict(zip(got["Metric"], got["Value"]))
+        assert values["query.executed"] == "1"
+        assert values["query.execute_ms.count"] == "1"
+        assert values["plan_cache.entries"] == "1"
+        assert values["resilience.breaker.open"] == "0"
+    else:
+        assert list(got.columns) == ["Fingerprint", "Family", "Metric",
+                                     "Value"]
+        rows = {(m, v) for m, v in zip(got["Metric"], got["Value"])}
+        assert ("hits", "1") in rows and ("rows.observed.last", "3") in rows
 
 
 def _encoded_frame(n: int = 4096) -> pd.DataFrame:
@@ -263,7 +290,7 @@ def test_insert_into_encoded_columns():
     assert groups["s"].tolist() == list(counts.index)
     assert groups["n"].tolist() == list(counts)
     assert groups["mq"].tolist()[-1] == 60.0
-    assert c.metrics["columnar.encoding.encoded_columns"] == 5
+    assert c.metrics.counter("columnar.encoding.encoded_columns") == 5
 
 
 SCRIPT = f"""
@@ -304,7 +331,7 @@ def test_script_matches_the_reference():
     ref = {k: v - rb.get(k, 0) for k, v in ref.items() if v != rb.get(k, 0)}
     ref["columnar.encoding.encoded_columns"] = \
         rc.metrics.snapshot()["counters"]["columnar.encoding.encoded_columns"]
-    assert _counters(dict(pc.metrics)) == ref
+    assert _counters(pc.metrics.snapshot()["counters"]) == ref
     assert not any(k.startswith("resilience.degraded") for k in ref)
 
 
@@ -340,18 +367,25 @@ def test_appends_reach_cached_plans_and_pipelines():
         pc.create_table(n, tables[n])
     for q in (1, 3, 1, 3):
         pc.sql(QUERIES[q]).compute()
-    assert pc.metrics["query.plan_cache.hit"] == 2
+    assert pc.metrics.counter("query.plan_cache.hit") == 2
     assert "InArray" in pc.explain(QUERIES[3]) or "IN (" in pc.explain(
         QUERIES[3])
-    built = (len(compiled._cache), len(compiled_join._cache))
+    owner = compiled.pipeline_owner(pc)
+
+    def built_for_pc():
+        # the caches are shared by every Context and evict a collected
+        # Context's entries at any time: count this Context's
+        return tuple(sum(1 for key in cache if key[0] == owner)
+                     for cache in (compiled._cache, compiled_join._cache))
+
+    built = built_for_pc()
     new_orders, new_li = _appended(tables)
     pc.append_rows("orders", new_orders)
     pc.append_rows("lineitem", new_li)
-    misses = pc.metrics["query.plan_cache.miss"]
+    misses = pc.metrics.counter("query.plan_cache.miss")
     got1, got3 = pc.sql(QUERIES[1]).compute(), pc.sql(QUERIES[3]).compute()
-    assert pc.metrics["query.plan_cache.miss"] == misses + 2
-    assert (len(compiled._cache), len(compiled_join._cache)) \
-        == (built[0] + 1, built[1] + 1)
+    assert pc.metrics.counter("query.plan_cache.miss") == misses + 2
+    assert built_for_pc() == (built[0] + 1, built[1] + 1)
     rc = dask_sql_tpu.Context()
     rc.create_table("customer", tables["customer"])
     rc.create_table("orders", pd.concat([tables["orders"], new_orders],

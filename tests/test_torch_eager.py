@@ -150,7 +150,8 @@ def agg_results():
         sql = f"SELECT {key}, {select} FROM t GROUP BY {key} ORDER BY {key}"
         out[key] = (pc.sql(sql, config_options=EAGER).compute(),
                     rc.sql(sql, config_options=EAGER).compute())
-    assert not any(k.startswith("resilience.rung") for k in pc.metrics)
+    assert not any(k.startswith("resilience.rung")
+                   for k in pc.metrics.snapshot()["counters"])
     return out
 
 
@@ -257,7 +258,7 @@ def expr_results():
     sql = "SELECT " + ", ".join(f"{e} AS {n}" for n, e in EXPRS.items()) \
         + " FROM e"
     got = pc.sql(sql).compute()
-    assert pc.metrics["resilience.rung.compiled_select"] == 1
+    assert pc.metrics.counter("resilience.rung.compiled_select") == 1
     return got, rc.sql(sql).compute()
 
 
@@ -306,7 +307,8 @@ def string_results():
                  for k, v in rc.metrics.snapshot()["counters"].items()
                  if k.startswith("resilience.") and v != before.get(k, 0)}
     got = pc.sql(sql).compute()
-    rungs = {k: v for k, v in pc.metrics.items() if k.startswith("resilience.")}
+    rungs = {k: v for k, v in pc.metrics.snapshot()["counters"].items()
+             if k.startswith("resilience.")}
     return got, want, rungs, ref_rungs
 
 
@@ -356,11 +358,12 @@ def test_eager_rung_gives_the_compiled_answer(case):
     for name, frame in frames.items():
         pc.create_table(name, frame)
     compiled = pc.sql(sql).compute()
-    rungs = {k: v for k, v in pc.metrics.items() if k.startswith("resilience")}
+    rungs = {k: v for k, v in pc.metrics.snapshot()["counters"].items()
+             if k.startswith("resilience")}
     assert rungs and set(rungs) <= {"resilience.rung.compiled_aggregate",
                                     "resilience.rung.compiled_join_aggregate"}
     eager = pc.sql(sql, config_options=EAGER).compute()
-    assert {k: v for k, v in pc.metrics.items()
+    assert {k: v for k, v in pc.metrics.snapshot()["counters"].items()
             if k.startswith("resilience")} == rungs
     assert_same_frame(eager, compiled)
 
@@ -371,16 +374,16 @@ def test_ladder_steps_down_only_on_degradable_failures(monkeypatch):
     pc = Context(device="cpu")
     pc.create_table("lineitem", frames["lineitem"])
     want = pc.sql(Q1).compute()
-    assert pc.metrics["resilience.rung.compiled_aggregate"] == 1
+    assert pc.metrics.counter("resilience.rung.compiled_aggregate") == 1
 
     def oom(rel, executor):
         raise ResourceExhaustedError("CUDA out of memory")
 
     monkeypatch.setattr(port_aggregate, "try_compiled_aggregate", oom)
     got = pc.sql(Q1).compute()
-    assert pc.metrics["resilience.degraded"] == 1
-    assert pc.metrics["resilience.degraded.compiled_aggregate"] == 1
-    assert pc.metrics["resilience.rung.compiled_aggregate"] == 1
+    assert pc.metrics.counter("resilience.degraded") == 1
+    assert pc.metrics.counter("resilience.degraded.compiled_aggregate") == 1
+    assert pc.metrics.counter("resilience.rung.compiled_aggregate") == 1
     assert_same_frame(got, want)
 
     def kernel_fault(rel, executor):
@@ -390,7 +393,7 @@ def test_ladder_steps_down_only_on_degradable_failures(monkeypatch):
     monkeypatch.setattr(port_aggregate, "try_compiled_aggregate", kernel_fault)
     with pytest.raises(RuntimeError, match="illegal memory access"):
         pc.sql(Q1).compute()
-    assert pc.metrics["resilience.degraded"] == 1
+    assert pc.metrics.counter("resilience.degraded") == 1
 
     assert isinstance(classify(RuntimeError("segsum kernel launch failed: "
                                             "CUDA error 700")),
@@ -398,7 +401,7 @@ def test_ladder_steps_down_only_on_degradable_failures(monkeypatch):
     monkeypatch.setattr(port_aggregate, "try_compiled_aggregate", oom)
     with pytest.raises(ResourceExhaustedError):
         pc.sql(Q1, config_options={"resilience.ladder.enabled": False}).compute()
-    assert pc.metrics["resilience.degraded"] == 1
+    assert pc.metrics.counter("resilience.degraded") == 1
 
 
 def test_compact_dictionary_sorts_an_unsorted_dictionary():

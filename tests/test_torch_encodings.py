@@ -101,15 +101,20 @@ def test_encoding_off_and_outside_a_registration_stay_plain(frames):
     c.create_table("lineitem", df)
     table = c.schema["root"].tables["lineitem"].table
     assert not table.has_encoded_columns()
-    assert "columnar.encoding.encoded_columns" not in c.metrics
+    assert "columnar.encoding.encoded_columns" not in \
+        c.metrics.snapshot()["counters"]
     assert not Table.from_pandas(df).has_encoded_columns()
     c.config.update({"columnar.encoding": "auto"})
     c.create_table("lineitem", df)
     encoded = [n for n, col in c.schema["root"].tables["lineitem"].table
                .columns.items() if col.encoding is not Encoding.PLAIN]
     assert encoded == ["l_quantity", "l_shipdate"]
-    assert c.metrics["columnar.encoding.encoded_columns"] == 2
-    enc_b, dec_b = (c.metrics.observed[f"columnar.encoding.{k}_bytes"][-1]
+    assert c.metrics.counter("columnar.encoding.encoded_columns") == 2
+    hists = c.metrics.snapshot()["histograms"]
+    # the one encoded registration observed each size once
+    assert [hists[f"columnar.encoding.{k}_bytes"]["count"]
+            for k in ("encoded", "decoded")] == [1, 1]
+    enc_b, dec_b = (hists[f"columnar.encoding.{k}_bytes"]["sum"]
                     for k in ("encoded", "decoded"))
     assert enc_b < dec_b
 
@@ -276,8 +281,8 @@ def test_rle_probe_column_declines_with_the_reference_answer(rle_frames, sql,
         rc.create_table(name, frame)
     got = c.sql(sql).compute()
     want = rc.sql(sql).compute()
-    assert c.metrics[declined] == 1
-    assert c.metrics["columnar.encoding.decode"] >= 1
+    assert c.metrics.counter(declined) == 1
+    assert c.metrics.counter("columnar.encoding.decode") >= 1
     assert list(got.columns) == list(want.columns)
     assert got["o_shippriority"].tolist() == want["o_shippriority"].tolist()
     assert got["n"].tolist() == want["n"].tolist()

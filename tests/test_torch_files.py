@@ -153,7 +153,8 @@ def test_lazy_registration_reads_only_footers(files, monkeypatch):
     assert c.schema["root"].filepaths["lazy_t"] == path
     assert [(f.name, f.sql_type.name) for f in dc.fields] == [
         ("a", "BIGINT"), ("b", "DOUBLE"), ("c", "VARCHAR")]
-    assert not any(k.startswith("columnar.encoding") for k in c.metrics)
+    assert not any(k.startswith("columnar.encoding")
+                   for k in c.metrics.snapshot()["counters"])
 
 
 def test_lazy_query_correct(files):
@@ -168,7 +169,7 @@ def test_lazy_query_correct(files):
     expected = sel.groupby("c").a.sum().reset_index().rename(
         columns={"a": "s"})
     assert_eq(result, expected, check_dtype=False, sort_results=True)
-    assert c.metrics["resilience.rung.compiled_aggregate"] == 1
+    assert c.metrics.counter("resilience.rung.compiled_aggregate") == 1
 
 
 def test_persist_loads_eagerly(files):
@@ -351,7 +352,8 @@ def test_q1_streamed_from_a_directory(files, q1_reference, monkeypatch):
     assert calls and max(calls) <= 12
     _same_q1(got, q1_reference)
     assert c.schema["root"].tables["lineitem"]._table is None
-    assert not any(k.startswith("resilience.") for k in c.metrics)
+    assert not any(k.startswith("resilience.")
+                   for k in c.metrics.snapshot()["counters"])
 
 
 def test_q1_persisted_from_a_directory(files, q1_reference):
@@ -362,7 +364,7 @@ def test_q1_persisted_from_a_directory(files, q1_reference):
     c.create_table("lineitem", path, persist=True)
     got = c.sql(QUERY).compute()
     _same_q1(got, q1_reference)
-    assert c.metrics["resilience.rung.compiled_aggregate"] == 1
+    assert c.metrics.counter("resilience.rung.compiled_aggregate") == 1
 
 
 @pytest.mark.parametrize("unit", ["ms", "us", "ns"])
@@ -420,7 +422,7 @@ def test_persisted_loads_count_the_reference_encodings(files):
                          persist=True)
     ref = _counters(rc.metrics.snapshot()["counters"])
     assert ref["columnar.encoding.encoded_columns"] >= 2
-    assert _counters(dict(pc.metrics)) == ref
+    assert _counters(pc.metrics.snapshot()["counters"]) == ref
     for name in ("lineitem", "customer"):
         want = {n: col.encoding.value for n, col in
                 rc.schema["root"].tables[name].table.columns.items()}
@@ -473,7 +475,7 @@ def test_planning_and_the_catalog_never_load(files, monkeypatch):
     np.testing.assert_allclose(got["s"], [2.0 * df.v[df.g == "b"].sum()],
                                rtol=1e-9)
     again = c.sql(q, config_options={"sql.streaming.batch_rows": 5000})
-    assert c.metrics["query.plan_cache.hit"] == 1 and again is not None
+    assert c.metrics.counter("query.plan_cache.hit") == 1 and again is not None
 
 
 def test_root_select_over_a_lazy_table(files, monkeypatch):
@@ -491,9 +493,9 @@ def test_root_select_over_a_lazy_table(files, monkeypatch):
          "FROM {} WHERE l_discount > 0.09 ORDER BY rev DESC LIMIT 100")
     got = c.sql(q.format("lineitem")).compute()
     assert read == [1]
-    assert c.metrics["resilience.rung.compiled_select"] == 0
+    assert c.metrics.counter("resilience.rung.compiled_select") == 0
     want = c.sql(q.format("mem")).compute()
-    assert c.metrics["resilience.rung.compiled_select"] == 1
+    assert c.metrics.counter("resilience.rung.compiled_select") == 1
     assert_eq(got, want, check_dtype=True)
 
 

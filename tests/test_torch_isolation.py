@@ -4,8 +4,9 @@ even as it plans through its own build of the native planner and runs the
 outer, semi and anti joins, subqueries, SUBSTRING, the set operations,
 window functions, the statements (DDL, INSERT INTO), a registered
 function, a lazy parquet table streamed through the out-of-core
-aggregate, EXPLAIN LINT, EXPLAIN ESTIMATE and a query down the degradation
-ladder under ``compile:always``; and the port's entry points refuse to run
+aggregate, EXPLAIN LINT, EXPLAIN ESTIMATE, a query down the degradation
+ladder under ``compile:always``, EXPLAIN ANALYZE (text and FORMAT JSON),
+SHOW METRICS and SHOW PROFILES; and the port's entry points refuse to run
 on the CPU unless asked to."""
 import os
 import subprocess
@@ -45,22 +46,27 @@ c.sql(QUERIES[3]).compute()
 # repeated build keys: the pipeline declines and the eager join runs
 c.sql("SELECT COUNT(*) AS n FROM orders a JOIN orders b "
       "ON a.o_custkey = b.o_custkey").compute()
-assert c.metrics["compiled_join.run"] == 1, dict(c.metrics)
-assert c.metrics["compiled_join.declined"] == 1, dict(c.metrics)
+assert c.metrics.counter("compiled_join.run") == 1, \
+    c.metrics.snapshot()["counters"]
+assert c.metrics.counter("compiled_join.declined") == 1, \
+    c.metrics.snapshot()["counters"]
 # Q1 over encoded columns and the root select (the compiled select rung)
 c.create_table("li", chip_smoke.gen_lineitem(12_000))
 c.sql(chip_smoke.QUERY.replace("FROM lineitem", "FROM li")).compute()
 c.sql("SELECT l_returnflag, l_extendedprice * (1 - l_discount) AS rev "
       "FROM li WHERE l_discount > 0.09 ORDER BY rev DESC LIMIT 100").compute()
-assert c.metrics["columnar.encoding.codespace_pred"] >= 1, dict(c.metrics)
-assert c.metrics["resilience.rung.compiled_select"] == 1, dict(c.metrics)
+assert c.metrics.counter("columnar.encoding.codespace_pred") >= 1, \
+    c.metrics.snapshot()["counters"]
+assert c.metrics.counter("resilience.rung.compiled_select") == 1, \
+    c.metrics.snapshot()["counters"]
 # q9 (the eager aggregate over a LIKE filter and EXTRACT) and q14 (CASE
 # over LIKE in the join pipeline) with every TPC-H table
 for t in ("region", "nation", "supplier", "part", "partsupp"):
     c.create_table(t, tables[t])
 assert len(c.sql(QUERIES[9]).compute()) > 0
 assert len(c.sql(QUERIES[14]).compute()) == 1
-assert c.metrics["resilience.rung.compiled_join_aggregate"] == 2, dict(c.metrics)
+assert c.metrics.counter("resilience.rung.compiled_join_aggregate") == 2, \
+    c.metrics.snapshot()["counters"]
 # q13 (a LEFT join with an ON residual) and q22 (SUBSTRING, a scalar
 # subquery, an anti join), every plan from the native planner built out of
 # native/*.cpp
@@ -77,8 +83,10 @@ w = c.sql("SELECT n_name, RANK() OVER (PARTITION BY n_regionkey ORDER BY "
           "BETWEEN 1 PRECEDING AND CURRENT ROW) AS s, UPPER(n_name) || '!' "
           "AS u FROM nation").compute()
 assert len(w) == 25 and w["r"].min() == 1, w
-assert c.metrics["planner.python.bind"] == 0, dict(c.metrics)
-assert c.metrics["planner.native.plan"] >= 8, dict(c.metrics)
+assert c.metrics.counter("planner.python.bind") == 0, \
+    c.metrics.snapshot()["counters"]
+assert c.metrics.counter("planner.native.plan") >= 8, \
+    c.metrics.snapshot()["counters"]
 from dask_sql_tpu_torch.planner import native_bridge
 assert native_bridge.get_lib() is not None
 # the statements, a registered function and the function registry
@@ -118,10 +126,20 @@ lint = list(c.sql("EXPLAIN LINT " + chip_smoke.QUERY.replace(
 assert any("DICT" in ln for ln in lint), lint
 est = c.sql("EXPLAIN ESTIMATE " + QUERIES[3]).compute()["ESTIMATE"]
 assert est[0].startswith("estimate: rows_lo="), est
-before = c.metrics["resilience.degraded"]
+before = c.metrics.counter("resilience.degraded")
 c.sql(chip_smoke.QUERY.replace("FROM lineitem", "FROM li"), config_options={
     "resilience.inject": "compile:always"}).compute()
-assert c.metrics["resilience.degraded"] == before + 3, dict(c.metrics)
+assert c.metrics.counter("resilience.degraded") == before + 3, \
+    c.metrics.snapshot()["counters"]
+# query tracing: EXPLAIN ANALYZE, SHOW METRICS and SHOW PROFILES
+plan = list(c.sql("EXPLAIN ANALYZE " + QUERIES[3]).compute()["PLAN"])
+assert plan[0].startswith("-- query lifecycle"), plan
+assert c.sql("EXPLAIN ANALYZE FORMAT JSON " + QUERIES[3]).compute()[
+    "PLAN"][0].startswith('{"displayTimeUnit"')
+metrics = c.sql("SHOW METRICS", return_futures=False)
+assert "query.execute_ms.count" in set(metrics["Metric"]), metrics
+profiles = c.sql("SHOW PROFILES", return_futures=False)
+assert "hits" in set(profiles["Metric"]), profiles
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dask_sql_tpu"))
 assert not bad, bad

@@ -127,10 +127,11 @@ def answers():
         before = dict(rc.metrics.snapshot()["counters"])
         want = rc.sql(sql).compute()
         ref = _resilience(before, rc.metrics.snapshot()["counters"])
-        before = dict(pc.metrics)
+        before = pc.metrics.snapshot()["counters"]
         frame = pc.sql(sql)
         got = frame.compute()
-        out[case] = (got, want, _resilience(before, dict(pc.metrics)), ref,
+        out[case] = (got, want, _resilience(
+            before, pc.metrics.snapshot()["counters"]), ref,
                      frame._plan.explain())
     return out
 

@@ -45,7 +45,7 @@ def _sql(name, sql):
 
 
 def _binders(c):
-    return {k: c.metrics[k] for k in BINDERS if c.metrics[k]}
+    return {k: c.metrics.counter(k) for k in BINDERS if c.metrics.counter(k)}
 
 
 @pytest.mark.parametrize("mode", ["auto", "off"])
@@ -64,7 +64,7 @@ def test_plan_and_family_match_reference(contexts, name, sql, mode):
            if after[k] != before.get(k, 0)}
     assert ran == ({"planner.native.plan": 1} if mode == "auto"
                    else {"planner.python.bind": 1})
-    assert pc.metrics["planner.optimize.fallback"] == 0
+    assert pc.metrics.counter("planner.optimize.fallback") == 0
     assert got.explain() == want.explain()
     fam = families.family_of(got, pc.config)
     ref_fam = ref_families.compute_family(want)
@@ -106,6 +106,6 @@ def test_binder_counters_and_strict_mode(contexts):
     assert after["planner.native.plan"] == before.get("planner.native.plan", 0) + 1
     # a plan with literals counts in families.parameterized; families off
     # leaves the counter
-    n = pc.metrics["families.parameterized"]
+    n = pc.metrics.counter("families.parameterized")
     pc.sql(sql, config_options={"families.enabled": False})
-    assert pc.metrics["families.parameterized"] == n
+    assert pc.metrics.counter("families.parameterized") == n

@@ -36,7 +36,7 @@ def _plans(contexts, q, options):
         want = rc._get_ral(ref_parse(QUERIES[q])[0])
     with pc.config.set(options):
         got = pc._get_ral(port_parse(QUERIES[q])[0])
-    assert pc.metrics["planner.optimize.fallback"] == 0
+    assert pc.metrics.counter("planner.optimize.fallback") == 0
     return got.explain(), want.explain()
 
 
@@ -61,19 +61,19 @@ def test_plan_cache_hits_and_misses_on_reregistration():
     for name in ("customer", "orders", "lineitem"):
         c.create_table(name, tables[name])
     first = c.sql(QUERIES[3])
-    assert c.metrics["query.plan_cache.miss"] == 1
+    assert c.metrics.counter("query.plan_cache.miss") == 1
     again = c.sql(QUERIES[3])
-    assert c.metrics["query.plan_cache.hit"] == 1
+    assert c.metrics.counter("query.plan_cache.hit") == 1
     assert again._plan is first._plan
     # other per-query options plan anew
     c.sql(QUERIES[3], config_options=NO_DPP)
-    assert c.metrics["query.plan_cache.miss"] == 2
+    assert c.metrics.counter("query.plan_cache.miss") == 2
     # a table registered again has a new uid: the catalog signature changes
     c.create_table("orders", tables["orders"])
     third = c.sql(QUERIES[3])
-    assert c.metrics["query.plan_cache.miss"] == 3
+    assert c.metrics.counter("query.plan_cache.miss") == 3
     assert third._plan is not first._plan
-    assert c.metrics["planner.optimize.fallback"] == 0
+    assert c.metrics.counter("planner.optimize.fallback") == 0
     assert third.compute().equals(first.compute())
 
 
@@ -92,5 +92,5 @@ def test_optimizer_fallback_is_counted(monkeypatch):
     c = Context(device="cpu")
     c.create_table("lineitem", tables["lineitem"])
     got = c.sql(QUERIES[1]).compute()
-    assert c.metrics["planner.optimize.fallback"] == 1
+    assert c.metrics.counter("planner.optimize.fallback") == 1
     assert len(got) > 0

@@ -146,7 +146,7 @@ def test_q1_on_encoded_columns_counts_as_the_reference(monkeypatch):
     want = rc.sql(QUERY, config_options={"sql.compile.segsum": "matmul"}).compute()
     assert_same_result(got, want)
     ref_counters = rc.metrics.snapshot()["counters"]
-    assert {k: c.metrics[k] for k in ENCODING_COUNTERS} == \
+    assert {k: c.metrics.counter(k) for k in ENCODING_COUNTERS} == \
         {k: ref_counters.get(k, 0) for k in ENCODING_COUNTERS} == \
         dict(zip(ENCODING_COUNTERS, (2, 1, 6)))
 

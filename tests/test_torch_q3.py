@@ -108,9 +108,9 @@ def test_q3_matches_reference(spies):
     assert_same_rows(got, want)
     assert list(got.dtypes) == list(want.dtypes)
     ref_counters = rc.metrics.snapshot()["counters"]
-    assert {k: pc.metrics[k] for k in ENCODING_COUNTERS} == \
+    assert {k: pc.metrics.counter(k) for k in ENCODING_COUNTERS} == \
         {k: ref_counters.get(k, 0) for k in ENCODING_COUNTERS}
-    assert pc.metrics["columnar.encoding.codespace_pred"] == 2
+    assert pc.metrics.counter("columnar.encoding.codespace_pred") == 2
     oracle = q3_oracle(frames)
     for key in ("l_orderkey", "o_orderdate", "o_shippriority"):
         assert got[key].tolist() == oracle[key].tolist()
@@ -127,7 +127,7 @@ def test_q3_warm_run_hits_the_plan_cache_with_one_transfer(spies):
     TRANSFER_STATS["d2h"] = 0
     warm = c.sql(QUERIES[3]).compute()
     assert TRANSFER_STATS["d2h"] == 1
-    assert c.metrics["query.plan_cache.hit"] == 1
+    assert c.metrics.counter("query.plan_cache.hit") == 1
     assert len(spies["port"]) == 2 and spies["port"][0] is spies["port"][1]
     assert warm.equals(cold)
 
@@ -214,7 +214,7 @@ def test_encoded_probe_group_keys_take_their_codes(star, spies):
         assert_same_rows(got, want)
     assert len(spies["port"]) == 1
     assert [s["kind"] for s in spies["port"][0].radix_spec] == ["dict", "int"]
-    assert pc.metrics["resilience.rung.compiled_aggregate"] == 1
+    assert pc.metrics.counter("resilience.rung.compiled_aggregate") == 1
 
 
 def test_null_join_keys_never_match(spies):
@@ -254,7 +254,7 @@ def test_duplicate_build_keys_fall_back(spies):
     sql = "SELECT SUM(v * w) AS s FROM fact JOIN dim ON k = dk"
     got, want = pc.sql(sql).compute(), rc.sql(sql).compute()
     assert spies == {"ref": [], "port": []}
-    assert pc.metrics["compiled_join.declined"] == 1
+    assert pc.metrics.counter("compiled_join.declined") == 1
     # (2*10)+(2*20)+(3*10)+(3*20)+(4*30)
     assert float(got["s"][0]) == 270.0
     assert_same_rows(got, want)

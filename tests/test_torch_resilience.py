@@ -116,6 +116,34 @@ def assert_same_frame(got: pd.DataFrame, want: pd.DataFrame):
 
 
 # ---------------------------------------------------------------- taxonomy
+def test_taxonomy_exceptions_module_aliases():
+    """The reference's case, on the port's `exceptions.py`: the public
+    names keep their historical bases and carry the taxonomy's codes, and
+    each is the reference's class of the same name in kind."""
+    import dask_sql_tpu.exceptions as ref_exceptions
+    from dask_sql_tpu_torch import exceptions
+    from dask_sql_tpu_torch.exceptions import (
+        BindError,
+        LexError,
+        OptimizationException,
+        ParsingException,
+    )
+
+    assert issubclass(ParsingException, ValueError)
+    assert issubclass(BindError, ValueError)
+    assert issubclass(LexError, ValueError)
+    assert issubclass(OptimizationException, RuntimeError)
+    assert issubclass(ParsingException, QueryError)
+    assert ParsingException("x").code == "PARSE_ERROR"
+    assert BindError("x").code == "BIND_ERROR"
+    assert OptimizationException("x").code == "OPTIMIZATION_ERROR"
+    assert exceptions.__all__ == ref_exceptions.__all__
+    for name in exceptions.__all__:
+        if name != "classify":
+            port, ref = getattr(exceptions, name), getattr(ref_exceptions, name)
+            assert port("x").code == ref("x").code, name
+
+
 def test_taxonomy_flags_and_codes():
     assert CompileError("x").degradable and not CompileError("x").retryable
     assert ResourceExhaustedError("x").degradable
@@ -187,8 +215,13 @@ def test_executor_boundary_wraps_raw_failures():
     assert ei.value.code == "EXECUTION_ERROR"
     assert isinstance(ei.value, RuntimeError)
     assert "kernel exploded" in str(ei.value)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        c.sql("EXPLAIN ANALYZE SELECT a FROM t").compute()
+    # EXPLAIN ANALYZE answers through the boundary now; a later slice's
+    # NotImplementedError still passes it as it is
+    plan = c.sql("EXPLAIN ANALYZE SELECT a FROM t").compute()["PLAN"]
+    assert any(line.lstrip().startswith("TableScan: ") for line in plan)
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        wrap_boundary(lambda: (_ for _ in ()).throw(NotImplementedError(
+            "SHOW QUERIES needs item 8b, not in the port yet")))
     with pytest.raises(ExecutionError):
         wrap_boundary(lambda: (_ for _ in ()).throw(
             NotImplementedError("cast X -> Y")))
@@ -261,7 +294,7 @@ def test_execute_site_raises_at_the_executor():
     with pytest.raises(TransientExecutionError):
         c.sql("SELECT SUM(a) AS s FROM t", config_options={
             "resilience.inject": "execute:once"}).compute()
-    assert _resilience(c.metrics) == {}
+    assert _resilience(c.metrics.snapshot()["counters"]) == {}
 
 
 # ----------------------------------------------------------------- breaker
@@ -332,7 +365,7 @@ def test_forced_compile_failure_degrades_and_matches():
     hurt = c.sql(sql, return_futures=False,
                  config_options={"resilience.inject": "compile:always"})
     pd.testing.assert_frame_equal(hurt, clean)
-    assert c.metrics["resilience.degraded"] >= 1
+    assert c.metrics.counter("resilience.degraded") >= 1
 
 
 def test_forced_oom_degrades_and_matches():
@@ -341,7 +374,7 @@ def test_forced_oom_degrades_and_matches():
     hurt = c.sql("SELECT SUM(a) AS s FROM t", return_futures=False,
                  config_options={"resilience.inject": "oom:once"})
     pd.testing.assert_frame_equal(hurt, clean)
-    assert c.metrics["resilience.degraded"] == 1
+    assert c.metrics.counter("resilience.degraded") == 1
 
 
 def test_forced_exec_oom_takes_cpu_rung():
@@ -350,8 +383,8 @@ def test_forced_exec_oom_takes_cpu_rung():
                 config_options={"resilience.inject": "exec_oom:once",
                                 "sql.compile": False})
     assert int(out["s"][0]) == 6
-    assert c.metrics["resilience.rung.cpu"] == 1
-    assert c.metrics["resilience.degraded.interpreted"] == 1
+    assert c.metrics.counter("resilience.rung.cpu") == 1
+    assert c.metrics.counter("resilience.degraded.interpreted") == 1
 
 
 def test_cpu_fallback_off_propagates():
@@ -372,7 +405,7 @@ def test_no_cpu_rung_under_a_card_context(monkeypatch):
               config_options={"resilience.inject": "exec_oom:once",
                               "sql.compile": False})
     assert ei.value.degradable
-    assert _resilience(c.metrics) == {}
+    assert _resilience(c.metrics.snapshot()["counters"]) == {}
 
 
 def test_ladder_disabled_propagates_failure():
@@ -391,12 +424,13 @@ def test_breaker_skips_failing_rung_on_next_submission():
     opts = {"resilience.inject": "compile:always"}
     c.sql(q, return_futures=False, config_options=opts)
     c.sql(q, return_futures=False, config_options=opts)
-    assert c.metrics["resilience.breaker.trip"] >= 1
-    degraded_before = c.metrics["resilience.degraded.compiled_select"]
+    assert c.metrics.counter("resilience.breaker.trip") >= 1
+    degraded_before = c.metrics.counter("resilience.degraded.compiled_select")
     out = c.sql(q, return_futures=False, config_options=opts)
     assert int(out["s"][0]) == 6
-    assert c.metrics["resilience.breaker.skip"] >= 1
-    assert c.metrics["resilience.degraded.compiled_select"] == degraded_before
+    assert c.metrics.counter("resilience.breaker.skip") >= 1
+    assert c.metrics.counter("resilience.degraded.compiled_select") == \
+        degraded_before
 
 
 def test_breaker_trips_skips_the_family_and_closes():
@@ -413,26 +447,26 @@ def test_breaker_trips_skips_the_family_and_closes():
     opts = {"resilience.inject": "compile:always"}
     for _ in range(3):
         c.sql(Q1, config_options=opts).compute()
-    assert c.metrics["resilience.breaker.trip"] == 3
-    assert c.metrics["resilience.degraded"] == 9
+    assert c.metrics.counter("resilience.breaker.trip") == 3
+    assert c.metrics.counter("resilience.degraded") == 9
     got = c.sql(Q1, config_options=opts).compute()
     other = c.sql(Q1.replace("1998-09-02", "1998-08-01"),
                   config_options=opts).compute()
-    assert c.metrics["resilience.degraded"] == 9
-    assert c.metrics["resilience.breaker.skip.compiled_aggregate"] == 2
-    assert c.metrics["resilience.breaker.skip"] == 6
+    assert c.metrics.counter("resilience.degraded") == 9
+    assert c.metrics.counter("resilience.breaker.skip.compiled_aggregate") == 2
+    assert c.metrics.counter("resilience.breaker.skip") == 6
     assert_same_frame(got, want)
     assert len(other) == len(want)
     now[0] = 6.0
     c.sql(Q1).compute()
-    assert c.metrics["resilience.rung.compiled_aggregate"] == 2
+    assert c.metrics.counter("resilience.rung.compiled_aggregate") == 2
     c.sql(Q1).compute()
-    assert c.metrics["resilience.rung.compiled_aggregate"] == 3
-    assert c.metrics["resilience.breaker.skip.compiled_aggregate"] == 2
+    assert c.metrics.counter("resilience.rung.compiled_aggregate") == 3
+    assert c.metrics.counter("resilience.breaker.skip.compiled_aggregate") == 2
     # the rungs that decline Q1 settle no trial: each waits out another
     # cooldown (retry.py), as in the reference
-    assert c.metrics["resilience.breaker.skip.compiled_select"] == 3
-    assert c.metrics["resilience.degraded"] == 9
+    assert c.metrics.counter("resilience.breaker.skip.compiled_select") == 3
+    assert c.metrics.counter("resilience.degraded") == 9
 
 
 def test_kernel_failure_in_a_rung_propagates(monkeypatch):
@@ -447,7 +481,7 @@ def test_kernel_failure_in_a_rung_propagates(monkeypatch):
     monkeypatch.setattr(segsum_ops, "segsum_typed", broken)
     with pytest.raises(ExecutionError, match="CUDA error 700"):
         c.sql(Q1).compute()
-    assert _resilience(c.metrics) == {}
+    assert _resilience(c.metrics.snapshot()["counters"]) == {}
 
 
 # ------------------------------------------------------------ CPU rung
@@ -482,7 +516,7 @@ def test_cpu_rung_over_encoded_and_lazy_tables(tmp_path):
                f"FROM {table} WHERE f > 3000100000 GROUP BY k, d "
                f"ORDER BY k, d")
         got = c.sql(sql, config_options=opts).compute()
-        assert c.metrics["resilience.rung.cpu"] == rung_cpu
+        assert c.metrics.counter("resilience.rung.cpu") == rung_cpu
         # the rung scanned the lazy table onto the host, and kept nothing
         assert c.schema["root"].tables["lazy"]._table is None
         pd.testing.assert_frame_equal(got, c.sql(sql).compute())
@@ -499,19 +533,19 @@ def test_an_appended_table_gets_a_fresh_verdict():
     c = Context(device="cpu")
     c.create_table("big", small)
     assert len(c.sql(sql).compute()) == 50
-    assert c.metrics["resilience.rung.compiled_aggregate"] == 1
+    assert c.metrics.counter("resilience.rung.compiled_aggregate") == 1
     grow = pd.DataFrame({"k1": [f"c{i}" for i in range(2500)],
                          "k2": [f"d{i}" for i in range(2500)],
                          "v": np.ones(2500)})
     c.append_rows("big", grow)
     assert len(c.sql(sql).compute()) == 2550
-    assert c.metrics["analysis.rung_skip.compiled_aggregate"] == 1
-    assert c.metrics["analysis.findings.radix-overflow"] == 1
+    assert c.metrics.counter("analysis.rung_skip.compiled_aggregate") == 1
+    assert c.metrics.counter("analysis.findings.radix-overflow") == 1
     c.create_table("big", small)
     assert len(c.sql(sql).compute()) == 50
-    assert c.metrics["resilience.rung.compiled_aggregate"] == 2
-    assert c.metrics["analysis.rung_skip.compiled_aggregate"] == 1
-    assert c.metrics["resilience.degraded"] == 0
+    assert c.metrics.counter("resilience.rung.compiled_aggregate") == 2
+    assert c.metrics.counter("analysis.rung_skip.compiled_aggregate") == 1
+    assert c.metrics.counter("resilience.degraded") == 0
 
 
 # ------------------------------------ the reference, executing (4 runs)
@@ -545,6 +579,7 @@ def test_ladder_counters_match_reference(case):
     pc = Context(device="cpu")
     pc.create_table(name, frame)
     got = pc.sql(sql, config_options=opts).compute()
-    assert _ladder(pc.metrics) == _ladder(rc.metrics.snapshot()["counters"])
-    assert _ladder(pc.metrics), case
+    assert _ladder(pc.metrics.snapshot()["counters"]) == \
+        _ladder(rc.metrics.snapshot()["counters"])
+    assert _ladder(pc.metrics.snapshot()["counters"]), case
     assert_same_frame(got, want)

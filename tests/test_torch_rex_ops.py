@@ -519,11 +519,11 @@ def test_fused_pipelines_decline_the_registry(c):
     """An aggregate over a scan chain whose filter calls a registry name
     answers on the eager rung (the fused pipeline declines, as the
     reference's does) with the oracle's answer."""
-    before = c.metrics["compiled_aggregate.declined"]
+    before = c.metrics.counter("compiled_aggregate.declined")
     got = c.sql("SELECT k, COUNT(*) AS n, SUM(POWER(u, 2)) AS p FROM t "
                 "WHERE POSITION('a' IN LOWER(s)) > 0 GROUP BY k "
                 "ORDER BY k").compute()
-    assert c.metrics["compiled_aggregate.declined"] == before + 1
+    assert c.metrics.counter("compiled_aggregate.declined") == before + 1
     sel = FRAME[[_py(s) is not None and "a" in s.lower() for s in FRAME["s"]]]
     want = sel.groupby("k").agg(n=("u", "size"), p=("u", lambda u: (u ** 2).sum()))
     assert list(got["k"]) == list(want.index)

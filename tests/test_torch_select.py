@@ -55,12 +55,14 @@ def _ref_counters(rc):
 
 def run_both(contexts, sql, transfers=2, rung=1):
     pc, rc = contexts
-    before_p, before_r = _counters(pc.metrics), _ref_counters(rc)
+    before_p = _counters(pc.metrics.snapshot()["counters"])
+    before_r = _ref_counters(rc)
     TRANSFER_STATS["d2h"] = 0
     got = pc.sql(sql).compute()
     assert TRANSFER_STATS["d2h"] == transfers
     want = rc.sql(sql).compute()
-    after_p, after_r = _counters(pc.metrics), _ref_counters(rc)
+    after_p = _counters(pc.metrics.snapshot()["counters"])
+    after_r = _ref_counters(rc)
     delta_p = {k: after_p[k] - before_p[k] for k in COUNTERS}
     delta_r = {k: after_r[k] - before_r[k] for k in COUNTERS}
     assert delta_p == delta_r

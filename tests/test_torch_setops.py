@@ -14,6 +14,7 @@ TABLESAMPLE draws from a `torch.Generator`, which cannot pick the rows
 kept fraction within five binomial standard deviations, SYSTEM keeping
 whole blocks, and a seed repeating its rows.
 """
+import re
 from collections import Counter
 
 import numpy as np
@@ -136,12 +137,12 @@ def test_matches_reference(contexts, case):
     rb = dict(rc.metrics.snapshot()["counters"])
     want = rc.sql(sql).compute().reset_index(drop=True)
     ref_rungs = _resilience(rb, rc.metrics.snapshot()["counters"])
-    pb = dict(pc.metrics)
+    pb = pc.metrics.snapshot()["counters"]
     got = pc.sql(sql).compute().reset_index(drop=True)
     assert list(got.columns) == list(want.columns)
     assert [str(d) for d in got.dtypes] == [str(d) for d in want.dtypes]
     pd.testing.assert_frame_equal(got, want, check_exact=True)
-    rungs = _resilience(pb, dict(pc.metrics))
+    rungs = _resilience(pb, pc.metrics.snapshot()["counters"])
     assert rungs == ref_rungs
     assert not any(k.startswith("resilience.degraded") for k in rungs)
 
@@ -150,10 +151,10 @@ def test_matches_reference(contexts, case):
 def test_matches_oracle(contexts, case):
     _, pc = contexts
     sql, want = ORACLE_CASES[case]
-    before = dict(pc.metrics)
+    before = pc.metrics.snapshot()["counters"]
     got = pc.sql(sql).compute()
     assert Counter(_rows(got)) == want
-    assert _resilience(before, dict(pc.metrics)) == {}
+    assert _resilience(before, pc.metrics.snapshot()["counters"]) == {}
     if case == "distribute_by":
         # equal keys come out together
         keys = got["b"].tolist()
@@ -163,14 +164,20 @@ def test_matches_oracle(contexts, case):
 
 @pytest.mark.parametrize("flag", ["ANALYZE", "LINT", "ESTIMATE"])
 def test_explain_variants_name_what_they_need(contexts, flag):
-    """EXPLAIN LINT and ESTIMATE answer (analysis/); ANALYZE names the
-    observability/ it needs."""
-    _, pc = contexts
-    if flag == "ANALYZE":
-        with pytest.raises(NotImplementedError, match="observability/"):
-            pc.sql(f"EXPLAIN {flag} SELECT a FROM l").compute()
-        return
+    """EXPLAIN LINT and ESTIMATE answer (analysis/), and EXPLAIN ANALYZE
+    (observability/): its node tree has the reference's labels and rows
+    (`_label  [ms, rows]`, the ms aside)."""
+    rc, pc = contexts
     got = pc.sql(f"EXPLAIN {flag} SELECT a FROM l").compute()
+    if flag == "ANALYZE":
+        want = rc.sql(f"EXPLAIN {flag} SELECT a FROM l").compute()
+        assert list(got.columns) == list(want.columns) == ["PLAN"]
+        tree = [re.sub(r"\[[0-9.]+ ms, ", "[", line)
+                for df in (got, want) for line in df["PLAN"]
+                if line.endswith(" rows]")]
+        half = len(tree) // 2
+        assert tree[:half] == tree[half:] and half >= 2
+        return
     assert list(got.columns) == [flag]
     assert got[flag].iloc[0].startswith(
         {"LINT": "info[shape-bucket]", "ESTIMATE": "estimate:"}[flag])

@@ -72,13 +72,14 @@ def sqlite_oracle(tables):
 
 @pytest.mark.parametrize("qnum", sorted(QUERIES))
 def test_query_matches_oracle(port, tables, sqlite_oracle, qnum):
-    before = dict(port.metrics)
+    before = port.metrics.snapshot()["counters"]
     result = port.sql(QUERIES[qnum]).compute()
     assert len(result.columns) > 0
     sql = strip_top_limit(QUERIES[qnum])
     if sql != QUERIES[qnum].rstrip():
         result = port.sql(sql).compute()
-    ladder = {k: v - before.get(k, 0) for k, v in port.metrics.items()
+    ladder = {k: v - before.get(k, 0)
+              for k, v in port.metrics.snapshot()["counters"].items()
               if k.startswith(("resilience.degraded", "analysis.rung_skip",
                                "analysis.findings.radix-overflow"))
               and v != before.get(k, 0)}

@@ -62,9 +62,10 @@ def answers():
         before = dict(rc.metrics.snapshot()["counters"])
         want = rc.sql(_sql(case)).compute()
         ref = _resilience(before, rc.metrics.snapshot()["counters"])
-        before = dict(pc.metrics)
+        before = pc.metrics.snapshot()["counters"]
         got = pc.sql(_sql(case)).compute()
-        out[case] = (got, want, _resilience(before, dict(pc.metrics)), ref)
+        out[case] = (got, want, _resilience(
+            before, pc.metrics.snapshot()["counters"]), ref)
     return out
 
 
