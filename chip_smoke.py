@@ -120,6 +120,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -494,15 +495,24 @@ def max_rel(got, want) -> float:
     return float(np.max(np.abs(g - w) / np.abs(w))) if len(w) else 0.0
 
 
+def measuring_context(device: str = "cuda"):
+    """A port Context with the result cache off: every phase but `serving`
+    times, counts and checks execution, so a repeated query must run
+    again rather than come back from the cache."""
+    from dask_sql_tpu_torch import Context
+
+    c = Context(device=device)
+    c.config.update({"serving.cache.enabled": False})
+    return c
+
+
 def load_tables(frames, options=None):
     """(Context on the card with `frames` registered, card memory the
     tables took in bytes, seconds)."""
-    from dask_sql_tpu_torch import Context
-
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    c = Context(device="cuda")
+    c = measuring_context()
     c.config.update(options or {})
     for name, frame in frames.items():
         c.create_table(name, frame)
@@ -930,9 +940,7 @@ def q15_on_the_kernel(card, segsum, transfers):
 
 def cpu_context(frames):
     """The port on the CPU with `frames` registered: the card's yardstick."""
-    from dask_sql_tpu_torch import Context
-
-    cpu = Context(device="cpu")
+    cpu = measuring_context("cpu")
     for name, frame in frames.items():
         cpu.create_table(name, frame)
     return cpu
@@ -1408,7 +1416,6 @@ def resilience(df, want, card, segsum, transfers):
     error of its checked calls."""
     import pandas as pd
 
-    from dask_sql_tpu_torch import Context
     from dask_sql_tpu_torch.resilience import faults
     from dask_sql_tpu_torch.resilience.retry import CircuitBreaker
 
@@ -1631,7 +1638,7 @@ def resilience(df, want, card, segsum, transfers):
     wide_want = wide.groupby(["k1", "k2"], as_index=False)["v"].sum() \
         .rename(columns={"v": "s"}).sort_values(["k1", "k2"]) \
         .reset_index(drop=True)
-    cw = Context(device="cuda")
+    cw = measuring_context()
     cw.create_table("big", wide)
     del wide
 
@@ -1919,7 +1926,6 @@ def files_q1(df, want, encoded_hbm, card, segsum, transfers):
     import os
     import tempfile
 
-    from dask_sql_tpu_torch import Context
     from dask_sql_tpu_torch.datacontainer import LazyParquetContainer
 
     out = {}
@@ -1934,7 +1940,7 @@ def files_q1(df, want, encoded_hbm, card, segsum, transfers):
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        c = Context(device="cuda")
+        c = measuring_context()
         c.create_table("lineitem", location)
         register_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
@@ -2003,7 +2009,7 @@ def files_q1(df, want, encoded_hbm, card, segsum, transfers):
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        cp = Context(device="cuda")
+        cp = measuring_context()
         cp.create_table("lineitem", location, persist=True)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
@@ -2089,7 +2095,6 @@ def files_q3(tables, card, segsum, transfers):
     import os
     import tempfile
 
-    from dask_sql_tpu_torch import Context
     from tests.tpch import QUERIES
 
     q3_want = q3_oracle(tables)
@@ -2100,7 +2105,7 @@ def files_q3(tables, card, segsum, transfers):
         csv = os.path.join(d, "customer.csv")
         tables["customer"].to_csv(csv, index=False)
         write_s = time.perf_counter() - t0
-        c = Context(device="cuda")
+        c = measuring_context()
         c.create_table("lineitem", os.path.join(d, "lineitem"))
         t0 = time.perf_counter()
         c.sql(f"CREATE TABLE customer WITH (location = '{csv}', "
@@ -2279,6 +2284,72 @@ def rows_sorted(df):
     return df.loc[order].reset_index(drop=True)
 
 
+#: the query CANCEL QUERY stops on the card must have run this long
+CANCEL_AFTER_S = 1.0
+
+
+def cancel_on_the_card(c, sql, card):
+    """The `serving` phase's cancel, on the `tpcds` phase's Context: CANCEL
+    QUERY on `sql` (TPC-DS q4, whose plan nodes run one after another for
+    seconds) once it has run CANCEL_AFTER_S.  The query stops at its next
+    checkpoint, cancelled (the node running then finishes its queued
+    launches first); its scheduler reservation goes back once, its card
+    bytes are freed, and ``query.cancel`` is on the flight recorder."""
+    from dask_sql_tpu_torch.observability import flight
+    from dask_sql_tpu_torch.serving import QueryCancelledError, ServingRuntime
+
+    c.sql(sql)  # planned: its cost hint carries the estimate's floor
+    rt = ServingRuntime(workers=1, metrics=c.metrics,
+                        scheduler_budget_bytes=1 << 40)
+    c.serving = rt
+    before = card_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stop_ms = None
+    try:
+        qid, fut = c.submit(sql)
+        entry = c.live_queries.get(qid)
+        deadline = time.perf_counter() + 60
+        while time.perf_counter() < deadline and not fut.done() and not (
+                entry.state == "running"
+                and entry.elapsed_ms() >= CANCEL_AFTER_S * 1e3):
+            time.sleep(0.01)
+        if fut.done():
+            fail(f"the query to cancel answered in {entry.elapsed_ms()} ms")
+        reserved = c.ledger.reserved_bytes()
+        ran_ms = entry.elapsed_ms()
+        answer = c.sql(f"CANCEL QUERY '{qid}'").compute()
+        t_cancel = time.perf_counter()
+        try:
+            fut.result(600)
+            fail("the cancelled query answered")
+        except QueryCancelledError:
+            stop_ms = (time.perf_counter() - t_cancel) * 1e3
+    finally:
+        rt.shutdown(wait=True)
+        c.serving = None
+    peak = torch.cuda.max_memory_allocated()
+    left = rt.scheduler.reserved_bytes
+    # the future holds the error, and its traceback the executor's
+    # intermediate tables, until the caller lets it go
+    state = c.live_queries.get(qid).state
+    del fut, entry, rt
+    events = [e for e in flight.RECORDER.events(name="query.cancel")
+              if e.get("qid") == qid]
+    out = {"ran_ms": ran_ms, "stopped_after_ms": stop_ms,
+           "reserved_bytes": reserved, "reserved_after": left,
+           "card_before": before, "card_peak": peak,
+           "cancelled": c.metrics.counter("serving.cancelled"),
+           "state": state, "answer": answer["Cancelled"].tolist()}
+    phase("serving", part="cancel", card=card, query="tpcds_q4", **out)
+    if answer["Cancelled"].tolist() != ["true"] or state != "cancelled" \
+            or [e["ok"] for e in events] != [True]:
+        fail(f"CANCEL QUERY: {out}, events {events}")
+    if reserved <= 0 or left != 0:
+        fail(f"the cancelled query reserved {reserved} bytes, {left} left")
+    check_card_freed(before, "serving_cancel")
+    return out
+
+
 def tpcds(card, segsum, transfers):
     """The `tpcds` phase: every TPC-DS query on `tests/tpcds.py
     generate(scale_rows=TPCDS_ROWS)` loaded on the card with the
@@ -2399,13 +2470,460 @@ def tpcds(card, segsum, transfers):
           checked_calls={f"q{q}": len(v) for q, v in captured.items()},
           sparse_table_bytes=window_rel.SPARSE_TABLE_BYTES["max"],
           cpu_s=cpu_s, kernel_max_abs_err=err)
+    cancel_on_the_card(ct, QUERIES[4], card)
     return {"launches": launches, "max_abs_err": err}
+
+
+#: the `serving` phase: a burst of this many members of Q1's family, on
+#: this many serving workers (each member a date literal of its own)
+SERVING_MEMBERS = 32
+SERVING_WORKERS = 8
+#: how long a batch leader waits for same-family followers while other
+#: queries are in flight (the reference's default is 2 ms; a burst of 32
+#: submits reaches the executor over a few ms)
+SERVING_WINDOW_MS = 20.0
+#: the stacked family call held against its plain version at these sizes
+SERVING_STACKS = (2, 8, 32)
+#: ``serving.deadline_s`` of the shedding part: TPC-H q22 over Q3's frames
+#: takes about 300 ms on the card, through several plan nodes
+SERVING_DEADLINE_S = 0.05
+
+
+def serving_dates(n: int):
+    """`n` distinct Q1 date literals, 60 days apart from 1998-09-02 back."""
+    base = np.datetime64("1998-09-02")
+    return [str(base - np.timedelta64(60 * i, "D")) for i in range(n)]
+
+
+def q1_family_oracle(df, dates):
+    """`q1_oracle` of each date, in float64, from one pass: the sums of
+    each group and ship date, then their prefix up to each date."""
+    import pandas as pd
+
+    price = df.l_extendedprice.to_numpy(np.float64)
+    disc = df.l_discount.to_numpy(np.float64)
+    tax = df.l_tax.to_numpy(np.float64)
+    work = pd.DataFrame({
+        KEYS[0]: df[KEYS[0]].to_numpy(), KEYS[1]: df[KEYS[1]].to_numpy(),
+        "day": df.l_shipdate.to_numpy(),
+        "qty": df.l_quantity.to_numpy(np.float64), "price": price,
+        "disc": disc, "disc_price": price * (1 - disc),
+        "charge": price * (1 - disc) * (1 + tax), "n": 1})
+    by_day = work.groupby(KEYS + ["day"]).sum().reset_index()
+    out = {}
+    for date in dates:
+        g = by_day[by_day.day <= np.datetime64(date)].groupby(KEYS).sum(
+            numeric_only=True)
+        out[date] = pd.DataFrame({
+            "sum_qty": g.qty, "sum_base_price": g.price,
+            "sum_disc_price": g.disc_price, "sum_charge": g.charge,
+            "avg_qty": g.qty / g.n, "avg_price": g.price / g.n,
+            "avg_disc": g.disc / g.n, "count_order": g.n,
+        }).reset_index().sort_values(KEYS).reset_index(drop=True)
+    return out
+
+
+def q1_of(date: str) -> str:
+    return QUERY.replace("DATE '1998-09-02'", f"DATE '{date}'")
+
+
+def burst(c, sqls, segsum, **options):
+    """Every query of `sqls` submitted at once to a fresh `ServingRuntime`
+    on `c` built from its config with `options` (each planned first, so
+    its cost hint holds the estimate).  Returns (answers in order, ms from
+    submit to answer of each, wall seconds, the runtime's counters, the
+    kernel launches by wrapper)."""
+    from dask_sql_tpu_torch.serving import ServingRuntime
+
+    for q in sqls:
+        c.sql(q)
+    with c.config.set(options):
+        rt = ServingRuntime.from_config(c.config, c.metrics)
+    c.serving = rt
+    before = dict(c.metrics.snapshot()["counters"])
+    reset_launches(segsum)
+    done, lat = {}, {}
+    try:
+        t0 = time.perf_counter()
+        futs = []
+        for i, q in enumerate(sqls):
+            t_sub = time.perf_counter()
+            _, fut = c.submit(q)
+
+            def stamp(f, i=i, t_sub=t_sub):
+                lat[i] = (time.perf_counter() - t_sub) * 1e3
+                done[i] = time.perf_counter()
+
+            fut.add_done_callback(stamp)
+            futs.append(fut)
+        answers = [f.result(600) for f in futs]
+        wall_s = max(done.values()) - t0
+    finally:
+        rt.shutdown(wait=True)
+        c.serving = None
+    if any(t.is_alive() for t in rt._threads):
+        fail("a serving worker outlived shutdown(wait=True)")
+    launches = dict(segsum.LAUNCHES)
+    after = c.metrics.snapshot()["counters"]
+    moved = {k: v - before.get(k, 0) for k, v in after.items()
+             if k.startswith(("serving.", "families.", "query.cache."))
+             and v != before.get(k, 0)}
+    return answers, [lat[i] for i in range(len(sqls))], wall_s, moved, \
+        launches
+
+
+def q1_pipeline_params(c, sqls):
+    """(the Q1 family's fused pipeline, its table, each query's parameter
+    values), as the compiled aggregate rung lifts them."""
+    from dask_sql_tpu_torch.physical import compiled
+    from dask_sql_tpu_torch.physical.executor import Executor
+    from dask_sql_tpu_torch.planner import plan as p
+
+    params = []
+    for q in sqls:
+        agg = next(n for n in p.walk_plan(c.sql(q)._plan)
+                   if isinstance(n, p.Aggregate))
+        pipe, table, values, _ = compiled._scan_chain_pipeline(
+            agg, compiled._extract_chain(agg), Executor(c))
+        params.append(values)
+    return pipe, table, params
+
+
+def stacked_check(segsum, pipe, table, params, card, rate):
+    """The stacked family call of a batch of len(params) members, as
+    `run_batched` makes it over the 6M rows, against its plain version and
+    each member's own `segsum_typed` call (the same bits), with its ms,
+    the plain ms, the library call's ms and its bound."""
+    captured = []
+    stacked = segsum.segsum_stacked
+
+    def capture(gid, members, domain):
+        captured.append((gid, [list(m) for m in members], domain))
+        return stacked(gid, members, domain)
+
+    segsum.segsum_stacked = capture
+    try:
+        pipe.run_batched(table, params)
+    finally:
+        segsum.segsum_stacked = stacked
+    gid, members, domain = captured[0]
+    b = len(members)
+    got = segsum.segsum_stacked(gid, members, domain)
+    want = segsum.segsum_stacked_plain(gid, members, domain)
+    torch.cuda.synchronize()
+    err, rel = 0.0, 0.0
+    for j, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, segsum.segsum_typed(gid, members[j], domain)):
+            fail(f"stacked call B={b}: member {j} differs from its own "
+                 "segsum_typed call")
+        counts = [i for i, (d, _) in enumerate(members[j])
+                  if d.dtype == torch.bool]
+        if not torch.equal(g[:, counts], w[:, counts]):
+            fail(f"stacked call B={b}: counts differ from the plain version")
+        e = (g - w).abs()
+        err = max(err, float(e.max()))
+        rel = max(rel, float((e / w.abs().clamp_min(1e-30)).max()))
+    if not rel <= REL_BOUND:
+        fail(f"stacked call B={b}: relative error {rel} > {REL_BOUND}")
+    cols = [col for m in members for col in m]
+    k = len(members[0])
+    iters = 10 if b <= 8 else 3
+    ms, host_us = card_ms(lambda: segsum.segsum_stacked(gid, members,
+                                                        domain), iters)
+    solo_ms = cuda_ms(lambda: [segsum.segsum_typed(gid, m, domain)
+                               for m in members], iters)
+    plain_ms = cuda_ms(lambda: segsum.segsum_stacked_plain(
+        gid, members, domain), 2)
+    n_bytes = typed_bytes(gid, cols, domain)
+    bytes_ms = n_bytes / rate * 1e3
+    ops_ms = typed_adds(gid, cols, domain) / FP64_RATE * 1e3
+    need = int(gid.shape[0]) * len(cols) * 8
+    library_ms = None
+    if torch.cuda.mem_get_info()[0] > 2 * need:
+        src64 = torch.stack([d.to(torch.float64) if m is None else
+                             torch.where(m, d.to(torch.float64), 0.0)
+                             for d, m in cols], dim=1)
+        library_ms = cuda_ms(lambda: torch.zeros(
+            domain, len(cols), dtype=torch.float64,
+            device=gid.device).index_add_(0, gid, src64), 2)
+        del src64
+    per_call = max(1, segsum.STACK_SCRATCH_BYTES
+                   // (segsum.launch_geometry(gid, members[0], domain)[2]
+                       * domain * k * 8))
+    out = {"members": b, "k": len(cols), "k_member": k, "domain": domain,
+           "calls": -(-b // per_call), "max_abs_err": err,
+           "max_rel_err": rel, "same_bits_as_solo": True, "ms": ms,
+           "host_us": host_us, "solo_calls_ms": solo_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(bytes_ms, ops_ms),
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "bytes": n_bytes}
+    phase("serving", part="stacked_call", card=card, **out)
+    del captured, got, want, cols, members
+    return out
+
+
+def check_same_bits(got, solo, label) -> None:
+    import pandas as pd
+
+    try:
+        pd.testing.assert_frame_equal(got, solo, check_exact=True)
+    except AssertionError as e:
+        fail(f"{label}: a batched member differs from its run alone: {e}")
+
+
+def serving(df, c3, check_q3, queries, card, segsum):
+    """The `serving` phase, the path of a query through the serving tier on
+    Q1's 6,000,000 encoded rows and Q3's frames (`c3`): a burst of
+    SERVING_MEMBERS members of Q1's family on SERVING_WORKERS workers (each
+    answer against its float64 oracle, bit-equal to its run alone, fewer
+    segment-sum launches than members), the same burst with the batcher
+    off, interactive Q1 members popped before a batch Q3 and root select,
+    packing under a byte budget of twice Q1's provable floor (the reserved
+    bytes never past it, 0 after the drain), a queue-full shed and a
+    deadline at a checkpoint, the result cache (a hit launches nothing; an
+    INSERT INTO drops it and the repeat sees the new row), SHOW QUERIES,
+    and the stacked family call against its plain version at
+    SERVING_STACKS.  `queries` are `tests/tpch.py`'s: Q3 runs as batch
+    work, q22 (several plan nodes over `c3`'s customer and orders) past a
+    deadline.  Returns the kernels' numbers of the phase."""
+    from dask_sql_tpu_torch.serving import (
+        DeadlineExceededError,
+        QueueFullError,
+        ServingRuntime,
+    )
+
+    t_phase = time.perf_counter()
+    q3_sql = queries[3]
+    c, _, _ = load_tables({"lineitem": df})
+    dates = serving_dates(SERVING_MEMBERS)
+    sqls = [q1_of(d) for d in dates]
+    oracles = q1_family_oracle(df, dates)
+    rate = memory_rate(torch.cuda.get_device_name(0))
+
+    # (a) the burst: 32 interactive members of Q1's family at once
+    opts = {"serving.workers": SERVING_WORKERS,
+            "serving.batch.window_ms": SERVING_WINDOW_MS}
+    answers, lat, wall_s, moved, launches = burst(c, sqls, segsum, **opts)
+    total = launches["segsum"] + launches["segsum_stacked"]
+    if total >= SERVING_MEMBERS or not launches["segsum_stacked"]:
+        fail(f"the burst made {launches} segment-sum launches for "
+             f"{SERVING_MEMBERS} members")
+    rel = max(check_q1(got, oracles[d], f"burst Q1 {d}")
+              for got, d in zip(answers, dates))
+    sizes = c.metrics.snapshot()["histograms"].get("serving.batch.size", {})
+    for got, q, d in zip(answers, sqls, dates):
+        check_same_bits(got, c.sql(q).compute(), f"burst Q1 {d}")
+    check_not_degraded(c, "serving burst")
+    burst_out = {"members": SERVING_MEMBERS, "workers": SERVING_WORKERS,
+                 "window_ms": SERVING_WINDOW_MS, "launches": launches,
+                 "counters": moved, "batch_sizes": sizes,
+                 "queries_per_s": SERVING_MEMBERS / wall_s,
+                 "p50_ms": float(np.percentile(lat, 50)),
+                 "p99_ms": float(np.percentile(lat, 99)),
+                 "max_rel_err": rel, "same_bits_as_solo": True}
+    phase("serving", part="burst", card=card, **burst_out)
+
+    # (b) the same burst with the batcher off, for comparison
+    answers, lat1, wall1, moved1, launches1 = burst(
+        c, sqls, segsum, **opts, **{"serving.batch.max_queries": 1})
+    for got, d in zip(answers, dates):
+        check_q1(got, oracles[d], f"unbatched Q1 {d}")
+    phase("serving", part="burst_unbatched", card=card,
+          members=SERVING_MEMBERS, launches=launches1, counters=moved1,
+          queries_per_s=SERVING_MEMBERS / wall1,
+          p50_ms=float(np.percentile(lat1, 50)),
+          p99_ms=float(np.percentile(lat1, 99)))
+    del answers
+
+    # (c) the stacked family call against its plain version, on the
+    # members' columns over the 6,000,000 rows
+    pipe, table, params = q1_pipeline_params(
+        c, [q1_of(d) for d in serving_dates(max(SERVING_STACKS))])
+    stacks = {b: stacked_check(segsum, pipe, table, params[:b], card, rate)
+              for b in SERVING_STACKS}
+    del pipe, table, params
+
+    # (d) mixed classes on one worker: batch work queued first, then
+    # interactive members; the interactive ones pop first
+    flags_want, rev_want = select_oracle(df)
+    rt = ServingRuntime(workers=1, metrics=c.metrics)
+    c.serving = c3.serving = rt
+    gate = threading.Event()
+    try:
+        rt.submit(lambda t: gate.wait(60))
+        work = [("batch", c3, q3_sql), ("batch", c, SELECT_QUERY)] + [
+            ("interactive", c, q) for q in sqls[:4]]
+        subs = [(cls, ctx.submit(q, priority_class=cls), q)
+                for cls, ctx, q in work]
+        gate.set()
+        results = [(cls, fut.result(600), q) for cls, (_, fut), q in subs]
+        started = [(ctx.live_queries.get(qid).ticket.started_at, cls)
+                   for (cls, ctx, _), (_, (qid, _), _)
+                   in zip(work, subs)]
+    finally:
+        gate.set()
+        rt.shutdown(wait=True)
+        c.serving = c3.serving = None
+    order = [cls for _, cls in sorted(started)]
+    if order != ["interactive"] * 4 + ["batch"] * 2:
+        fail(f"the classes popped in the order {order}")
+    for cls, got, q in results:
+        if q == q3_sql:
+            check_q3(got)
+        elif q == SELECT_QUERY:
+            if got["l_returnflag"].tolist() != flags_want.tolist() or \
+                    max_rel(got["rev"], rev_want) > REL_BOUND:
+                fail("the batch root select differs from its oracle")
+        else:
+            check_q1(got, oracles[dates[sqls.index(q)]], "mixed Q1")
+    phase("serving", part="mixed_classes", card=card, pop_order=order)
+
+    # (e) packing against a byte budget of twice Q1's provable floor
+    lo = c.cost_hint(sqls[0]).bytes_lo
+    budget = 2 * lo
+    peak, stop = [0], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], c.ledger.reserved_bytes())
+            time.sleep(0.0005)
+
+    sampler = threading.Thread(target=sample)
+    drift0 = c.metrics.snapshot()["histograms"].get(
+        "serving.scheduler.reserve_drift", {}).get("count", 0)
+    sampler.start()
+    try:
+        answers, _, _, moved_p, _ = burst(
+            c, sqls[:16], segsum, **opts,
+            **{"serving.scheduler.device_budget_bytes": budget})
+    finally:
+        stop.set()
+        sampler.join(10)
+    if sampler.is_alive():
+        fail("the reservation sampler did not stop")
+    for got, d in zip(answers, dates):
+        check_q1(got, oracles[d], f"packed Q1 {d}")
+    if peak[0] > budget or c.ledger.reserved_bytes() != 0:
+        fail(f"reserved bytes {peak[0]} past the budget {budget}, or "
+             f"{c.ledger.reserved_bytes()} left after the drain")
+    drift = c.metrics.snapshot()["histograms"].get(
+        "serving.scheduler.reserve_drift", {})
+    if drift.get("count", 0) - drift0 != 16:
+        fail(f"the reserve drift was observed {drift} times for 16 queries")
+    phase("serving", part="packing", card=card, bytes_lo=lo,
+          budget_bytes=budget, peak_reserved_bytes=peak[0],
+          reserved_after_drain=c.ledger.reserved_bytes(), counters=moved_p,
+          reserve_drift=drift)
+    del answers
+
+    # (f) shedding: past the interactive queue, and past the deadline
+    with c.config.set({"serving.workers": 1,
+                       "serving.queue.interactive": 1}):
+        rt = ServingRuntime.from_config(c.config, c.metrics)
+    c.serving = rt
+    gate, started = threading.Event(), threading.Event()
+    try:
+        rt.submit(lambda t: (started.set(), gate.wait(60))[1])
+        if not started.wait(60):
+            fail("the blocking query never started")
+        _, queued = c.submit(sqls[0])
+        try:
+            c.submit(sqls[1])
+            fail("a submit past serving.queue.interactive was admitted")
+        except QueueFullError as e:
+            shed = {"class": e.priority_class, "bound": e.bound,
+                    "retry_after_s": e.retry_after_s}
+        gate.set()
+        queued.result(600)
+    finally:
+        gate.set()
+        rt.shutdown(wait=True)
+        c.serving = None
+    with c3.config.set({"serving.deadline_s": SERVING_DEADLINE_S}):
+        rt = ServingRuntime.from_config(c3.config, c3.metrics)
+    c3.serving = rt
+    try:
+        _, fut = c3.submit(queries[22])
+        try:
+            fut.result(600)
+            fail("a query past serving.deadline_s answered")
+        except DeadlineExceededError as e:
+            deadline_msg = str(e)
+    finally:
+        rt.shutdown(wait=True)
+        c3.serving = None
+    if "exceeded its deadline" not in deadline_msg:
+        fail(f"the deadline did not stop the query at a checkpoint: "
+             f"{deadline_msg}")
+    phase("serving", part="shedding", card=card, queue_full=shed,
+          deadline_s=SERVING_DEADLINE_S, deadline=deadline_msg,
+          timeouts=c3.metrics.counter("serving.timeouts"))
+
+    # (g) the result cache on: a repeat is a hit that launches nothing; an
+    # INSERT INTO drops it, and the repeat sees the new row
+    c.config.update({"serving.cache.enabled": True})
+    rt = ServingRuntime.from_config(c.config, c.metrics)
+    c.serving = rt
+    try:
+        first = c.submit(sqls[0])[1].result(600)
+        hits = c.metrics.counter("query.cache.hit")
+        reset_launches(segsum)
+        t0 = time.perf_counter()
+        again = c.submit(sqls[0])[1].result(600)
+        hit_ms = (time.perf_counter() - t0) * 1e3
+        hit_launches = dict(segsum.LAUNCHES)
+        if c.metrics.counter("query.cache.hit") != hits + 1 or \
+                sum(hit_launches.values()) != 0:
+            fail(f"the repeat was no cache hit: launches {hit_launches}")
+        check_same_bits(again, first, "the cached Q1")
+        cache_bytes = c.ledger.snapshot()["resultCacheBytes"]
+        c.sql(SURFACE_INSERTS[1])
+        if c.metrics.counter("query.cache.invalidated") != 1:
+            fail("INSERT INTO did not drop the cached result")
+        reset_launches(segsum)
+        after = c.submit(sqls[0])[1].result(600)
+        after_launches = dict(segsum.LAUNCHES)
+    finally:
+        rt.shutdown(wait=True)
+        c.serving = None
+    if after_launches["segsum"] != 1 or len(after) != len(first) + 1:
+        fail(f"after INSERT INTO the repeat launched {after_launches} and "
+             f"gave {len(after)} rows")
+    new = after[after.l_returnflag == "X"]
+    if new["count_order"].tolist() != [1] or new["sum_qty"].tolist() != [10.0]:
+        fail(f"the repeat does not see the inserted row: {new}")
+    check_q1(after[after.l_returnflag != "X"].reset_index(drop=True),
+             oracles[dates[0]], "Q1 after the insert")
+    phase("serving", part="cache", card=card, hit_launches=hit_launches,
+          hit_ms=hit_ms,
+          result_cache_bytes=cache_bytes,
+          invalidated=c.metrics.counter("query.cache.invalidated"),
+          after_insert_launches=after_launches, after_insert_rows=len(after))
+
+    # (h) what is left: the finished queries in SHOW QUERIES
+    rows = c.sql("SHOW QUERIES").compute()
+    fields = set(rows["Field"])
+    if not {"rung", "family", "batch"} <= fields:
+        fail(f"SHOW QUERIES lacks rung, family or batch: {sorted(fields)}")
+    live = len(set(rows["Qid"])) - 1
+    roles = rows[rows.Field == "batch"]["Value"].value_counts().to_dict()
+    phase("serving", part="show_queries", card=card, queries=live,
+          batch_roles=roles,
+          rungs=rows[rows.Field == "rung"]["Value"].value_counts().to_dict())
+    check_not_degraded(c, "serving")
+
+    del c, rows
+    phase("serving", part="seconds", card=card,
+          seconds=time.perf_counter() - t_phase)
+    return {"launches": launches["segsum_stacked"], "burst": burst_out,
+            "stacks": stacks}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
-    from dask_sql_tpu_torch import Context, _build
+    from dask_sql_tpu_torch import _build
     from dask_sql_tpu_torch.ops import segsum
     from dask_sql_tpu_torch.utils import TRANSFER_STATS
 
@@ -2686,7 +3204,6 @@ def main() -> int:
     observability_out = observability(df, want, card, segsum,
                                       TRANSFER_STATS)
     check_card_freed(mem0, "observability")
-    del df
 
     # 9. TPC-H Q3 through the compiled join->aggregate pipeline, over the
     # encoded columns
@@ -2755,7 +3272,12 @@ def main() -> int:
     # which hi keeps at least: loose
     explain_and_bounds(c3, QUERIES[3], "q3", card, tight=False)
     check_not_degraded(c3, "q3")
-    del c3, tables, got, pipe
+    # 9b. the `serving` phase: Q1's rows and Q3's frames through the
+    # serving tier (its Contexts and workers gone after it)
+    mem_serving = card_allocated()
+    serving_out = serving(df, c3, check_q3, QUERIES, card, segsum)
+    check_card_freed(mem_serving, "serving")
+    del c3, tables, got, pipe, df
     check_card_freed(mem0, "q3")
 
     # 10. TPC-H q5-q19 on the same frames, all eight tables: the eager
@@ -2787,7 +3309,7 @@ def main() -> int:
     t0 = time.perf_counter()
     star = gen_star(STAR_ROWS)
     mem0 = card_allocated()
-    cs = Context(device="cuda")
+    cs = measuring_context()
     for name, frame in star.items():
         cs.create_table(name, frame)
     torch.cuda.synchronize()
@@ -2941,6 +3463,28 @@ def main() -> int:
         "stacked_bound_ms": bound_ms,
         "stacked_library_ms": library_ms,
         "stacked_max_abs_err": q1_err,
+    }, {
+        # the family batcher's stacked launch: the same kernel, one call
+        # over every member's columns with one member's plan
+        "name": "segsum_stacked",
+        "route": "cuda",
+        "source": "dask_sql_tpu_torch/csrc/segsum.cu",
+        "wrapper": "dask_sql_tpu_torch/ops/segsum.py segsum_stacked",
+        "replaces": "dask_sql_tpu/ops/pallas_kernels.py:99",
+        "batched_path": "dask_sql_tpu/physical/compiled.py:1190",
+        "launches": serving_out["launches"],
+        "max_abs_err": max(st["max_abs_err"]
+                           for st in serving_out["stacks"].values()),
+        "ms": serving_out["stacks"][8]["ms"],
+        "plain_ms": serving_out["stacks"][8]["plain_ms"],
+        "bound_ms": serving_out["stacks"][8]["bound_ms"],
+        "bound_by": serving_out["stacks"][8]["bound_by"],
+        "library_ms": serving_out["stacks"][8]["library_ms"],
+        "members": 8,
+        "by_members": {str(b): {k: st[k] for k in (
+            "k", "calls", "ms", "solo_calls_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err")}
+            for b, st in serving_out["stacks"].items()},
     }]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

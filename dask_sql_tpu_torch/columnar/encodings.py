@@ -29,7 +29,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import enum
-from typing import Optional, Tuple
+import weakref
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -316,11 +317,32 @@ def encoded_nbytes(col) -> int:
     total = _nbytes(col.data) + _nbytes(col.validity) + _nbytes(col.enc_lengths)
     if col.enc_values is not None:
         total += int(col.enc_values.nbytes)
-    dictionary = col.dictionary
-    if dictionary is not None:
-        # host object array of uniques: nbytes counts only pointers
-        total += sum(len(str(v)) for v in dictionary) + dictionary.nbytes
+    if col.dictionary is not None:
+        total += _dictionary_nbytes(col.dictionary)
     return total
+
+
+#: id -> (weak reference, bytes) of each host dictionary counted so far.  A
+#: dictionary is shared by its table's column and every result decoded
+#: from it, and every query counts its result and scanned tables
+#: (`serving/cache.py` `table_nbytes`): a million strings take tens of ms
+#: to count.  An entry leaves with its dictionary.
+_DICTIONARY_BYTES: Dict[int, Tuple[weakref.ref, int]] = {}
+
+
+def _dictionary_nbytes(dictionary: np.ndarray) -> int:
+    """A host object array of uniques: its strings' lengths, plus its
+    pointers (all that ``nbytes`` counts).  Dictionaries are never
+    written in place, so a count holds while its array lives."""
+    key = id(dictionary)
+    got = _DICTIONARY_BYTES.get(key)
+    if got is not None and got[0]() is dictionary:
+        return got[1]
+    n = sum(len(str(v)) for v in dictionary) + dictionary.nbytes
+    _DICTIONARY_BYTES[key] = (
+        weakref.ref(dictionary, lambda _, k=key: _DICTIONARY_BYTES.pop(k, None)),
+        n)
+    return n
 
 
 def decoded_nbytes(col) -> int:

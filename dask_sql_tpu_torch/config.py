@@ -61,6 +61,51 @@ DEFAULTS: Dict[str, Any] = {
     # fault injection (resilience/faults.py), e.g. "compile:0.5,oom:once"
     "resilience.inject": None,
     "resilience.inject.seed": 0,  # PRNG seed of the probabilistic modes
+    # bounded retry of taxonomy-retryable failures at the serving worker
+    # (resilience/retry.py BackoffPolicy)
+    "resilience.retry.max_attempts": 3,  # total tries (1 = no retry)
+    "resilience.retry.base_s": 0.05,  # first backoff delay, seconds
+    "resilience.retry.multiplier": 2.0,  # exponential backoff factor
+    "resilience.retry.max_s": 2.0,  # backoff ceiling, seconds
+    "resilience.retry.jitter": 0.5,  # +-fraction of jitter on each delay
+    # the family batcher (families/batcher.py) under a ServingRuntime:
+    # concurrently admitted members of one plan family answer with one
+    # stacked run; max_queries <= 1 disables it, and window_ms is how long
+    # a leader waits for followers while other queries are in flight
+    "serving.batch.max_queries": 8,
+    "serving.batch.window_ms": 2.0,
+    # the serving runtime (serving/runtime.py), read when it is built
+    "serving.workers": 8,  # worker threads
+    "serving.queue.interactive": 32,  # waiting interactive queries before shedding
+    "serving.queue.batch": 64,  # waiting batch queries before shedding
+    "serving.batch.max_running": None,  # concurrent batch cap (None = workers-1; 0 pauses batch)
+    "serving.deadline_s": None,  # default per-query deadline, seconds (None = unbounded)
+    "serving.retry_after_s": 1.0,  # floor of the retry-after hint on a shed
+    "serving.retry_after.cap_s": 60.0,  # ceiling of every retry-after hint
+    # the estimated-bytes gate (serving/admission.py): shed a query whose
+    # provable peak device bytes (the estimate's lower bound) exceed this
+    # budget, before any executor work.  None disables the gate
+    "serving.admission.max_estimated_bytes": None,
+    # the packing scheduler (serving/scheduler.py): queries packed against
+    # the device byte budget by their provable floors, deadline first,
+    # with per-tenant quotas; enabled=false keeps plain FIFO class queues
+    "serving.scheduler.enabled": True,
+    # the budget the packer reserves against; None falls back to
+    # serving.admission.max_estimated_bytes (none at all = no packing)
+    "serving.scheduler.device_budget_bytes": None,
+    # a deadline-free query sorts as if its deadline were its admission
+    # plus this many seconds
+    "serving.scheduler.fair_horizon_s": 30.0,
+    "serving.tenant.rate_qps": None,  # per-tenant token refill, queries/s (None = off)
+    "serving.tenant.burst": 4.0,  # token-bucket capacity per tenant
+    # shutdown(wait=True) cancels and fails queries still running after
+    # this many seconds
+    "serving.shutdown.drain_timeout_s": 30.0,
+    # the result cache (serving/cache.py) of repeated identical queries
+    "serving.cache.enabled": True,
+    "serving.cache.max_bytes": 256 << 20,  # total resident bytes before LRU eviction
+    "serving.cache.max_entry_bytes": 64 << 20,  # per-entry cap
+    "serving.cache.ttl_s": 300.0,  # entry time-to-live, seconds (None = no TTL)
     # per-plan-node tracing of every execution, folded into the metrics
     # registry (``executor.node.*``; on the card each node then waits for
     # its device work, tracing.py)
@@ -76,6 +121,12 @@ DEFAULTS: Dict[str, Any] = {
     # rolling samples kept per fingerprint (exec, compile, bytes)
     "observability.profiles.window": 64,
     "observability.profiles.keep": 512,  # fingerprints kept (LRU)
+    # finished queries kept in the SHOW QUERIES table
+    "observability.live.keep": 64,
+    "observability.flight.capacity": 4096,  # flight-recorder ring size (events)
+    # JSONL sink the ring is flushed to on any query failure (None = the
+    # ring in memory only)
+    "observability.flight.dump_path": None,
     # load-time column encodings (columnar/encodings.py): auto | off
     "columnar.encoding": "auto",
     "columnar.encoding.min_rows": 1024,

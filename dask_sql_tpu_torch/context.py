@@ -17,15 +17,20 @@ Each `sql` call records a lifecycle trace (`observability/`: the stages
 parse, bind, optimize, parameterize, verify, estimate, execute and d2h,
 kept in `traces` and `last_trace`), every execution feeds the metrics
 registry (`metrics`, `serving/metrics.py`) and the per-fingerprint
-profiles (`profiles`), which SHOW METRICS and SHOW PROFILES read.  The
-serving, result-cache, materialization and admission tiers of the
-reference are not ported yet (ROADMAP.md Queue 1 item 8b, 8c).
+profiles (`profiles`), which SHOW METRICS and SHOW PROFILES read.  Each
+execution is an entry of the in-flight query table (`live_queries`: SHOW
+QUERIES, CANCEL QUERY), looks in the result cache first, passes the
+estimated-bytes gate, and feeds the card-byte ledger (`ledger`); a
+`serving.ServingRuntime` attached as `serving` runs queries on its worker
+pool.  The reference's semantic reuse (materialization, ROADMAP.md Queue
+1 item 8c) is not ported yet.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
 import time
+import uuid
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -46,6 +51,8 @@ from .planner.binder import Binder
 from .planner.catalog import Catalog, CatalogTable
 from .planner.expressions import Field
 from .planner.parser import parse_sql
+from .runtime import locks as runtime_locks
+from .serving.cache import ResultCache
 from .serving.metrics import MetricsRegistry
 
 logger = logging.getLogger(__name__)
@@ -91,11 +98,28 @@ class TorchFrame:
         `NotImplementedError` naming a later slice.  The run is the
         ``execute`` stage of the query's trace; it counts
         ``query.executed``, observes ``query.execute_ms`` and records the
-        fingerprint's profile, with tracing on or off."""
+        fingerprint's profile, with tracing on or off.
+
+        Before it, as in the reference: the query's entry in the in-flight
+        table (`Context.live_queries`: the serving front end's, or one of
+        its own with a cancellable ticket), the ``cache_lookup`` stage
+        (a hit in `Context._result_cache` answers without executing), and
+        the estimated-bytes gate (`serving/admission.py`).  After it: the
+        measured footprint on the serving ticket (the scheduler's
+        reserve drift) and the result into the cache, tagged with the
+        tables it read.  The reference's semantic reuse (item 8c) would
+        answer between the cache and the gate; the port goes on as if it
+        found nothing to reuse."""
         if self._result is None:
-            from .config import parse_byte_budget
             from .physical.executor import Executor
             from .resilience.ladder import plan_fingerprint, wrap_boundary
+            from .serving.admission import (
+                QueryCancelledError,
+                QueryTicket,
+                check_estimated_bytes,
+            )
+            from .serving.cache import table_nbytes
+            from .serving.runtime import current_ticket, ticket_scope
 
             ctx = self._context
             tr = self._trace
@@ -127,14 +151,78 @@ class TorchFrame:
                 stack.enter_context(observability.compile_sink(
                     ctx.metrics, ctx.profiles, fp, sql_text,
                     family=family_fp))
-                if parse_byte_budget(ctx.config.get(
-                        "serving.admission.max_estimated_bytes")) is not None \
-                        and not _renders_only(self._plan):
-                    # refusing beats silently ignoring a budget the user set
-                    raise NotImplementedError(
-                        "serving.admission.max_estimated_bytes needs the "
-                        "admission gate (serving/admission.py, ROADMAP.md "
-                        "Queue 1 item 8b), not in the port yet")
+                # the in-flight table: a serving front end registered the
+                # entry at submit (found through its ticket); a direct call
+                # registers its own, with a ticket installed for the
+                # executor's checkpoints, so CANCEL QUERY reaches it too
+                live_ticket = current_ticket()
+                entry = None
+                if live_ticket is not None:
+                    entry = ctx.live_queries.get(live_ticket.qid)
+                owned_entry = entry is None
+                if owned_entry:
+                    live_qid = tr.qid if tr is not None else None
+                    if live_ticket is None:
+                        live_qid = live_qid or uuid.uuid4().hex[:16]
+                        live_ticket = QueryTicket(live_qid)
+                        stack.enter_context(ticket_scope(live_ticket))
+                    entry = ctx.live_queries.begin(
+                        live_qid or live_ticket.qid, sql=sql_text,
+                        ticket=live_ticket, trace=tr,
+                        priority_class=live_ticket.priority_class)
+                ctx.live_queries.start(entry.qid)
+                entry.family = family_fp
+                entry.fingerprint = fp
+                stack.enter_context(observability.live.activate(entry))
+
+                def _finish_live(exc_type, exc, tb):
+                    if exc is None:
+                        if owned_entry:
+                            ctx.live_queries.finish(entry.qid, "done")
+                        return False
+                    if not owned_entry:
+                        # the serving front end owns the terminal outcome
+                        # (the worker may retry this attempt)
+                        return False
+                    code = getattr(exc, "code", None) or exc_type.__name__
+                    state = "cancelled" if isinstance(
+                        exc, QueryCancelledError) else "failed"
+                    ctx.live_queries.finish(entry.qid, state, code)
+                    if state == "failed":
+                        # a cancel recorded query.cancel where it was asked
+                        # for, and dumps no failure postmortem
+                        observability.flight.flush_on_failure(
+                            entry.qid, code, ctx.config, ctx.metrics)
+                    return False
+
+                # pushed after the trace hook so it runs first on unwind:
+                # the entry is terminal before the slow-query check
+                stack.push(_finish_live)
+                with observability.stage("cache_lookup"):
+                    key = ctx._result_cache_key(self._plan,
+                                                self._config_options)
+                    hit = ctx._result_cache.get(key) if key is not None \
+                        else None
+                if hit is not None:
+                    if tr is not None:
+                        tr.event("result_cache_hit")
+                    ctx.profiles.record_exec(fp, sql=sql_text,
+                                             cache_hit=True,
+                                             family=family_fp)
+                    self._result = hit
+                    return self._result
+                estimate = ctx._plan_estimate(self._plan)
+                if estimate is not None:
+                    # sheds a provably over-budget query before any
+                    # executor work
+                    check_estimated_bytes(estimate, ctx.config, ctx.metrics,
+                                          plan=self._plan, context=ctx)
+                    # a result whose provable bytes exceed the per-entry
+                    # cap is never cacheable: skip the insert
+                    if key is not None and estimate.result_bytes.lo > \
+                            ctx._result_cache.max_entry_bytes:
+                        ctx.metrics.inc("query.cache.estimate_skip")
+                        key = None
                 trace = bool(ctx.config.get("serving.metrics.node_traces",
                                             False))
                 executor = Executor(ctx, trace=trace)
@@ -149,17 +237,31 @@ class TorchFrame:
                     executor.tracer.publish(ctx.metrics)
                     if tr is not None:
                         tr.attach_node_tree(executor.tracer.root)
+                result_bytes = table_nbytes(self._result)
                 ctx.profiles.record_exec(
                     fp, sql=sql_text, exec_ms=exec_ms,
-                    result_bytes=sum(col.device_nbytes() for col in
-                                     self._result.columns.values()),
-                    family=family_fp, rows=self._result.num_rows)
+                    result_bytes=result_bytes, family=family_fp,
+                    rows=self._result.num_rows)
+                ticket = current_ticket()
+                if ticket is not None:
+                    # the measured footprint (result plus the scanned
+                    # tables' resident bytes) the scheduler reconciles its
+                    # reservation with (serving.scheduler.reserve_drift)
+                    ticket.measured_bytes = result_bytes \
+                        + ctx._measured_scan_bytes(self._plan)
+                    entry.measured_bytes = ticket.measured_bytes
                 est = getattr(self._plan, "_dsql_estimate", None)
                 if est is not None:
                     # the estimated side of SHOW PROFILES' rows, recorded
                     # now that the entry exists
                     ctx.profiles.record_estimate(fp, est.rows.hi,
                                                  family=family_fp)
+                if key is not None:
+                    # tagged with the tables it read: an append or a DDL
+                    # drops exactly the entries reading them
+                    ctx._result_cache.put(
+                        key, self._result, nbytes=result_bytes,
+                        deps=ctx._plan_table_deps(self._plan))
         return self._result
 
     def compute(self):
@@ -241,6 +343,33 @@ class Context:
         #: bumped when a view or function is defined or dropped: plans bound
         #: against the old definition must not be reused
         self._catalog_serial = 0
+        #: guards `_plan_cache`: the serving workers plan on one Context
+        #: from several threads
+        self._plan_lock = runtime_locks.named_lock("context.plan_cache")
+        #: result Tables of repeated queries (serving/cache.py), keyed by
+        #: `_result_cache_key` and dropped when a table they read changes
+        self._result_cache = ResultCache(
+            max_bytes=int(self.config.get("serving.cache.max_bytes",
+                                          256 << 20)),
+            max_entry_bytes=int(self.config.get(
+                "serving.cache.max_entry_bytes", 64 << 20)),
+            ttl_s=self.config.get("serving.cache.ttl_s", 300.0),
+            metrics=self.metrics)
+        #: the `ServingRuntime` a caller attached (SHOW METRICS shows its
+        #: queues, and the family batcher reads it)
+        self.serving = None
+        #: the in-flight query table (observability/live.py) behind
+        #: SHOW QUERIES and the target of CANCEL QUERY
+        self.live_queries = observability.QueryRegistry(
+            keep_finished=int(self.config.get("observability.live.keep",
+                                              64)))
+        #: card-byte accounting (observability/ledger.py)
+        self.ledger = observability.DeviceLedger(self)
+        #: (schema, table) -> ((uid, delta epoch), resident bytes), for
+        #: `_measured_scan_bytes`
+        self._scan_bytes: Dict[Tuple[str, str], Tuple[Tuple, int]] = {}
+        observability.flight.RECORDER.resize(
+            int(self.config.get("observability.flight.capacity", 4096)))
 
     # ------------------------------------------------------------ tables
     def create_table(self, table_name: str, input_table: Any,
@@ -307,7 +436,12 @@ class Context:
         self._bump_table_epoch(schema_name, table_name)
         if self._views.setdefault(schema_name, {}).pop(table_name,
                                                        None) is not None:
+            # a view replaced by a table: results over other views may
+            # read this name through their plans
             self._catalog_serial += 1
+            self._on_catalog_change()
+        else:
+            self._on_catalog_change(tables={(schema_name, table_name)})
 
     def drop_table(self, table_name: str,
                    schema_name: Optional[str] = None) -> None:
@@ -319,6 +453,9 @@ class Context:
         self._bump_table_epoch(schema_name, table_name)
         if self._views.get(schema_name, {}).pop(table_name, None) is not None:
             self._catalog_serial += 1
+            self._on_catalog_change()
+        else:
+            self._on_catalog_change(tables={(schema_name, table_name)})
 
     def alter_table(self, old_name: str, new_name: str,
                     schema_name: Optional[str] = None) -> None:
@@ -332,6 +469,8 @@ class Context:
                 by_name[new_name] = by_name.pop(old_name)
         self._bump_table_epoch(schema_name, old_name)
         self._bump_table_epoch(schema_name, new_name)
+        self._on_catalog_change(tables={(schema_name, old_name),
+                                        (schema_name, new_name)})
 
     def append_rows(self, table_name: str, rows: Any,
                     schema_name: Optional[str] = None) -> int:
@@ -365,6 +504,9 @@ class Context:
             dc.table = Table.concat([dc.table, delta])
         container.statistics[table_name] = Statistics(float(dc.table.num_rows))
         self._bump_table_epoch(schema_name, table_name)
+        # the table was rewritten in place: a cached result that read it
+        # (and may alias its tensors) drops now
+        self._on_catalog_change(tables={(schema_name, table_name)})
         return appended
 
     def table_epoch(self, schema_name: str, table_name: str) -> int:
@@ -379,10 +521,24 @@ class Context:
         self._family_estimates.clear()
         return epoch
 
+    def _on_catalog_change(self, tables=None) -> None:
+        """Drop the cached results a catalog change makes stale: with
+        ``tables`` (a set of (schema, table) names) exactly those that read
+        them (``query.cache.invalidated``), else all of them (a view,
+        function or schema change, whose reach no table names)."""
+        if tables:
+            n = self._result_cache.invalidate_tables(tables)
+            if n:
+                self.metrics.inc("query.cache.invalidated", n)
+        else:
+            self._result_cache.invalidate_all()
+        self._family_estimates.clear()
+
     # ------------------------------------------------------------ schemas
     def create_schema(self, schema_name: str) -> None:
         self.schema[schema_name] = SchemaContainer(schema_name)
         self._views.setdefault(schema_name, {})
+        self._on_catalog_change()
 
     def drop_schema(self, schema_name: str) -> None:
         if schema_name == self.schema_name:
@@ -390,6 +546,7 @@ class Context:
         self.schema.pop(schema_name, None)
         if self._views.pop(schema_name, None):
             self._catalog_serial += 1
+        self._on_catalog_change()
 
     def alter_schema(self, old_name: str, new_name: str) -> None:
         if old_name in self.schema:
@@ -399,6 +556,7 @@ class Context:
             self._views[new_name] = self._views.pop(old_name, {})
             if self.schema_name == old_name:
                 self.schema_name = new_name
+            self._on_catalog_change()
 
     # ------------------------------------------------------------ functions
     def register_function(self, f: Callable, name: str,
@@ -448,6 +606,7 @@ class Context:
             schema.function_lists[lower] = [fd]
         schema.functions[lower] = fd
         self._catalog_serial += 1
+        self._on_catalog_change()
 
     def lookup_function(self, name: str, arg_types: Optional[List[SqlType]] = None
                         ) -> Optional[FunctionDescription]:
@@ -505,10 +664,14 @@ class Context:
 
             scope.push(_finish_owned_on_error)
             key = self._plan_cache_key(sql, config_options)
-            plans = None if key is None else self._plan_cache.get(key)
+            plans = None
+            if key is not None:
+                with self._plan_lock:
+                    plans = self._plan_cache.get(key)
+                    if plans is not None:
+                        self._plan_cache.move_to_end(key)
             result = None
             if plans is not None:
-                self._plan_cache.move_to_end(key)
                 self.metrics.inc("query.plan_cache.hit")
                 if tr is not None:
                     tr.event("plan_cache_hit")
@@ -527,9 +690,10 @@ class Context:
                 # a script's later plans were bound against the catalog in
                 # the middle of the script: only one statement is cached
                 if key is not None and len(plans) == 1:
-                    self._plan_cache[key] = plans
-                    while len(self._plan_cache) > self._PLAN_CACHE_CAP:
-                        self._plan_cache.popitem(last=False)
+                    with self._plan_lock:
+                        self._plan_cache[key] = plans
+                        while len(self._plan_cache) > self._PLAN_CACHE_CAP:
+                            self._plan_cache.popitem(last=False)
             if result is None:
                 # no result frame (DDL): the lifecycle ends here
                 if owned and tr is not None:
@@ -568,6 +732,251 @@ class Context:
         if isinstance(plan, plan_nodes.Explain):
             plan = plan.input
         return plan.explain()
+
+    def cost_hint(self, sql: str, config_options=None):
+        """The packing scheduler's `QueryCost` of a statement already in the
+        plan cache: its estimate's provable floor ``peak_bytes.lo``, the
+        family's predicted exec ms (SHOW PROFILES' p50) and its family.
+        None for a text not planned yet: submit never plans, and the
+        scheduler treats such a query as costing nothing.  (The reference's
+        per-chunk floor of a streamed plan is item 8c's.)"""
+        from .resilience.ladder import plan_fingerprint
+        from .serving.scheduler import QueryCost
+
+        with self.config.set(dict(config_options or {})):
+            key = self._plan_cache_key(sql, config_options)
+        if key is None:
+            return None
+        with self._plan_lock:
+            plans = self._plan_cache.get(key)
+        if not plans or len(plans) != 1:
+            return None
+        plan = plans[0]
+        est = getattr(plan, "_dsql_estimate", None)
+        fam = getattr(plan, "_dsql_family", None)
+        fam_fp = fam.fingerprint if fam is not None else None
+        return QueryCost(
+            bytes_lo=int(est.peak_bytes.lo) if est is not None else 0,
+            pred_exec_ms=self.profiles.predicted_exec_ms(
+                fam_fp or plan_fingerprint(plan)),
+            family=fam_fp)
+
+    def submit(self, sql: str, priority_class: str = "interactive",
+               deadline_s: Optional[float] = None, tenant: str = "",
+               config_options: Optional[Dict[str, Any]] = None):
+        """Run `sql` on the attached serving runtime (`serving`, a
+        `ServingRuntime`) as the reference's server front end runs a
+        request, less the HTTP: its cost hint (`cost_hint`), a lifecycle
+        trace opened now (so the queue wait is a stage) and a live entry
+        begun before the runtime can pop it, then ``runtime.submit`` of
+        ``sql(...).compute()``.  Returns ``(qid, future)``; the future's
+        result is the pandas frame.  Raises `QueueFullError` (nothing
+        registered) when the class queue is full."""
+        from .serving.admission import CLASSES, QueryCancelledError
+        from .serving.scheduler import QueryCost
+
+        runtime = self.serving
+        if runtime is None:
+            raise RuntimeError("Context.submit needs a ServingRuntime "
+                               "attached as Context.serving")
+        qid = uuid.uuid4().hex
+        cost = self.cost_hint(sql, config_options)
+        if tenant:
+            cost = cost or QueryCost()
+            cost.tenant = tenant
+        trace = None
+        if self._trace_enabled():
+            trace = observability.QueryTrace(sql=sql, qid=qid,
+                                              metrics=self.metrics,
+                                              profiles=self.profiles)
+
+        def run(ticket):
+            if trace is None:
+                return self.sql(sql, config_options=config_options).compute()
+            if not any(sp.name == "queue_wait" for sp in trace.spans):
+                # once: a retried attempt waited in no queue
+                trace.add_span("queue_wait", trace.created_perf,
+                               time.perf_counter(), cause=ticket.queue_reason)
+            with observability.activate(trace):
+                return self.sql(sql, config_options=config_options).compute()
+
+        live = self.live_queries.begin(
+            qid, sql=sql, trace=trace, tenant=tenant,
+            priority_class=priority_class if priority_class in CLASSES
+            else "interactive")
+        try:
+            _, fut, ticket = runtime.submit(
+                run, qid=qid, priority_class=priority_class,
+                deadline_s=deadline_s, cost=cost)
+        except BaseException:
+            # never admitted: a shed query leaves no row behind
+            self.live_queries.discard(qid)
+            raise
+        live.ticket = ticket
+        if trace is not None:
+            self.traces.put(qid, trace)
+
+        def finish(f):
+            # the terminal outcome, after any retries of the worker
+            state, code = "done", None
+            exc = None if f.cancelled() else f.exception()
+            if f.cancelled() or isinstance(exc, QueryCancelledError):
+                state, code = "cancelled", getattr(exc, "code", None)
+            elif exc is not None:
+                state = "failed"
+                code = getattr(exc, "code", None) or type(exc).__name__
+            self.live_queries.finish(qid, state, code)
+            if state == "failed":
+                observability.flight.flush_on_failure(
+                    qid, code, self.config, self.metrics)
+            if trace is not None:
+                trace.finish(self.config, self.metrics)
+
+        fut.add_done_callback(finish)
+        return qid, fut
+
+    def cancel_query(self, qid: str) -> bool:
+        """Cooperatively cancel an in-flight query by qid: the engine behind
+        ``CANCEL QUERY '<qid>'``.  Flags the live entry's ticket; the
+        executor raises at its next checkpoint, and a queued serving
+        ticket is skipped by the worker that pops it.  False for an
+        unknown or finished qid."""
+        ok = self.live_queries.cancel(qid)
+        self.metrics.inc("serving.cancel_requested")
+        observability.flight.record("query.cancel", qid=qid, ok=ok)
+        return ok
+
+    def _result_cache_key(self, plan, config_options) -> Optional[Tuple]:
+        """Result-cache key: (the plan's family repr and parameter values,
+        or its repr; the versions of the tables it reads: uid, rows, delta
+        epoch; the config), or None when the result must not be cached:
+        caching off, a statement, EXPLAIN ANALYZE (it must run), an
+        unseeded TABLESAMPLE, a lazy parquet scan (its files can change on
+        disk), a volatile call or a user function anywhere in the plan, an
+        unhashable config.  As the reference's."""
+        from .datacontainer import LazyParquetContainer
+
+        if not self.config.get("serving.cache.enabled", True):
+            return None
+        if isinstance(plan, plan_nodes.CustomNode):
+            return None
+        if isinstance(plan, plan_nodes.Explain) and plan.analyze:
+            return None
+        table_parts: List[Tuple] = []
+        stack = [plan]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, plan_nodes.Sample) and node.seed is None:
+                return None
+            if isinstance(node, plan_nodes.TableScan):
+                dc = self.schema.get(node.schema_name, SchemaContainer(
+                    node.schema_name)).tables.get(node.table_name)
+                if isinstance(dc, LazyParquetContainer):
+                    return None
+                if dc is None:
+                    view = self._views.get(node.schema_name, {}).get(
+                        node.table_name)
+                    if view is not None:
+                        # the view's own tables version the key
+                        stack.append(view)
+                table_parts.append(
+                    (node.schema_name, node.table_name,
+                     None if dc is None else dc.uid,
+                     None if dc is None else int(dc.table.num_rows),
+                     self.table_epoch(node.schema_name, node.table_name)))
+            nested, uncacheable = _scan_node_exprs(node)
+            if uncacheable:
+                return None
+            stack.extend(nested)
+            stack.extend(node.inputs())
+        try:
+            family = getattr(plan, "_dsql_family", None)
+            if family is not None:
+                parts: List[Any] = ["result", family.family_repr,
+                                    family.key_values, self.schema_name]
+            else:
+                parts = ["result", repr(plan), (), self.schema_name]
+            parts.extend(sorted(set(table_parts)))
+            parts.append(self.config.effective_items())
+            if config_options:
+                parts.append(tuple(sorted(config_options.items())))
+            key = tuple(parts)
+            hash(key)
+            return key
+        except TypeError:  # an unhashable config value: not cacheable
+            return None
+
+    def _plan_table_deps(self, plan) -> frozenset:
+        """Every (schema, table) name a plan reads, subquery plans and
+        views included: the tags of its result-cache entry."""
+        deps = set()
+        stack = [plan]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, plan_nodes.TableScan):
+                deps.add((node.schema_name, node.table_name))
+                if node.table_name not in self.schema.get(
+                        node.schema_name,
+                        SchemaContainer(node.schema_name)).tables:
+                    view = self._views.get(node.schema_name, {}).get(
+                        node.table_name)
+                    if view is not None:
+                        stack.append(view)
+            nested, _ = _scan_node_exprs(node)
+            stack.extend(nested)
+            stack.extend(node.inputs())
+        return frozenset(deps)
+
+    def _measured_scan_bytes(self, plan) -> int:
+        """Resident bytes of the registered tables `plan` scans
+        (`serving.cache.table_nbytes`), the scan side of the measured
+        footprint the scheduler reconciles its reservation with; a lazy
+        parquet table counts nothing.  A table's count is kept until its
+        uid or delta epoch changes: it walks the host dictionaries, which
+        takes tens of ms over a table of a million strings, and every
+        query reports it."""
+        from .datacontainer import LazyParquetContainer
+        from .serving.cache import table_nbytes
+
+        total = 0
+        seen = set()
+        for node in plan_nodes.walk_plan(plan):
+            if not isinstance(node, plan_nodes.TableScan):
+                continue
+            key = (node.schema_name, node.table_name)
+            if key in seen:
+                continue
+            seen.add(key)
+            container = self.schema.get(node.schema_name)
+            dc = container.tables.get(node.table_name) \
+                if container is not None else None
+            if dc is None or isinstance(dc, LazyParquetContainer):
+                continue
+            version = (dc.uid, self.table_epoch(*key))
+            got = self._scan_bytes.get(key)
+            if got is None or got[0] != version:
+                got = self._scan_bytes[key] = (version, table_nbytes(dc.table))
+            total += got[1]
+        return total
+
+    def _plan_estimate(self, plan):
+        """The estimate riding a plan (made when it was planned), or a
+        fresh one when the estimated-bytes gate is configured and the plan
+        was never estimated; None otherwise.  (The reference also tightens
+        it with the profiles' observed rows, `apply_feedback`, ROADMAP.md
+        Queue 1 item 8b's second half.)"""
+        from .config import parse_byte_budget
+
+        est = getattr(plan, "_dsql_estimate", None)
+        if est is not None:
+            return est
+        if parse_byte_budget(self.config.get(
+                "serving.admission.max_estimated_bytes")) is None \
+                or not self._estimate_enabled() \
+                or isinstance(plan, plan_nodes.CustomNode) \
+                or _renders_only(plan):
+            return None
+        return self._run_estimator(plan)
 
     def _plan_cache_key(self, sql: str, config_options) -> Optional[Tuple]:
         """Cache key of a SQL text against the current catalog and config,
@@ -807,6 +1216,7 @@ class Context:
     def _register_view(self, name: str, plan, schema_name: str) -> None:
         self._views.setdefault(schema_name, {})[name] = plan
         self._catalog_serial += 1
+        self._on_catalog_change()
 
     def _table_schema_name(self, parts: List[str]) -> Tuple[str, str]:
         if len(parts) >= 2:
@@ -834,6 +1244,54 @@ class Context:
 
             return Executor(self).execute(view)
         raise KeyError(f"Table {schema_name}.{table_name} not found")
+
+
+#: ops whose value changes between runs of the same plan: a result that
+#: calls one is never cached
+_VOLATILE_OPS = frozenset(
+    {"rand", "rand_integer", "current_timestamp", "current_date"})
+
+
+def _scan_node_exprs(node) -> Tuple[List[Any], bool]:
+    """The expressions of one plan node: (subquery plans to walk next,
+    uncacheable), uncacheable where a volatile call or a user function is
+    found (copied from the reference's function of the same name)."""
+    import dataclasses
+
+    from .planner.expressions import (
+        ExistsExpr,
+        Expr,
+        InSubqueryExpr,
+        ScalarFunc,
+        ScalarSubqueryExpr,
+        SortKey,
+        UdfExpr,
+    )
+    from .planner.expressions import walk as expr_walk
+
+    def exprs_of(v):
+        if isinstance(v, Expr):
+            yield v
+        elif isinstance(v, SortKey):
+            yield v.expr
+        elif isinstance(v, (list, tuple)):
+            for item in v:
+                yield from exprs_of(item)
+
+    nested: List[Any] = []
+    if not dataclasses.is_dataclass(node):
+        return nested, False
+    for f in dataclasses.fields(node):
+        for e in exprs_of(getattr(node, f.name, None)):
+            for x in expr_walk(e):
+                if isinstance(x, ScalarFunc) and x.op in _VOLATILE_OPS:
+                    return nested, True
+                if isinstance(x, UdfExpr):
+                    return nested, True
+                if isinstance(x, (ScalarSubqueryExpr, InSubqueryExpr,
+                                  ExistsExpr)) and x.plan is not None:
+                    nested.append(x.plan)
+    return nested, False
 
 
 def _renders_only(plan) -> bool:

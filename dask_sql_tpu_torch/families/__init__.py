@@ -7,35 +7,37 @@ differ only in literal values (``WHERE d <= DATE '1998-09-02'`` and
 family identity; the compiled pipelines (physical/compiled*.py) rewrite
 their expressions with `pipeline_parameterizer`, key their caches on the
 parameterized expressions and take the values at run time, so one
-pipeline serves the whole family (``families.hit``).  The family batcher
-(`families/batcher.py`, serving) is not in the port yet.
+pipeline serves the whole family (``families.hit``).  Under the serving
+runtime the family batcher (`batcher.py`, `batcher_of`) answers
+concurrently admitted members of one family with one stacked launch.
 """
 from __future__ import annotations
 
 import logging
 from typing import Optional
 
+from .batcher import FamilyBatcher
 from .parameterize import (
     FamilyInfo,
     Parameterizer,
     compute_family,
     normalize_in_values,
     pow2_bucket,
-    stack_params,
 )
 
 logger = logging.getLogger(__name__)
 
 __all__ = [
+    "FamilyBatcher",
     "FamilyInfo",
     "Parameterizer",
+    "batcher_of",
     "compute_family",
     "enabled",
     "family_of",
     "normalize_in_values",
     "pipeline_parameterizer",
     "pow2_bucket",
-    "stack_params",
 ]
 
 
@@ -76,3 +78,14 @@ def pipeline_parameterizer(config) -> Parameterizer:
     expression lists (no subplan recursion: subquery expressions decline
     in the pipelines anyway)."""
     return Parameterizer(enabled=enabled(config), recurse_subplans=False)
+
+
+def batcher_of(context) -> Optional[FamilyBatcher]:
+    """The serving runtime's family batcher, when one is attached and
+    batching is on: the compiled aggregate consults this before it
+    launches."""
+    runtime = getattr(context, "serving", None)
+    batcher = getattr(runtime, "batcher", None)
+    if batcher is None or batcher.max_queries <= 1:
+        return None
+    return batcher

@@ -116,21 +116,6 @@ def pow2_bucket(n: int) -> int:
     return 1 << max(0, (int(n) - 1)).bit_length()
 
 
-def stack_params(params_list) -> Tuple[Tuple[np.ndarray, ...], int]:
-    """Stack per-member parameter tuples along a new leading axis for a
-    batched (vmapped) launch, padded to the pow2 batch bucket by repeating
-    the last member (padding work is discarded by the caller).  Returns
-    (stacked params, bucket) — THE bucketing/padding policy, shared by
-    every pipeline's `run_batched` so solo and batched variants cannot
-    diverge."""
-    n = len(params_list)
-    bucket = pow2_bucket(n)
-    padded = list(params_list) + [params_list[-1]] * (bucket - n)
-    stacked = tuple(np.stack([np.asarray(p[i]) for p in padded])
-                    for i in range(len(params_list[0])))
-    return stacked, bucket
-
-
 class Parameterizer:
     """One rewrite pass collecting parameter values as it strips literals.
 

@@ -8,12 +8,17 @@ Prometheus exposition and slow-query logging (counterpart of
 - `profiles`   — `ProfileStore`: rolling per-fingerprint compile, exec and
                  result-bytes profiles behind ``SHOW PROFILES``;
 - `prometheus` — text exposition of the `MetricsRegistry`;
-- `slowlog`    — threshold-gated span-tree dumps of latency outliers.
-
-The in-flight query table (`live`), the HBM ledger (`ledger`) and the
-flight recorder (`flight`) come with the serving runtime (ROADMAP.md
-Queue 1 item 8b).
+- `slowlog`    — threshold-gated span-tree dumps of latency outliers;
+- `live`       — `QueryRegistry`: the in-flight query table behind
+                 ``SHOW QUERIES`` and the target of ``CANCEL QUERY``;
+- `ledger`     — `DeviceLedger`: card-byte accounting (reservations,
+                 measured footprints, result cache, tables at rest);
+- `flight`     — the always-on bounded flight recorder of engine events.
 """
+from . import flight
+from . import live
+from .ledger import DeviceLedger
+from .live import LiveQuery, QueryRegistry
 from .profiles import ProfileStore
 from .prometheus import CONTENT_TYPE as PROMETHEUS_CONTENT_TYPE
 from .prometheus import render_prometheus
@@ -33,8 +38,11 @@ from .spans import (
 )
 
 __all__ = [
+    "DeviceLedger",
+    "LiveQuery",
     "ProfileStore",
     "PROMETHEUS_CONTENT_TYPE",
+    "QueryRegistry",
     "QueryTrace",
     "Span",
     "TraceStore",
@@ -42,6 +50,8 @@ __all__ = [
     "compile_sink",
     "current_trace",
     "detail",
+    "flight",
+    "live",
     "maybe_log_slow",
     "merge_chrome_traces",
     "render_prometheus",

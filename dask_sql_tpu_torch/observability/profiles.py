@@ -1,9 +1,8 @@
 """Per-fingerprint query profiles.
 
-A copy of `dask_sql_tpu/observability/profiles.py`, less the readers of
-the serving tier (`predicted_exec_ms`, `top_fingerprints`,
-`warm_candidates`: the scheduler and the pre-warm, ROADMAP.md Queue 1 item
-8b).  One rolling profile per plan fingerprint (resilience/ladder.py
+A copy of `dask_sql_tpu/observability/profiles.py`, less
+`warm_candidates` (the pre-warm of ROADMAP.md Queue 1 item 8b's second
+half); `predicted_exec_ms` is the packing scheduler's drain prediction.  One rolling profile per plan fingerprint (resilience/ladder.py
 `plan_fingerprint`, or the family's): hit counts, recent execute wall
 times, result bytes, the rows returned, the ladder rungs that answered
 and per-rung compile (pipeline build) wall times.  ``SHOW PROFILES [LIKE
@@ -220,6 +219,26 @@ class ProfileStore:
     #: the pre-version-2 truncation cap: entries in legacy snapshots whose
     #: SQL reaches it may be silent prefixes of the real statement
     _LEGACY_SQL_KEEP = 200
+
+    def predicted_exec_ms(self, fingerprint: str) -> Optional[float]:
+        """The rolling p50 of observed exec wall times for one fingerprint
+        — the packing scheduler's predicted exec_ms (drain hints, deadline
+        ordering) and the ladder's interpreted-cost prior.  None when the
+        fingerprint has no exec history (an unknown query earns no made-up
+        prediction)."""
+        with self._lock:
+            e = self._entries.get(fingerprint)
+            samples = list(e["exec_ms"]) if e is not None else []
+        if not samples:
+            return None
+        return _percentile(samples, 0.5)
+
+    def top_fingerprints(self, n: int = 10) -> List[str]:
+        """Hottest fingerprints by hit count — the pre-warm ordering."""
+        with self._lock:
+            ranked = sorted(self._entries.items(),
+                            key=lambda kv: kv[1]["hits"], reverse=True)
+        return [fp for fp, _ in ranked[:max(0, int(n))]]
 
     def snapshot(self) -> Dict[str, Any]:
         """JSON-ready snapshot (checkpoint.py writes this as

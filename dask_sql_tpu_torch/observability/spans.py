@@ -22,10 +22,11 @@ builds, the device-to-host transfer.  This module records those:
   ``resilience.compile_ms.<rung>`` histogram observation and the
   fingerprint's profile entry; a warm hit records nothing.
 
-Left out until their subsystems are ported (ROADMAP.md Queue 1 item 8b):
-the in-flight query table that `stage` also stamps (``live``), and the
-persistent compile cache, the compile watchdog and the flight recorder
-that the reference's `timed_jit_call` reports to.
+`stage` also stamps the stage on the in-flight query table (``live``),
+and a build records ``compile.start``/``compile.end`` flight events.  The
+persistent compile cache and the compile watchdog that the reference's
+`timed_jit_call` also reports to come with the cold-start half of
+ROADMAP.md Queue 1 item 8b.
 
 Span clocks: `time.perf_counter()` (monotonic, process-wide comparable);
 each trace also carries an epoch anchor so exported timestamps are
@@ -41,6 +42,8 @@ import uuid
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
+
+from . import flight, live
 
 #: span kinds: "stage" spans are the sequential lifecycle phases (disjoint
 #: by construction), "detail" spans nest inside a stage (compiles, plan
@@ -340,9 +343,10 @@ def activate(trace: Optional[QueryTrace]):
 
 def stage(name: str, **attrs):
     """Scoped stage span on the active trace — a no-op context manager
-    when no trace is active, so instrumented code never branches.  (The
-    reference also stamps the stage on its in-flight query table, item
-    8b.)"""
+    when no trace is active, so instrumented code never branches.  Also
+    stamps the stage onto the in-flight query table (live.py), which works
+    with tracing disabled too."""
+    live.update(stage=name)
     tr = current_trace()
     if tr is None:
         return contextlib.nullcontext({})
@@ -421,4 +425,17 @@ def timed_build(rung: str, build: Callable[[], Any]) -> Any:
     if profiles is not None and fingerprint:
         profiles.record_compile(fingerprint, rung, ms, sql=sql,
                                 family=family)
+    qid = tr.qid if tr is not None else None
+    if qid is None:
+        from ..serving.runtime import current_ticket
+
+        ticket = current_ticket()
+        qid = ticket.qid if ticket is not None else None
+    # the start/end pair is stamped when the build is known to have
+    # happened, with explicit timestamps for its true window
+    wall_end = time.time()
+    flight.record("compile.start", qid=qid, ts=wall_end - ms / 1e3,
+                  rung=rung)
+    flight.record("compile.end", qid=qid, ts=wall_end, rung=rung,
+                  ms=round(ms, 3))
     return out

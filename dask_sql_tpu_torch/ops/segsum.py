@@ -17,6 +17,11 @@ call's shape.
   float64 and selected by its mask, then one float64 ``index_add_``.
 - `segsum_columns` (a ``[k, n]`` stack) and `segsum` (the reference's
   ``[n, k]`` layout) call `segsum_typed` with the stack's rows as columns.
+- `segsum_stacked` sums the columns of several members of one plan family
+  over one shared gid (the family batcher's stacked launch): one kernel
+  call over all their columns, planned as one member's call, so each
+  member gets the same bits as its own `segsum_typed` call.
+  `segsum_stacked_plain` is its plain version.
 
 The contract is that of `segsum_scan_blocked`: float64 output, float error
 at or under `MATMUL_FLOAT_REL_ERR_BOUND`, counts exact.
@@ -25,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -42,7 +48,18 @@ KERNEL_DOMAIN_CUTOFF = 2048
 KERNEL_MAX_DOMAIN = (227 * 1024 - 4096 - 2 * 128 * 13) // 8
 
 #: kernel launches, by wrapper: each adds one where it launches its kernel
-LAUNCHES: Dict[str, int] = {"segsum": 0}
+#: (`segsum_typed` and its callers under "segsum", `segsum_stacked` under
+#: "segsum_stacked")
+LAUNCHES: Dict[str, int] = {"segsum": 0, "segsum_stacked": 0}
+
+#: serving workers launch from several threads at once: the count's
+#: read-modify-write would lose launches without it
+_LAUNCH_LOCK = threading.Lock()
+
+#: the most float64 scratch (``[blocks, domain, k]``) one stacked call
+#: takes; a batch whose members need more is split into calls of as many
+#: members as fit (at Q1's domain 12 one call holds 32 members in 8.9 MB)
+STACK_SCRATCH_BYTES = 256 << 20
 
 _TYPES = {torch.float32: 0, torch.float64: 1, torch.bool: 2}
 
@@ -211,8 +228,10 @@ def segsum_typed(gid: torch.Tensor, columns: Sequence[Column],
 
 
 def _launch(gid: torch.Tensor, columns: Sequence[Column], domain: int,
-            call: _Call) -> torch.Tensor:
-    """Launch the kernel on a checked CUDA call."""
+            call: _Call, plan=None, counter: str = "segsum") -> torch.Tensor:
+    """Launch the kernel on a checked CUDA call, with the call's own plan
+    or the one given (`segsum_stacked`: a member's plan over all the
+    members' columns), counting the launch under its wrapper's name."""
     if gid.device.type != "cuda":
         raise ValueError(f"segsum: no kernel for device {gid.device}")
     if gid.dtype != torch.int32:
@@ -223,8 +242,9 @@ def _launch(gid: torch.Tensor, columns: Sequence[Column], domain: int,
         raise ValueError("segsum kernel takes contiguous ids, columns and masks")
     k, n = len(columns), gid.shape[0]
     device = gid.device
-    plan = _plan(device.index, n, domain, call.types, call.data_ids,
-                 call.mask_ids)
+    if plan is None:
+        plan = _plan(device.index, n, domain, call.types, call.data_ids,
+                     call.mask_ids)
     from .. import _build
 
     lib = _build.library("segsum")
@@ -240,7 +260,59 @@ def _launch(gid: torch.Tensor, columns: Sequence[Column], domain: int,
             out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segsum kernel launch failed: CUDA error {err}")
-    LAUNCHES["segsum"] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES[counter] += 1
+    return out
+
+
+def segsum_stacked_plain(gid: torch.Tensor,
+                         members: Sequence[Sequence[Column]],
+                         domain: int) -> List[torch.Tensor]:
+    """The plain version of `segsum_stacked`: each member's columns
+    through `segsum_typed_plain`."""
+    return [segsum_typed_plain(gid, cols, domain) for cols in members]
+
+
+def segsum_stacked(gid: torch.Tensor, members: Sequence[Sequence[Column]],
+                   domain: int) -> List[torch.Tensor]:
+    """Segment sums of several members' typed columns over one ``[n]``
+    int32 gid -> one ``[domain, k]`` float64 result a member, each the
+    bits of that member's own `segsum_typed` call.
+
+    Every member has the same k columns of the same types, reading the
+    same pattern of buffers (which columns share a data buffer or a
+    mask): the members of one plan family.  The kernel then runs with the
+    plan of one member's call over all the members' columns: its chunks
+    of ``kc`` columns hold one member's columns each, and every row meets
+    the same thread, warp and block as in that member's own call, so
+    each float64 cell adds the same values in the same order.  Where the
+    plan's ``kc`` does not divide k (a chunk would straddle two members)
+    or the members' patterns differ, each member launches alone.  Members
+    whose scratch would pass `STACK_SCRATCH_BYTES` go in several calls.
+    A CPU gid takes the plain version."""
+    calls = [_describe(gid, cols) for cols in members]
+    if not members or gid.device.type == "cpu":
+        return segsum_stacked_plain(gid, members, domain)
+    first, k = calls[0], len(members[0])
+    plan = _plan(gid.device.index, gid.shape[0], domain, first.types,
+                 first.data_ids, first.mask_ids)
+    kc, blocks = plan[0], plan[2]
+    if k % kc or any((c.types, c.data_ids, c.mask_ids)
+                     != (first.types, first.data_ids, first.mask_ids)
+                     for c in calls):
+        return [_launch(gid, cols, domain, call, counter="segsum_stacked")
+                for cols, call in zip(members, calls)]
+    per_call = max(1, STACK_SCRATCH_BYTES // (blocks * domain * k * 8))
+    out: List[torch.Tensor] = []
+    for s in range(0, len(members), per_call):
+        group = calls[s:s + per_call]
+        call = _Call(first.types * len(group),
+                     [p for c in group for p in c.data],
+                     [p for c in group for p in c.masks], (), ())
+        cols = [col for m in members[s:s + per_call] for col in m]
+        res = _launch(gid, cols, domain, call, plan,
+                      counter="segsum_stacked")
+        out.extend(res[:, j * k:(j + 1) * k] for j in range(len(group)))
     return out
 
 

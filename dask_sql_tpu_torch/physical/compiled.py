@@ -20,6 +20,7 @@ from __future__ import annotations
 import itertools
 import logging
 import re
+import threading
 import weakref
 from dataclasses import replace
 from collections import OrderedDict
@@ -107,6 +108,12 @@ SUBQUERY_SLOT = "__subquery__"
 #: the slots key prefix of a user function's result (`rex/convert.py`
 #: calls the function and hands its result to the evaluator by id)
 UDF_SLOT = "__udf__"
+
+#: the slots key of a stacked family run's memo of parameter-free
+#: expressions: its members share one memo, so their scan, decodes and
+#: every value that no literal reaches are computed once, and each member's
+#: columns share buffers as in a run of that member alone
+MEMO_SLOT = "__memo__"
 
 #: above this domain the device compacts to the present groups before the
 #: pull; below it the whole packed matrix rides one transfer
@@ -258,9 +265,13 @@ class SegmentReducer:
     int64 ``index_add_``; min/max use ``scatter_reduce``.
 
     Usage: register reductions (count / sum_float / sum_int / seg_min /
-    seg_max), call finish(), then resolve handles via get()."""
+    seg_max), call finish() (or `finish_stacked` over the reducers of a
+    stacked family run), then resolve handles via get().  ``segments``
+    shares another reducer's sorted ids (the 'scatter' mode of a stacked
+    run: one sort for every member)."""
 
-    def __init__(self, gid: torch.Tensor, domain: int, mode: str, n_rows: int):
+    def __init__(self, gid: torch.Tensor, domain: int, mode: str, n_rows: int,
+                 segments: Optional[segsum_ops.SortedSegments] = None):
         self.gid = gid.to(torch.int32)
         self.domain = domain
         self.mode = mode
@@ -270,7 +281,7 @@ class SegmentReducer:
         self._fdedup: Dict[Tuple[int, int], Tuple] = {}
         self._cnt_dedup: Dict[int, Tuple] = {}
         self._out: Optional[torch.Tensor] = None
-        self._segments: Optional[segsum_ops.SortedSegments] = None
+        self._segments = segments
         # id()-keyed dedup is only sound while the keyed tensors stay alive
         self._keepalive: List = []
 
@@ -358,6 +369,19 @@ class SegmentReducer:
             self._out = segsum_ops.segsum_typed(self.gid, self._columns,
                                                 self.domain)
 
+    @staticmethod
+    def finish_stacked(reducers: List["SegmentReducer"]) -> None:
+        """`finish` of the reducers of a stacked family run, one a member
+        over one shared gid: their typed columns go to ONE
+        `segsum_stacked` call, and each reducer gets the bits its own
+        `finish` would give."""
+        if reducers and reducers[0]._columns:
+            outs = segsum_ops.segsum_stacked(
+                reducers[0].gid, [r._columns for r in reducers],
+                reducers[0].domain)
+            for r, out in zip(reducers, outs):
+                r._out = out
+
     def get(self, h):
         if h[0] == "done":
             return h[1]
@@ -396,9 +420,18 @@ def segment_agg_outputs(ev, slots, agg_exprs, sel, gid, domain, reducer):
     the row-selection mask (deferred filters — nothing compacts).
 
     Two-phase: every aggregate registers its reductions on `reducer`
-    (deduping identical (arg, filter) masks), one batched reduction runs,
-    then outputs assemble.  Count/sum semantics match pandas NULL handling
-    (sum `min_count=1`, dropna-style counts)."""
+    (deduping identical (arg, filter) masks, `register_agg_outputs`), one
+    batched reduction runs, then outputs assemble
+    (`assemble_agg_outputs`).  Count/sum semantics match pandas NULL
+    handling (sum `min_count=1`, dropna-style counts)."""
+    plans = register_agg_outputs(ev, slots, agg_exprs, sel, reducer)
+    reducer.finish()
+    return assemble_agg_outputs(plans, reducer)
+
+
+def register_agg_outputs(ev, slots, agg_exprs, sel, reducer) -> List[Tuple]:
+    """The registration phase of `segment_agg_outputs`: one plan a
+    AggExpr, its reductions registered on `reducer`."""
     arg_cache: Dict[Tuple, Tuple] = {}
 
     plans = []
@@ -436,9 +469,11 @@ def segment_agg_outputs(ev, slots, agg_exprs, sel, gid, domain, reducer):
         h1 = reducer.sum_float(x, v)
         h2 = reducer.sum_float(x * x, v)
         plans.append((a.func, h1, h2, cnt_h))
+    return plans
 
-    reducer.finish()
 
+def assemble_agg_outputs(plans: List[Tuple], reducer) -> List[Tuple]:
+    """The outputs of registered plans once `reducer` has finished."""
     outs = []
     for plan in plans:
         kind = plan[0]
@@ -613,6 +648,22 @@ class _TraceEval:
         return self.table.columns[self.names[index]]
 
     def eval(self, expr: Expr, slots):
+        """``(data, validity_or_None)`` of `expr` over the slots.  Where the
+        slots carry a memo (`MEMO_SLOT`), an expression no parameter
+        reaches is computed once for every run sharing the memo (held
+        with the expression, so its id stays its own)."""
+        memo = slots.get(MEMO_SLOT)
+        if memo is None:
+            return self._eval(expr, slots)
+        got = memo.get(id(expr))
+        if got is not None:
+            return got[1]
+        out = self._eval(expr, slots)
+        if not any(isinstance(x, (ParamRef, InParamExpr)) for x in walk(expr)):
+            memo[id(expr)] = (expr, out)
+        return out
+
+    def _eval(self, expr: Expr, slots):
         if isinstance(expr, ColumnRef) and type(expr) is ColumnRef:
             return self._decode_slot(expr.index, slots)
         if self.eager and expr.sql_type in STRING_TYPES:
@@ -1362,21 +1413,43 @@ class CompiledAggregate:
             table) if self.has_encoded else 0
         #: the evaluator over the table's metadata, kept with the pipeline
         self._ev = _TraceEval(_TableMeta(table))
+        #: eligible for the family batcher's stacked run: the whole packed
+        #: matrix rides one transfer a member, and the configured segment
+        #: sum is one the reference batches (its ``batchable`` admits only
+        #: the scatter mode, which its ``auto`` picks on the CPU; the port
+        #: stacks its kernel and plain calls as well)
+        self.batchable = self.domain <= HOST_PULL_DOMAIN and str(
+            config.get("sql.compile.segsum", "auto")) in ("auto", "scatter")
 
-    def _prelude(self, ev: _TraceEval, table: Table, params: Tuple):
-        """Slot table, deferred filter-mask fold and the radix group id.
-        Returns ``(slots, sel, gid, nr)``."""
-        datas = [table.columns[n].data for n in table.column_names]
-        valids = [table.columns[n].validity for n in table.column_names]
-        slots: Dict = {i: (datas[i], valids[i]) for i in range(len(datas))}
+    def _slots(self, table: Table, params: Tuple,
+               memo: Optional[Dict] = None) -> Dict:
+        """The slot table of one run: the table's columns, its family's
+        parameter values and, in a stacked run, the members' shared memo
+        (`MEMO_SLOT`).  A solo run keeps no memo, so each intermediate is
+        freed after its last use, as before."""
+        slots: Dict = {i: (table.columns[n].data, table.columns[n].validity)
+                       for i, n in enumerate(table.column_names)}
         slots[PARAMS_SLOT] = tuple(params)
+        if memo is not None:
+            slots[MEMO_SLOT] = memo
+        return slots
+
+    def _selection(self, ev: _TraceEval, slots, table: Table) -> torch.Tensor:
+        """The deferred filters folded into one row mask."""
         nr = table.num_rows
         mask = None
         for f in self.filters:
             d, v = ev.eval(f, slots)
             m = d if v is None else (d & v)
             mask = m if mask is None else (mask & m)
-        # 32-bit radix gid: the domain is capped at 2^22, so int32 is exact
+        if mask is None:
+            return torch.ones(nr, dtype=torch.bool, device=table.device)
+        return mask.expand(nr) if mask.dim() == 0 else mask
+
+    def _gid(self, slots, table: Table) -> torch.Tensor:
+        """The 32-bit radix group id (the domain is capped at 2^22, so
+        int32 is exact).  It reads the group keys' codes alone, so every
+        member of a family shares it."""
         gid = None
         for e, r, off in zip(self.group_exprs, self.radices, self.offsets):
             codes, valid = slots[e.index]
@@ -1391,30 +1464,81 @@ class CompiledAggregate:
                 codes = torch.where(valid, codes, r - 1)
             gid = codes if gid is None else gid * r + codes
         if gid is None:
-            gid = torch.zeros(nr, dtype=torch.int32, device=table.device)
-        if mask is None:
-            sel = torch.ones(nr, dtype=torch.bool, device=table.device)
-        else:
-            sel = mask.expand(nr) if mask.dim() == 0 else mask
-        return slots, sel, gid, nr
+            gid = torch.zeros(table.num_rows, dtype=torch.int32,
+                              device=table.device)
+        return gid
+
+    def _register(self, ev: _TraceEval, slots, sel, reducer):
+        """Every reduction of one run registered on `reducer`: the group
+        hit count, then the aggregates' plans."""
+        hit_h = reducer.count(sel)
+        return hit_h, register_agg_outputs(ev, slots, self.agg_exprs, sel,
+                                           reducer)
+
+    def _packed(self, hit_h, plans, reducer, tags: List) -> torch.Tensor:
+        """One run's outputs packed into one float64 matrix (`pack_flat`)."""
+        hit = reducer.get(hit_h) > 0
+        flat = [hit]
+        for d, v in assemble_agg_outputs(plans, reducer):
+            flat.append(d)
+            flat.append(v if v is not None else torch.ones_like(hit))
+        return pack_flat(flat, tags)
 
     def run(self, table: Table, params: Tuple = ()) -> Table:
         """One query over `table`, with its family's parameter values."""
         ev = self._ev
-        slots, sel, gid, nr = self._prelude(ev, table, params)
-        reducer = SegmentReducer(gid, self.domain, self.segsum_mode, nr)
-        hit_h = reducer.count(sel)
-        outs = segment_agg_outputs(ev, slots, self.agg_exprs, sel, gid,
-                                   self.domain, reducer)
-        hit = reducer.get(hit_h) > 0
-        flat = [hit]
-        for d, v in outs:
-            flat.append(d)
-            flat.append(v if v is not None else torch.ones_like(hit))
+        slots = self._slots(table, params)
+        sel = self._selection(ev, slots, table)
+        reducer = SegmentReducer(self._gid(slots, table), self.domain,
+                                 self.segsum_mode, table.num_rows)
+        hit_h, plans = self._register(ev, slots, sel, reducer)
+        reducer.finish()
         tags: List[Tuple[str, np.dtype]] = []
-        packed = pack_flat(flat, tags)
+        packed = self._packed(hit_h, plans, reducer, tags)
         host, present = fetch_packed(packed, self.domain)
         return self._decode(host, present, tags)
+
+    def run_batched(self, table: Table,
+                    params_list: List[Tuple]) -> List[Table]:
+        """Several members of this family in one stacked run: the scan,
+        the decodes, the group id and every value no parameter reaches are
+        computed once (one memo for all members); each member's filters
+        and arguments under its own literals; ONE segment-sum call over
+        all the members' columns (`SegmentReducer.finish_stacked`; in
+        'scatter' mode one sort of the ids for all members); one transfer
+        of every member's packed matrix.  Each member decodes its slice,
+        the same bits as `run` of that member alone.  The reference pads
+        the batch to a power of two for its compiled program; nothing is
+        compiled per batch size here, so no padded member runs."""
+        from ..utils import count_d2h
+
+        ev = self._ev
+        memo: Dict = {}
+        gid = None
+        members = []
+        reducers: List[SegmentReducer] = []
+        for params in params_list:
+            slots = self._slots(table, params, memo)
+            sel = self._selection(ev, slots, table)
+            if gid is None:
+                gid = self._gid(slots, table)
+            reducer = SegmentReducer(
+                gid, self.domain, self.segsum_mode, table.num_rows,
+                segments=reducers[0]._segments if reducers else None)
+            members.append(self._register(ev, slots, sel, reducer))
+            reducers.append(reducer)
+        SegmentReducer.finish_stacked(reducers)
+        tags: List[Tuple[str, np.dtype]] = []
+        packed = torch.stack([self._packed(hit_h, plans, reducer, tags)
+                              for (hit_h, plans), reducer
+                              in zip(members, reducers)])
+        count_d2h()
+        host_all = packed.cpu().numpy()  # (members, rows, domain)
+        out = []
+        for host in host_all:
+            present = np.nonzero(host[0] != 0.0)[0]
+            out.append(self._decode(host[:, present], present, tags))
+        return out
 
     def _decode(self, host: np.ndarray, present: np.ndarray, tags) -> Table:
         if not self.gcols and present.shape[0] == 0:
@@ -1427,29 +1551,58 @@ class CompiledAggregate:
         return group_table(self.agg, cols, present)
 
 
+#: guards the three pipeline caches (this module's, `compiled_join.py`'s
+#: and `compiled_select.py`'s): serving workers look up, insert and evict
+#: from several threads.  Reentrant: a Context's finalizer (`evict_owner`)
+#: may run in a thread that holds it
+_cache_lock = threading.RLock()
+#: key -> Event of a build in progress (`singleflight_get_or_build`)
+_building: Dict[Tuple, threading.Event] = {}
+#: bound on how long a query waits for another's build of its pipeline;
+#: past it the query builds its own
+_BUILD_WAIT_S = 600.0
+
+
 def singleflight_get_or_build(cache: "OrderedDict", key: Tuple, build,
                               rung: str, context, cap: int):
-    """The miss protocol of the compiled-pipeline caches: look up (LRU
-    touch) or build, insert and evict past `cap` entries.  ``build()``
-    constructs the pipeline; the build is the rung's compile
-    (`observability.timed_build`: ``resilience.compile_ms.<rung>``, a
-    ``compile:<rung>`` span, the profile's compile entry), and a hit
+    """The miss protocol of the compiled-pipeline caches: a locked lookup
+    (LRU touch); on a miss one query builds while concurrent queries of
+    the same key wait for it and reuse its pipeline (a family member
+    arriving with the first of a burst counts a hit, as in the
+    reference); a waiter whose build failed in the other query builds
+    under its own.  ``build()`` constructs the pipeline; the build is the rung's
+    compile (`observability.timed_build`: ``resilience.compile_ms.<rung>``,
+    a ``compile:<rung>`` span, the profile's compile entry), and a hit
     records nothing.  The key is prefixed with the Context's owner token,
     so the entry leaves the cache when its Context is collected
-    (`pipeline_owner`).  Returns (pipeline, built_here).  The port plans
-    and runs on one thread, so no construction waits for another."""
+    (`pipeline_owner`).  Returns (pipeline, built_here)."""
     from ..observability import timed_build
 
     key = (pipeline_owner(context),) + tuple(key)
-    compiled = cache.get(key)
-    if compiled is not None:
-        cache.move_to_end(key)
-        return compiled, False
-    compiled = timed_build(rung, build)
-    cache[key] = compiled
-    while len(cache) > cap:
-        cache.popitem(last=False)
-    return compiled, True
+    while True:
+        with _cache_lock:
+            compiled = cache.get(key)
+            if compiled is not None:
+                cache.move_to_end(key)
+                return compiled, False
+            pending = _building.get(key)
+            if pending is None:
+                pending = _building[key] = threading.Event()
+                break
+        if not pending.wait(_BUILD_WAIT_S):
+            break  # the other query's build stalled: build here
+    try:
+        compiled = timed_build(rung, build)
+        with _cache_lock:
+            cache[key] = compiled
+            while len(cache) > cap:
+                cache.popitem(last=False)
+        return compiled, True
+    finally:
+        with _cache_lock:
+            if _building.get(key) is pending:
+                del _building[key]
+        pending.set()
 
 
 #: owner token source of `pipeline_owner`
@@ -1476,9 +1629,10 @@ def evict_owner(token: int) -> None:
     """Drop every cached pipeline of the Context whose token this is."""
     from . import compiled_join, compiled_select
 
-    for cache in (_cache, compiled_join._cache, compiled_select._cache):
-        for key in [k for k in cache if k[0] == token]:
-            del cache[key]
+    with _cache_lock:
+        for cache in (_cache, compiled_join._cache, compiled_select._cache):
+            for key in [k for k in cache if k[0] == token]:
+                del cache[key]
 
 
 def evict(cache: "OrderedDict", compiled) -> None:
@@ -1488,8 +1642,9 @@ def evict(cache: "OrderedDict", compiled) -> None:
     never cached."""
     if compiled is None:
         return
-    for key in [k for k, v in cache.items() if v is compiled]:
-        del cache[key]
+    with _cache_lock:
+        for key in [k for k, v in cache.items() if v is compiled]:
+            del cache[key]
 
 
 #: LRU of scan-chain pipelines, keyed by the Context's owner token, the
@@ -1541,7 +1696,7 @@ def _scan_chain_pipeline(rel, chain, executor):
     if built_here and compiled.codespace_preds:
         ctx.metrics.inc("columnar.encoding.codespace_pred",
                         compiled.codespace_preds)
-    return compiled, table, params
+    return compiled, table, params, key
 
 
 def try_compiled_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
@@ -1553,7 +1708,12 @@ def try_compiled_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     The scan under filters and projections is read in place, its filters
     deferred as a mask and its encoded columns as codes; each run counts
     the rows it decodes on the host in
-    ``metrics.counter("columnar.encoding.late_rows")``."""
+    ``metrics.counter("columnar.encoding.late_rows")``.  Under a serving
+    runtime whose family batcher is on (`families.batcher_of`),
+    concurrently admitted members of the family meet there and one of
+    them runs them all in one stacked run (`CompiledAggregate.run_batched`)."""
+    from .. import families
+
     if not executor.config.get("sql.compile", True):
         return None
     chain = _extract_chain(rel)
@@ -1566,9 +1726,18 @@ def try_compiled_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     metrics = executor.context.metrics
     compiled = None
     try:
-        compiled, table, params = _scan_chain_pipeline(rel, chain, executor)
+        compiled, table, params, key = _scan_chain_pipeline(rel, chain,
+                                                            executor)
         faults.maybe_inject("oom", executor.config)
-        result = compiled.run(table, params)
+        batcher = families.batcher_of(executor.context)
+        if batcher is not None and params and compiled.batchable:
+            pipeline = compiled
+            result = batcher.run(
+                ("compiled_aggregate",) + key, params,
+                solo=lambda: pipeline.run(table, params),
+                batched=lambda members: pipeline.run_batched(table, members))
+        else:
+            result = compiled.run(table, params)
     except _Unsupported as e:
         logger.info("compiled aggregate declined the scan chain: %s", e)
         metrics.inc("compiled_aggregate.declined")

@@ -7,7 +7,9 @@ walk, where each plan node goes to the plugin registered for its node
 type: the relational operators (`rel/logical/`) and the statements
 (`rel/custom/ddl.py`).  With ``trace`` on, each plan node runs under the
 per-node `Tracer` (tracing.py): EXPLAIN ANALYZE and
-``serving.metrics.node_traces``.
+``serving.metrics.node_traces``.  The query's serving ticket is checked
+before the one-kernel fast path and before every plan node (a cancel or a
+deadline raises there; a node's queued card work still runs).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Dict
 
 from ..columnar.table import Table
 from ..planner.plan import LogicalPlan
+from ..serving.runtime import current_ticket
 from .rel.base import BaseRelPlugin
 from .rex.convert import RexConverter
 
@@ -53,6 +56,9 @@ class Executor:
         from ..resilience import faults, ladder
         from .compiled_select import try_compiled_select
 
+        ticket = current_ticket()
+        if ticket is not None:  # checkpoint before the one-kernel fast path
+            ticket.checkpoint()
         faults.maybe_inject("execute", self.config)
         if self.config.get("resilience.ladder.enabled", True):
             out = ladder.attempt(self, "compiled_select",
@@ -69,6 +75,11 @@ class Executor:
         return self.execute(rel)
 
     def execute(self, rel: LogicalPlan) -> Table:
+        # cooperative checkpoint between plan nodes: a cancelled query or
+        # one past its deadline raises here
+        ticket = current_ticket()
+        if ticket is not None:
+            ticket.checkpoint()
         key = id(rel)
         if key in self._memo:
             return self._memo[key]

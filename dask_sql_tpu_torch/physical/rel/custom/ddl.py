@@ -313,19 +313,25 @@ def _flatten_metrics(prefix: str, value) -> list:
 @Executor.add_plugin_class
 class ShowMetricsPlugin(BaseRelPlugin):
     """SHOW METRICS [LIKE 'pat']: the Context's metrics registry as rows of
-    (Metric, Value): counters, gauges, histograms (count, avg, p50, p95,
-    p99, max), the plan cache's entries and the circuit breaker's
-    snapshot.  The reference's result-cache and serving-runtime rows come
-    with those tiers (ROADMAP.md Queue 1 item 8b)."""
+    (Metric, Value): counters, gauges (the card-byte ledger's refreshed
+    first), histograms (count, avg, p50, p95, p99, max), the result
+    cache's occupancy, the plan cache's entries, the circuit breaker's
+    snapshot and, with a serving runtime attached, its queues."""
 
     class_name = "ShowMetricsNode"
 
     def convert(self, rel: p.ShowMetricsNode, executor) -> Table:
         ctx = executor.context
+        ctx.ledger.publish(ctx.metrics)
         rows = list(ctx.metrics.rows())
+        rows.extend(_flatten_metrics("result_cache",
+                                     ctx._result_cache.snapshot()))
         rows.append(("plan_cache.entries", str(len(ctx._plan_cache))))
         rows.extend(_flatten_metrics("resilience.breaker",
                                      ctx.breaker.snapshot()))
+        if ctx.serving is not None:
+            rows.extend(_flatten_metrics("serving.runtime",
+                                         ctx.serving.snapshot()))
         if rel.like:
             rows = [r for r in rows if _like_match(rel.like, r[0])]
         rows.sort()
@@ -356,18 +362,51 @@ class ShowProfilesPlugin(BaseRelPlugin):
                               "Value": [r[3] for r in rows]})
 
 
+@Executor.add_plugin_class
+class ShowQueriesPlugin(BaseRelPlugin):
+    """SHOW QUERIES [LIKE 'pat']: the in-flight query table
+    (observability/live.py) as (Qid, Field, Value) rows, one a populated
+    live fact (state, class, stage, rung, family, batch role, reserved and
+    measured bytes, deadline remaining), live queries first and a bounded
+    tail of finished ones after, then the card-byte ledger under the
+    ``(ledger)`` pseudo-qid.  LIKE filters on the qid or the field."""
+
+    class_name = "ShowQueriesNode"
+
+    def convert(self, rel: p.ShowQueriesNode, executor) -> Table:
+        ctx = executor.context
+        rows = list(ctx.live_queries.rows())
+        rows.extend(ctx.ledger.rows())
+        if rel.like:
+            rows = [r for r in rows
+                    if _like_match(rel.like, r[0])
+                    or _like_match(rel.like, r[1])]
+        return _string_table({"Qid": [r[0] for r in rows],
+                              "Field": [r[1] for r in rows],
+                              "Value": [r[2] for r in rows]})
+
+
+@Executor.add_plugin_class
+class CancelQueryPlugin(BaseRelPlugin):
+    """CANCEL QUERY '<qid>': cooperative cancellation through the live
+    table's `QueryTicket` (`Context.cancel_query`): the executor raises at
+    its next checkpoint, and a queued query is skipped by the worker that
+    pops it.  One row: whether a live, cancellable query was found."""
+
+    class_name = "CancelQueryNode"
+
+    def convert(self, rel: p.CancelQueryNode, executor) -> Table:
+        ok = executor.context.cancel_query(rel.qid)
+        return _string_table({"Qid": [rel.qid],
+                              "Cancelled": [str(bool(ok)).lower()]})
+
+
 for _node, _statement, _needs in (
         ("ShowModelsNode", "SHOW MODELS",
          "the model registry (ml/, ROADMAP.md Queue 1 item 9)"),
-        ("ShowQueriesNode", "SHOW QUERIES",
-         "the live query table (observability/live.py, ROADMAP.md Queue 1 "
-         "item 8b)"),
         ("ShowMaterializedNode", "SHOW MATERIALIZED",
          "the semantic-reuse state (materialize/, ROADMAP.md Queue 1 "
          "item 8c)"),
-        ("CancelQueryNode", "CANCEL QUERY",
-         "the live query registry (observability/live.py, ROADMAP.md "
-         "Queue 1 item 8b)"),
         ("ShowReplicasNode", "SHOW REPLICAS",
          "the fleet router (fleet/, ROADMAP.md Queue 1 item 10)")):
     Executor.add_plugin_class(type(

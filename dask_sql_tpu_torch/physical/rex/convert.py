@@ -110,18 +110,30 @@ class RexConverter:
         device in the return type's dtype.  A row function takes each row
         as a pandas Series of its parameters, on the host, as in the
         reference.  NULL where an argument is NULL (a tensor function) or
-        where the row function returns None."""
+        where the row function returns None.  A row function polls the
+        query's serving ticket before each row, as the reference's does: a
+        host loop over rows is the longest stretch of a plan, and a cancel
+        or a deadline takes effect inside it."""
         import pandas as pd
+
+        from ...serving.runtime import current_ticket
 
         fd = self.executor.lookup_function(
             expr.name, [a.sql_type for a in expr.args])
         args = [self.convert(a, table) for a in expr.args]
         device = table.device
         if fd.row_udf:
+            ticket = current_ticket()
+
+            def call(row):
+                if ticket is not None:
+                    ticket.checkpoint()
+                return fd.func(row)
+
             frame = pd.DataFrame({f"arg{i}": a.to_numpy()
                                   for i, a in enumerate(args)})
             frame.columns = [p[0] for p in fd.parameters][: len(args)]
-            out = frame.apply(fd.func, axis=1).to_numpy() if len(frame) \
+            out = frame.apply(call, axis=1).to_numpy() if len(frame) \
                 else np.zeros(0, dtype=sql_to_np(fd.return_type))
             col = Column.from_numpy(np.asarray(out), device=device,
                                     encode=False)

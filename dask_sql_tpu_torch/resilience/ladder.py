@@ -36,7 +36,7 @@ plugins) and ``cpu`` (on a CPU Context).  Left out until the modules they need a
 (ROADMAP.md Queue 1): the cost-based skip (`cost_skip`, which reads
 ``observability/profiles.py``) and reclaim-before-degrade, which retries a
 rung after `resilience/pressure.py` frees cached bytes (item 8b); the
-flight recorder and the live query table (item 8b); the predict,
+predict,
 streamed, SPMD and distributed rungs (items 8-10), with the ``rung:<rung>``
 event the reference records for an SPMD rung.  Each skip and step down is
 an event on the query's lifecycle trace (`observability/spans.py`), and a
@@ -52,7 +52,7 @@ import logging
 import time
 from typing import Callable, Optional, TypeVar
 
-from ..observability import trace_event
+from ..observability import flight, live, trace_event
 from . import faults
 from .errors import QueryError, classify
 
@@ -137,18 +137,28 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
         metrics.inc("resilience.degraded")
         metrics.inc(f"resilience.degraded.{rung}")
         trace_event(f"degraded:{rung}", code=err.code)
+        from ..serving.runtime import current_ticket
+
+        ticket = current_ticket()
+        flight.record("ladder.degrade",
+                      qid=ticket.qid if ticket is not None else None,
+                      rung=rung, code=err.code)
         if executor.tracer.enabled:
             executor.tracer.event(f"degraded: {rung} [{err.code}]")
         if key is not None and breaker.record_failure(key):
             metrics.inc("resilience.breaker.trip")
+            flight.record("breaker.trip", rung=rung, fingerprint=key[0],
+                          code=err.code)
             logger.warning("breaker tripped for rung %s (plan %s): %s",
                            rung, key[0], err)
         logger.info("rung %s degraded (%s); stepping down", rung, err.code)
         return None
     if out is not None:
         metrics.inc(f"resilience.rung.{rung}")
-        if key is not None:
-            breaker.record_success(key)
+        live.update(rung=rung)
+        if key is not None and breaker.record_success(key):
+            # an open circuit closed on its half-open trial
+            flight.record("breaker.restore", rung=rung, fingerprint=key[0])
         if rel is not None:
             # the per-(family, rung) wall time SHOW PROFILES shows (a build
             # on a pipeline-cache miss included)
@@ -184,6 +194,12 @@ def execute_interpreted(executor, rel):
     metrics.inc("resilience.degraded")
     metrics.inc("resilience.degraded.interpreted")
     trace_event("degraded:interpreted", code=code)
+    from ..serving.runtime import current_ticket
+
+    ticket = current_ticket()
+    flight.record("ladder.degrade",
+                  qid=ticket.qid if ticket is not None else None,
+                  rung="interpreted", code=code)
     if executor.tracer.enabled:
         executor.tracer.event(f"degraded: interpreted [{code}]")
     logger.warning("interpreted path failed degradably (%s); re-executing "
@@ -196,6 +212,7 @@ def execute_interpreted(executor, rel):
             "sql.compile": False}):
         out = executor.execute(rel)
     metrics.inc("resilience.rung.cpu")
+    live.update(rung="cpu")
     return out
 
 

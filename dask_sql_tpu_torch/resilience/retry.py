@@ -1,21 +1,118 @@
-"""The per-(plan family, rung) circuit breaker of the degradation ladder.
+"""Bounded retry with exponential backoff and jitter, and the per-(plan
+family, rung) circuit breaker.  Copied from
+`dask_sql_tpu/resilience/retry.py`, less the breaker's persistence (the
+checkpoints of ROADMAP.md Queue 1 item 8b's second half).
 
-Copied from `dask_sql_tpu/resilience/retry.py`, the breaker only: the
-ladder (`ladder.attempt`) consults it and SHOW METRICS reads its
-`snapshot`.  The reference's retry with backoff (`BackoffPolicy`,
-`retry_call`), its `resilience.retry.*` keys and the breaker's persistence
-come with their callers, the serving worker and its checkpoints
-(ROADMAP.md Queue 1 item 8b).
+Retry runs at the serving worker (serving/runtime.py wraps each admitted
+query in `retry_call`): only errors the taxonomy marks `retryable` are
+retried, the backoff respects the ticket's deadline (never sleeps past
+it) and its cancellation flag.  Jitter is deterministic given (seed,
+attempt) so test runs reproduce.
 
-A plan fingerprint whose compiled rung failed `threshold` consecutive
-times skips that rung for `cooldown_s` and goes straight to its known-good
+The breaker protects the degradation ladder (`ladder.attempt`): a plan
+fingerprint whose compiled rung failed `threshold` consecutive times
+skips that rung for `cooldown_s` and goes straight to its known-good
 rung, instead of paying the failure again on every submission.
 """
 from __future__ import annotations
 
+import logging
+import random
 import threading
 import time
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple, TypeVar
+
+from .errors import classify
+
+logger = logging.getLogger(__name__)
+
+T = TypeVar("T")
+
+
+class BackoffPolicy:
+    """Exponential backoff: base * multiplier^attempt, capped, jittered.
+
+    `max_attempts` counts total tries (1 = no retry).  Jitter multiplies
+    each delay by a factor drawn uniformly from [1-jitter, 1+jitter] using
+    a PRNG seeded per-policy, so retries desynchronize across workers while
+    a fixed seed reproduces the exact schedule."""
+
+    def __init__(self, max_attempts: int = 3, base_s: float = 0.05,
+                 multiplier: float = 2.0, max_s: float = 2.0,
+                 jitter: float = 0.5, seed: Optional[int] = None):
+        self.max_attempts = max(1, int(max_attempts))
+        self.base_s = float(base_s)
+        self.multiplier = float(multiplier)
+        self.max_s = float(max_s)
+        self.jitter = min(1.0, max(0.0, float(jitter)))
+        self._rng = random.Random(seed)
+
+    @classmethod
+    def from_config(cls, config) -> "BackoffPolicy":
+        # the jitter PRNG is pinned to the inject seed ONLY while fault
+        # injection is active (reproducible tests); in production it must
+        # stay unseeded, or every replica would draw the identical jitter
+        # sequence and retries would re-synchronize instead of spreading
+        seed = config.get("resilience.inject.seed") \
+            if config.get("resilience.inject") else None
+        return cls(
+            max_attempts=int(config.get("resilience.retry.max_attempts", 3)),
+            base_s=float(config.get("resilience.retry.base_s", 0.05)),
+            multiplier=float(config.get("resilience.retry.multiplier", 2.0)),
+            max_s=float(config.get("resilience.retry.max_s", 2.0)),
+            jitter=float(config.get("resilience.retry.jitter", 0.5)),
+            seed=seed,
+        )
+
+    def delay_s(self, attempt: int) -> float:
+        """Backoff before retry number `attempt` (1-based)."""
+        raw = min(self.max_s, self.base_s * (self.multiplier ** (attempt - 1)))
+        if self.jitter:
+            raw *= 1.0 + self.jitter * (2.0 * self._rng.random() - 1.0)
+        return max(0.0, raw)
+
+
+def retry_call(fn: Callable[[], T], policy: BackoffPolicy,
+               ticket=None, metrics=None,
+               sleep: Callable[[float], None] = time.sleep) -> T:
+    """Run `fn`, retrying taxonomy-retryable failures with backoff.
+
+    Non-retryable errors (user errors, cancels, deadline expiry, permanent
+    execution failures) propagate on the first throw.  A retryable error is
+    re-raised once attempts are exhausted or the ticket's deadline cannot
+    absorb the next backoff sleep."""
+    attempt = 1
+    while True:
+        try:
+            result = fn()
+        except BaseException as exc:  # dsql: allow-broad-except — classified below
+            err = classify(exc)
+            if not err.retryable or attempt >= policy.max_attempts:
+                raise
+            delay = policy.delay_s(attempt)
+            if ticket is not None:
+                remaining = ticket.remaining_s()
+                if remaining is not None and delay >= remaining:
+                    # the backoff alone would blow the deadline: surface the
+                    # original failure now, with time left to report it
+                    if metrics is not None:
+                        metrics.inc("resilience.retry.deadline_abort")
+                    raise
+            if metrics is not None:
+                metrics.inc("resilience.retry.attempts")
+                metrics.observe("resilience.retry.backoff_ms", delay * 1000.0)
+            logger.debug("retrying after %s (attempt %d/%d, backoff %.3fs)",
+                         err.code, attempt, policy.max_attempts, delay)
+            sleep(delay)
+            if ticket is not None:
+                ticket.checkpoint()  # cancel/deadline during backoff
+            attempt += 1
+            continue
+        if attempt > 1 and metrics is not None:
+            metrics.inc("resilience.retry.recovered")
+        return result
+
+
 
 
 class CircuitBreaker:

@@ -1,7 +1,6 @@
 """Runtime lock sanitizer: named, ranked locks with lockdep-style
 acquisition-order tracking (the runtime tier).  Copied from
-`dask_sql_tpu/runtime/locks.py`; the flight event of a violation waits for
-the flight recorder (ROADMAP.md Queue 1 item 8b).
+`dask_sql_tpu/runtime/locks.py`.
 
 The static tier (analysis/concurrency.py, rules DSQL601-603) proves lock
 ordering over the AST; this module proves the same invariant over the
@@ -300,8 +299,14 @@ def _report(kind: str, holding: str, acquiring: str, witness: str,
             _metrics.inc("analysis.locks.order_violation")
         except Exception:  # dsql: allow-broad-except — reporting must not mask the violation
             pass
-    # the reference also records a ``lock.order_violation`` flight event
-    # here: the port's flight recorder is ROADMAP.md Queue 1 item 8b
+    try:
+        from ..observability import flight
+
+        flight.record("lock.order_violation", kind=kind, holding=holding,
+                      acquiring=acquiring,
+                      thread=threading.current_thread().name)
+    except Exception:  # dsql: allow-broad-except — reporting must not mask the violation
+        pass
     return LockOrderError(message, kind=kind, holding=holding,
                           acquiring=acquiring, witness=witness)
 

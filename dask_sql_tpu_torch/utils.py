@@ -2,6 +2,7 @@
 counter and `host_ints` in `dask_sql_tpu/utils.py`)."""
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 #: device->host transfers made through the port's own seams (the packed
@@ -11,9 +12,14 @@ from typing import Dict
 #: `TRANSFER_STATS["d2h"] = 0`.
 TRANSFER_STATS: Dict[str, int] = {"d2h": 0}
 
+#: serving workers count transfers from several threads at once: the
+#: read-modify-write below would lose counts without it
+_STATS_LOCK = threading.Lock()
+
 
 def count_d2h(n: int = 1) -> None:
-    TRANSFER_STATS["d2h"] = TRANSFER_STATS.get("d2h", 0) + n
+    with _STATS_LOCK:
+        TRANSFER_STATS["d2h"] = TRANSFER_STATS.get("d2h", 0) + n
 
 
 def host_ints(*vals):

@@ -482,13 +482,17 @@ def test_explain_estimate_never_executes(est_ctx):
 
 def test_explain_estimate_reports_under_an_admission_budget(est_ctx):
     """EXPLAIN ESTIMATE answers under ``max_estimated_bytes``; a query that
-    runs refuses it, since the admission gate is not ported (item 8)."""
+    runs is shed by the admission gate, its provable floor over the
+    budget."""
+    from dask_sql_tpu_torch.serving import EstimatedBytesExceededError
+
     opts = {"serving.admission.max_estimated_bytes": 1}
     out = est_ctx.sql("EXPLAIN ESTIMATE SELECT t1.a FROM t t1, t t2",
                       config_options=opts).compute()
     assert out["ESTIMATE"][0].startswith("estimate:")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(EstimatedBytesExceededError) as ei:
         est_ctx.sql("SELECT a FROM t", config_options=opts).compute()
+    assert ei.value.budget_bytes == 1 and ei.value.estimated_bytes_lo > 1
 
 
 def test_gate_disabled_by_default(est_ctx):

@@ -199,10 +199,8 @@ def test_views_describe_and_drop_view(c, df):
     ("CREATE TABLE f WITH (location = '/nowhere.csv', format = 'csv', "
      "distributed = True)", "multi-device storage"),
     ("SHOW MODELS", "model registry"),
-    ("SHOW QUERIES", "live query table.*item 8b"),
     ("SHOW MATERIALIZED", "semantic-reuse state.*item 8c"),
     ("SHOW REPLICAS", "fleet router"),
-    ("CANCEL QUERY 'q1'", "live query registry.*item 8b"),
 ])
 def test_statements_of_later_items_raise(c, sql, needs):
     with pytest.raises(NotImplementedError, match=needs):
@@ -210,12 +208,14 @@ def test_statements_of_later_items_raise(c, sql, needs):
 
 
 @pytest.mark.parametrize("statement", ["SHOW METRICS", "SHOW PROFILES",
-                                       "EXPLAIN ANALYZE"])
+                                       "EXPLAIN ANALYZE", "SHOW QUERIES",
+                                       "CANCEL QUERY 'q1'"])
 def test_observability_statements_answer(c, statement):
-    """The statements that raised before the observability slice answer:
-    the registry, the profile store and the traced node tree of the
-    query run just before (`tests/test_torch_observability.py` holds
-    them against the reference)."""
+    """The statements that raised before the observability and serving
+    slices answer: the registry, the profile store, the traced node tree
+    of the query run just before, the in-flight table and a cancel of an
+    unknown qid (`tests/test_torch_observability.py` and
+    `tests/test_torch_live.py` hold them against the reference)."""
     sql = "SELECT a, SUM(b) AS s FROM df GROUP BY a"
     c.sql(sql, return_futures=False)
     if statement == "EXPLAIN ANALYZE":
@@ -226,6 +226,14 @@ def test_observability_statements_answer(c, statement):
                    for line in lines)
         return
     got = c.sql(statement, return_futures=False)
+    if statement == "SHOW QUERIES":
+        rows = set(zip(got["Field"], got["Value"]))
+        assert ("state", "done") in rows and ("stage", "execute") in rows
+        assert ("reservedBytes", "0") in rows  # the ledger's block
+        return
+    if statement.startswith("CANCEL"):
+        assert got.to_dict("list") == {"Qid": ["q1"], "Cancelled": ["false"]}
+        return
     if statement == "SHOW METRICS":
         values = dict(zip(got["Metric"], got["Value"]))
         assert values["query.executed"] == "1"

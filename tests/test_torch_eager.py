@@ -372,6 +372,7 @@ def test_eager_rung_gives_the_compiled_answer(case):
 def test_ladder_steps_down_only_on_degradable_failures(monkeypatch):
     frames = {"lineitem": gen_lineitem(5_000)}
     pc = Context(device="cpu")
+    pc.config.update({"serving.cache.enabled": False})  # every run executes
     pc.create_table("lineitem", frames["lineitem"])
     want = pc.sql(Q1).compute()
     assert pc.metrics.counter("resilience.rung.compiled_aggregate") == 1

@@ -6,8 +6,9 @@ window functions, the statements (DDL, INSERT INTO), a registered
 function, a lazy parquet table streamed through the out-of-core
 aggregate, EXPLAIN LINT, EXPLAIN ESTIMATE, a query down the degradation
 ladder under ``compile:always``, EXPLAIN ANALYZE (text and FORMAT JSON),
-SHOW METRICS and SHOW PROFILES; and the port's entry points refuse to run
-on the CPU unless asked to."""
+SHOW METRICS and SHOW PROFILES, a Q1 family burst on the serving runtime
+with SHOW QUERIES and CANCEL QUERY; and the port's entry points refuse to
+run on the CPU unless asked to."""
 import os
 import subprocess
 import sys
@@ -140,6 +141,27 @@ metrics = c.sql("SHOW METRICS", return_futures=False)
 assert "query.execute_ms.count" in set(metrics["Metric"]), metrics
 profiles = c.sql("SHOW PROFILES", return_futures=False)
 assert "hits" in set(profiles["Metric"]), profiles
+# the serving path: two members of Q1's family submitted at once to a
+# ServingRuntime answer with one stacked run; SHOW QUERIES lists them and
+# CANCEL QUERY answers
+from dask_sql_tpu_torch.serving import ServingRuntime
+rt = ServingRuntime(workers=2, metrics=c.metrics, batch_queries=2,
+                    batch_window_ms=5_000.0)
+c.serving = rt
+q1 = chip_smoke.QUERY.replace("FROM lineitem", "FROM li")
+try:
+    futs = [c.submit(q1.replace("1998-09-02", d), config_options={
+        "serving.cache.enabled": False})[1]
+        for d in ("1998-08-01", "1998-07-01")]
+    assert all(len(f.result(120)) > 0 for f in futs)
+finally:
+    rt.shutdown(wait=True)
+c.serving = None
+assert c.metrics.counter("serving.batch.launches") == 1, \
+    c.metrics.snapshot()["counters"]
+rows = c.sql("SHOW QUERIES", return_futures=False)
+assert {"leader x2", "member x2"} <= set(rows["Value"]), rows
+assert c.sql("CANCEL QUERY 'none'").compute()["Cancelled"][0] == "false"
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dask_sql_tpu"))
 assert not bad, bad

@@ -60,8 +60,6 @@ SELECT_QUERY = ("SELECT l_returnflag, l_extendedprice * (1 - l_discount) "
 #: the reference's stem materialization is off: a scan stem seen twice
 #: would be pinned and change what its Context runs next
 REF_OPTIONS = {"serving.materialize.enabled": False}
-#: the reference's stage of its result cache (item 8b)
-UNPORTED_STAGES = ("cache_lookup",)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -113,17 +111,17 @@ def _fresh(frames):
 # ------------------------------------------------- against the reference
 @pytest.mark.parametrize("case", list(CASES))
 def test_stages_and_explain_analyze_match_reference(frames, case):
-    """On fresh Contexts: the lifecycle stage names in order (less the
-    reference's ``cache_lookup``), sequential, then EXPLAIN ANALYZE's node
-    labels and rows."""
+    """On fresh Contexts: the lifecycle stage names in order, the
+    ``cache_lookup`` stage of the result cache included, sequential, then
+    EXPLAIN ANALYZE's node labels and rows."""
     rc, pc = _fresh(frames)
     sql = CASES[case]
     got = pc.sql(sql).compute()
     want = rc.sql(sql, config_options=REF_OPTIONS).compute()
     assert len(got) == len(want) > 0
     stages = pc.last_trace.stage_spans()
-    ref_names = [s.name for s in rc.last_trace.stage_spans()
-                 if s.name not in UNPORTED_STAGES]
+    ref_names = [s.name for s in rc.last_trace.stage_spans()]
+    assert "cache_lookup" in ref_names
     assert [s.name for s in stages] == ref_names
     for left, right in zip(stages, stages[1:]):
         assert left.t1 <= right.t0 + 1e-9, (left.name, right.name)

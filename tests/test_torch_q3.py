@@ -121,6 +121,7 @@ def test_q3_matches_reference(spies):
 def test_q3_warm_run_hits_the_plan_cache_with_one_transfer(spies):
     tables = generate(5_000, seed=2)
     c = Context(device="cpu")
+    c.config.update({"serving.cache.enabled": False})  # the warm run executes
     for n in ("customer", "orders", "lineitem"):
         c.create_table(n, tables[n])
     cold = c.sql(QUERIES[3]).compute()

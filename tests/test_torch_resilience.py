@@ -421,7 +421,9 @@ def test_breaker_skips_failing_rung_on_next_submission():
     c = _ctx()
     c.breaker.threshold = 2
     q = "SELECT SUM(a) AS s FROM t"
-    opts = {"resilience.inject": "compile:always"}
+    # each run executes (the reference's test turns its cache off too)
+    opts = {"resilience.inject": "compile:always",
+            "serving.cache.enabled": False}
     c.sql(q, return_futures=False, config_options=opts)
     c.sql(q, return_futures=False, config_options=opts)
     assert c.metrics.counter("resilience.breaker.trip") >= 1
@@ -440,6 +442,7 @@ def test_breaker_trips_skips_the_family_and_closes():
     back on the fused aggregate."""
     now = [0.0]
     c = Context(device="cpu")
+    c.config.update({"serving.cache.enabled": False})  # every run executes
     c.breaker = CircuitBreaker(threshold=3, cooldown_s=5.0,
                                clock=lambda: now[0])
     c.create_table("lineitem", bench.gen_lineitem(1_000, seed=0))
