@@ -88,9 +88,25 @@ off in turns (no synchronize from ``tracing.py`` untraced), SHOW METRICS
 run).  After each phase (``card_memory``) the card's allocated bytes
 must be back within 64 MiB of their value before it once its Contexts
 are deleted; the remainder is printed with the tensors that hold it.
-Every phase but ``resilience`` fails if a rung steps down, answers on the
-CPU or moves a breaker (``observability`` allows only its
-``compile:always`` run's steps).
+The ``streamed`` phase runs Q1 under an admission budget of a quarter
+of its provable floor: it streams in 4-8 partitions (``streaming/``), one
+segment-sum launch each (held against the plain version on those calls),
+within 5e-6 of the float64 oracle, with counts exact and the same bits in
+every run; then with ``partition:at2`` (one repartition, every row once),
+under a watched launch, and the root select without its ORDER BY and
+LIMIT streamed in the single run's row order.  The ``pressure`` phase
+checks the bands at a set device budget, a RED reclaim of card-resident
+cached results (by ``torch.cuda.memory_allocated``), a real
+``torch.cuda.OutOfMemoryError`` that a reclaim rescues on the same rung,
+and the CRITICAL band (Q1 streamed, TPC-H q22 shed).  The ``coldstart``
+phase saves and loads Q1's table and the TPC-H tables (the card's bytes
+equal after the load), waits for the warm-up (the first Q1 builds no
+pipeline), degrades a hung build under the watchdog, rebuilds a grown
+table's pipeline in the background, and runs a second Python process that
+finds the kernel and planner libraries in a compile cache.
+Every phase but ``resilience`` and ``coldstart`` fails if a rung steps
+down, answers on the CPU or moves a breaker (``observability`` allows only
+its ``compile:always`` run's steps).
 For each loaded frame
 it prints the encoded columns and the card memory they take, encoded and,
 for Q1's table, loaded PLAIN, and checks every encoded column's decoded
@@ -118,6 +134,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import subprocess
 import sys
 import threading
@@ -197,6 +214,9 @@ SELECT_ALL_QUERY = SELECT_QUERY.replace("> 0.09", "> -1.0")
 #: TPCDS_WARM_RUNS times (fewer than WARM_RUNS, for the time limit)
 TPCDS_ROWS = 1_000_000
 TPCDS_WARM_RUNS = 3
+#: host-bound TPC-DS queries (seconds of host dictionary merges a run) that
+#: run warm once, for the time limit
+TPCDS_HOST_BOUND = (4, 11, 74)
 #: TPC-DS queries whose kernel calls are held against the plain version:
 #: aggregates above a Union (ROLLUP), and window queries that aggregate
 TPCDS_UNION_CALLS = (5, 77)
@@ -1523,8 +1543,11 @@ def resilience(df, want, card, segsum, transfers):
     check_q1(c.sql(QUERY, config_options={"resilience.inject": "oom:once"}
                    ).compute(), want, "Q1 under oom:once")
     launches["resilience_oom_once"] = segsum.LAUNCHES["segsum"]
+    # the reclaim before the step down finds no cached bytes (the result
+    # cache is off): one attempt, nothing freed
     expect_moves(c, before, {"resilience.degraded": 1,
-                             "resilience.degraded.compiled_aggregate": 1},
+                             "resilience.degraded.compiled_aggregate": 1,
+                             "resilience.pressure.reclaims": 1},
                  "oom:once")
     phase("resilience", part="oom_once", card=card,
           card_allocated=torch.cuda.memory_allocated(),
@@ -1567,7 +1590,9 @@ def resilience(df, want, card, segsum, transfers):
     launches["resilience_real_oom"] = segsum.LAUNCHES["segsum"]
     oom_moves = expect_moves(c, before, {
         "resilience.degraded": 1,
-        "resilience.degraded.compiled_aggregate": 1}, "a real OOM")
+        "resilience.degraded.compiled_aggregate": 1,
+        # a reclaim attempt at the fused rung and at the eager walk
+        "resilience.pressure.reclaims": 2}, "a real OOM")
     if raised is None or not (raised[1] and raised[3]):
         fail(f"the memory fraction gave {raised}, not a degradable "
              f"ResourceExhaustedError from torch.cuda.OutOfMemoryError")
@@ -1592,7 +1617,8 @@ def resilience(df, want, card, segsum, transfers):
     except ResourceExhaustedError as exc:
         raised = (type(exc).__name__, exc.degradable)
     launches["resilience_exec_oom"] = segsum.LAUNCHES["segsum"]
-    expect_moves(c, before, {}, "exec_oom:once")
+    expect_moves(c, before, {"resilience.pressure.reclaims": 1},
+                 "exec_oom:once")
     if raised is None or not raised[1]:
         fail(f"exec_oom:once on the card gave {raised}, not a degradable "
              f"ResourceExhaustedError")
@@ -1684,6 +1710,476 @@ def resilience(df, want, card, segsum, transfers):
           max_rel_err=max(wide_runs["on"][2], wide_runs["off"][2]))
     del cw
     return {"launches": launches, "max_abs_err": err}
+
+
+#: the `streamed` phase's root select: bench.py's select without its ORDER
+#: BY and LIMIT, which `stream_decision` declines as the reference does
+STREAM_SELECT_QUERY = ("SELECT l_returnflag, l_extendedprice * (1 - l_discount)"
+                       " AS rev FROM lineitem WHERE l_discount > 0.09")
+#: the `streamed` phase's budget: this share of Q1's provable floor
+STREAM_BUDGET_SHARE = 4
+#: the `pressure` phase: rows of its second Q1 table (the real OOM) and
+#: the card-resident results that fill the result cache before it
+PRESSURE_Q1_ROWS = 1_000_000
+PRESSURE_CACHE_QUERIES = tuple(
+    f"SELECT l_extendedprice, l_discount, l_tax FROM lineitem "
+    f"WHERE l_quantity < {q}" for q in (11, 21, 31))
+#: the `coldstart` phase's background recompile: Q1 over this many rows,
+#: then over twice as many under the same name
+BG_ROWS = 1_000_000
+#: the `coldstart` phase's hung-build query: a family no warm-up built
+HANG_QUERY = ("SELECT l_returnflag, SUM(l_quantity) AS q, COUNT(*) AS n "
+              "FROM lineitem GROUP BY l_returnflag ORDER BY l_returnflag")
+#: the second process of the `coldstart` phase: a Context whose compile
+#: cache names the directory given as argv[1] runs a small aggregate, and
+#: prints what its metrics and the cache counted
+COMPILE_CACHE_CHILD = r"""
+import json, sys
+import numpy as np, pandas as pd, torch
+from dask_sql_tpu_torch import Context
+from dask_sql_tpu_torch.ops import segsum
+from dask_sql_tpu_torch.serving import compile_cache
+c = Context()
+c.config.update({"serving.compile_cache.path": sys.argv[1],
+                 "serving.cache.enabled": False})
+c.create_table("t", pd.DataFrame({"g": np.arange(100_000) % 7,
+                                  "x": np.arange(100_000, dtype=np.float64)}))
+out = c.sql("SELECT g, SUM(x) AS s FROM t GROUP BY g ORDER BY g").compute()
+want = [float(sum(range(g, 100_000, 7))) for g in range(7)]
+print(json.dumps({"hit": c.metrics.counter("resilience.compile_cache.hit"),
+                  "miss": c.metrics.counter("resilience.compile_cache.miss"),
+                  "stats": compile_cache.stats(), "launches": segsum.LAUNCHES,
+                  "right": out["s"].tolist() == want}))
+"""
+
+
+def counters(c) -> dict:
+    return dict(c.metrics.snapshot()["counters"])
+
+
+def streamed(df, want, card, segsum):
+    """The `streamed` phase on Q1's 6,000,000 encoded rows: Q1 under an
+    admission budget of a quarter of its provable floor runs in
+    partitions on `streaming/aggregate.py` (one segment-sum launch each,
+    the kernel held against its plain version on those calls, the answer
+    against the float64 oracle, the same bits in every run), with
+    ``partition:at2`` (one repartition, every row once), a watched launch
+    under ``serving.stream.launch_timeout_ms``, and the root select
+    without its ORDER BY and LIMIT streamed in the in-memory run's row
+    order."""
+    from dask_sql_tpu_torch.resilience import faults, watchdog
+
+    from dask_sql_tpu_torch.streaming import stream_decision
+
+    c, _, _ = load_tables({"lineitem": df})
+    plan = c.sql(QUERY).plan
+    est = plan._dsql_estimate
+    budget = est.peak_bytes.lo // STREAM_BUDGET_SHARE
+    opts = {"serving.admission.max_estimated_bytes": budget}
+    decision = stream_decision(plan, est, c, c.config, budget)[1]
+    mem_runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        check_q1(c.sql(QUERY).compute(), want, "in-memory Q1")
+        mem_runs.append((time.perf_counter() - t0) * 1e3)
+    # the estimate after profile feedback still bounds the card: resident
+    # bytes plus the peak rise of one more in-memory run inside [lo, hi]
+    frame = c.sql(QUERY)
+    fed = c._plan_estimate(frame.plan)
+    gc.collect()
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    frame.execute()
+    torch.cuda.synchronize()
+    peak = resident_bytes(c) + torch.cuda.max_memory_allocated() - alloc
+    del frame
+    if not fed.feedback or not fed.peak_bytes.lo <= peak <= fed.peak_bytes.hi:
+        fail(f"Q1's estimate after feedback [{fed.peak_bytes.lo}, "
+             f"{fed.peak_bytes.hi}] (feedback {fed.feedback}) against "
+             f"resident plus peak rise {peak}")
+    phase("streamed", part="feedback_bound", card=card,
+          static_hi=est.peak_bytes.hi, feedback_hi=fed.peak_bytes.hi,
+          lo=fed.peak_bytes.lo, resident_plus_peak_rise=peak,
+          feedback_hi_over_peak=fed.peak_bytes.hi / peak,
+          cost_rung_skips=c.metrics.counter(
+              "serving.scheduler.cost_rung_skip"))
+    before = counters(c)
+    reset_launches(segsum)
+    t0 = time.perf_counter()
+    got = c.sql(QUERY, config_options=opts).compute()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches = segsum.LAUNCHES["segsum"]
+    moves = moved(before, counters(c))
+    parts = moves.get("serving.stream.partitions", 0)
+    if moves.get("resilience.rung.streamed_aggregate") != 1 \
+            or moves.get("serving.stream.rows") != N_ROWS \
+            or not 4 <= parts <= 8 or launches != parts \
+            or moves.get("serving.shed_estimated_bytes"):
+        fail(f"streamed Q1 moved {moves} with {launches} kernel launches")
+    rel = check_q1(got, want, "streamed Q1")
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = c.sql(QUERY, config_options=opts).compute()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        if not again.equals(got):
+            fail("two streamed Q1 runs gave different bits")
+    calls = capture_calls(segsum, lambda: c.sql(
+        QUERY, config_options=opts).compute())
+    if len(calls) != parts:
+        fail(f"streamed Q1 made {len(calls)} segment-sum calls in {parts} "
+             f"partitions")
+    err = check_calls(segsum, calls, "streamed_q1")
+    if parts != decision.partitions:
+        fail(f"streamed Q1 ran {parts} partitions, decided {decision}")
+    phase("streamed", part="q1", card=card, rows=N_ROWS,
+          peak_bytes_lo=est.peak_bytes.lo, budget=budget, partitions=parts,
+          chunk_rows=decision.chunk_rows,
+          chunk_bytes_lo=decision.chunk_bytes_lo, launches=launches,
+          max_rel_err=rel, cold_ms=cold_ms, ms=float(np.median(runs)),
+          runs_ms=runs, in_memory_ms=float(np.median(mem_runs)),
+          same_bits_runs=len(runs) + 1, kernel_max_abs_err=err)
+
+    # an injected OOM in the second partition: one repartition, resumed
+    faults.reset()
+    before = counters(c)
+    reset_launches(segsum)
+    got = c.sql(QUERY, config_options={
+        **opts, "resilience.inject": "partition:at2"}).compute()
+    at2_launches = segsum.LAUNCHES["segsum"]
+    faults.reset()
+    moves = moved(before, counters(c))
+    if moves.get("serving.stream.repartitions") != 1 \
+            or moves.get("resilience.partition.oom") != 1 \
+            or moves.get("serving.stream.rows") != N_ROWS \
+            or moves.get("resilience.degraded"):
+        fail(f"streamed Q1 under partition:at2 moved {moves}")
+    at2_rel = check_q1(got, want, "streamed Q1 after a repartition")
+    phase("streamed", part="partition_at2", card=card,
+          partitions=moves["serving.stream.partitions"],
+          launches=at2_launches, rows=moves["serving.stream.rows"],
+          max_rel_err=at2_rel)
+
+    # a watched launch: each partition waits for its own CUDA event
+    before = counters(c)
+    t0 = time.perf_counter()
+    got = c.sql(QUERY, config_options={
+        **opts, "serving.stream.launch_timeout_ms": 60_000.0}).compute()
+    watched_ms = (time.perf_counter() - t0) * 1e3
+    moves = moved(before, counters(c))
+    if moves.get("resilience.rung.streamed_aggregate") != 1 \
+            or moves.get("resilience.watchdog.timeout"):
+        fail(f"the watched streamed Q1 moved {moves}")
+    check_q1(got, want, "watched streamed Q1")
+    if watchdog.join_abandoned(5.0):
+        fail("a watched launch's helper thread outlived it")
+
+    # the root select, streamed, in the in-memory run's row order
+    sel_est = c.sql(STREAM_SELECT_QUERY).plan._dsql_estimate
+    sel_budget = sel_est.peak_bytes.lo // STREAM_BUDGET_SHARE
+    t0 = time.perf_counter()
+    whole = c.sql(STREAM_SELECT_QUERY).compute()
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    before = counters(c)
+    t0 = time.perf_counter()
+    got = c.sql(STREAM_SELECT_QUERY, config_options={
+        "serving.admission.max_estimated_bytes": sel_budget}).compute()
+    sel_ms = (time.perf_counter() - t0) * 1e3
+    moves = moved(before, counters(c))
+    survivors = int((df.l_discount.to_numpy() > np.float32(0.09)).sum())
+    if moves.get("resilience.rung.streamed_select") != 1 \
+            or len(got) != survivors or not got.equals(whole):
+        fail(f"the streamed select moved {moves}, gave {len(got)} rows of "
+             f"{survivors}, same as the single run: {got.equals(whole)}")
+    phase("streamed", part="select", card=card, survivors=survivors,
+          partitions=moves["serving.stream.partitions"], budget=sel_budget,
+          ms=sel_ms, in_memory_ms=whole_ms, watched_q1_ms=watched_ms,
+          cost_rung_skips=c.metrics.counter(
+              "serving.scheduler.cost_rung_skip"))
+    check_not_degraded(c, "streamed")
+    del c
+    return {"launches": {"streamed_q1": launches,
+                         "streamed_q1_partition_at2": at2_launches},
+            "max_abs_err": err}
+
+
+def pressure(df, want, tpch, card, segsum):
+    """The `pressure` phase on Q1's rows: the bands at a set device budget;
+    a RED reclaim that frees the card-resident cached results (by
+    ``torch.cuda.memory_allocated``); a real ``torch.cuda.OutOfMemoryError``
+    in Q1's fused aggregate over 1,000,000 rows, made with a memory
+    fraction and `fill_free_blocks`, that a reclaim rescues on the same
+    rung; and the CRITICAL band: Q1 streamed, TPC-H q22 (two scans, no
+    streamed rung) shed with a `PressureShedError`."""
+    from dask_sql_tpu_torch.resilience.pressure import PressureShedError
+    from tests.tpch import QUERIES
+
+    c, _, _ = load_tables({"lineitem": df,
+                           "lineitem_1m": df.head(PRESSURE_Q1_ROWS),
+                           "customer": tpch["customer"],
+                           "orders": tpch["orders"]})
+    c.config.update({"serving.cache.enabled": True})
+
+    def fill_cache():
+        for sql in PRESSURE_CACHE_QUERIES:  # the eager walk keeps them
+            c.sql(sql, config_options={"sql.compile": False}).compute()
+        return c.ledger.snapshot()["resultCacheBytes"]
+
+    cache_bytes = fill_cache()
+    snap = c.ledger.snapshot()
+    used = (snap["reservedBytes"] + snap["resultCacheBytes"]
+            + snap["tableBytes"])
+    bands = {}
+    for label, budget in (("yellow", int(used / 0.85)),
+                          ("green", used * 10), ("critical", used // 2)):
+        with c.config.set({"serving.scheduler.device_budget_bytes": budget}):
+            bands[label] = c.pressure.band()
+    if bands != {"yellow": "yellow", "green": "green",
+                 "critical": "critical"}:
+        fail(f"pressure bands {bands}")
+
+    # RED: evaluate() reclaims back to the YELLOW floor
+    alloc0 = card_allocated()
+    with c.config.set({"serving.scheduler.device_budget_bytes":
+                       int(used / 0.92)}):
+        band = c.pressure.evaluate()
+    alloc1 = card_allocated()
+    freed = c.metrics.counter("resilience.pressure.reclaimed_bytes")
+    if band not in ("green", "yellow") or freed <= 0 \
+            or alloc0 - alloc1 < freed:
+        fail(f"RED reclaim: band {band}, {freed} bytes reclaimed, "
+             f"memory_allocated fell by {alloc0 - alloc1}")
+    phase("pressure", part="bands_and_red", card=card, used_bytes=used,
+          bands=bands, cache_bytes=cache_bytes, reclaimed_bytes=freed,
+          allocated_before=alloc0, allocated_after=alloc1,
+          band_after=band)
+
+    # a real OOM in Q1's fused aggregate, rescued on the same rung
+    from dask_sql_tpu_torch.resilience.retry import CircuitBreaker
+
+    sql_1m = QUERY.replace("FROM lineitem", "FROM lineitem_1m")
+    want_1m = q1_oracle(df.head(PRESSURE_Q1_ROWS))
+    c.breaker = CircuitBreaker.from_config(c.config)
+    check_q1(c.sql(sql_1m).compute(), want_1m, "Q1 on 1M rows")
+    refill = fill_cache()
+    before = counters(c)
+    reset_launches(segsum)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    total = torch.cuda.get_device_properties(0).total_memory
+    fraction = (reserved + OOM_HEADROOM_BYTES) / total
+    torch.cuda.set_per_process_memory_fraction(fraction)
+    filler = None
+    try:
+        filler = fill_free_blocks()
+        t0 = time.perf_counter()
+        got = c.sql(sql_1m, config_options={
+            "serving.cache.enabled": False}).compute()
+        rescue_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        filler = None
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    oom_launches = segsum.LAUNCHES["segsum"]
+    moves = moved(before, counters(c))
+    if moves.get("resilience.pressure.rung_retry_ok") != 1 \
+            or moves.get("resilience.degraded") \
+            or moves.get("resilience.rung.compiled_aggregate") != 1:
+        fail(f"the real OOM moved {moves}")
+    rel = check_q1(got, want_1m, "Q1 after the reclaim")
+    phase("pressure", part="real_oom_rescued", card=card,
+          rows=PRESSURE_Q1_ROWS, reserved_bytes=reserved, fraction=fraction,
+          cache_bytes=refill, moved={k: v for k, v in moves.items()
+                                     if k.startswith("resilience.")},
+          launches=oom_launches, ms=rescue_ms, max_rel_err=rel)
+
+    # CRITICAL: Q1 streamed under the device budget, q22 shed
+    critical = {"serving.scheduler.device_budget_bytes":
+                table_bytes(c, "lineitem") // 3}
+    before = counters(c)
+    reset_launches(segsum)
+    got = c.sql(QUERY, config_options={
+        **critical, "serving.cache.enabled": False}).compute()
+    crit_launches = segsum.LAUNCHES["segsum"]
+    check_q1(got, want, "Q1 under CRITICAL")
+    shed = None
+    try:
+        c.sql(QUERIES[22], config_options=critical).compute()
+    except PressureShedError as exc:
+        shed = (exc.code, exc.retryable, exc.retry_after_s)
+    moves = moved(before, counters(c))
+    if moves.get("resilience.pressure.critical_streamed") != 1 \
+            or moves.get("resilience.rung.streamed_aggregate") != 1 \
+            or moves.get("resilience.pressure.critical_shed") != 1 \
+            or shed is None or shed[0] != "PRESSURE_SHED":
+        fail(f"CRITICAL moved {moves}, shed {shed}")
+    phase("pressure", part="critical", card=card,
+          budget=critical["serving.scheduler.device_budget_bytes"],
+          partitions=moves["serving.stream.partitions"],
+          launches=crit_launches, q22_shed=shed)
+    check_not_degraded(c, "pressure")
+    del c
+    return {"launches": {"pressure_real_oom_q1_1m": oom_launches,
+                         "pressure_critical_q1": crit_launches}}
+
+
+def coldstart(df, want, tpch, card, segsum):
+    """The `coldstart` phase: save and load of Q1's 6,000,000 rows and
+    the TPC-H tables at 1,000,000 rows (the card's bytes after the load
+    equal to before the save), the warm-up after `load_state` (the first
+    Q1 after ``ready`` builds no pipeline), ``compile_hang:once`` under
+    ``resilience.compile_timeout_ms`` (the rung degrades, the answer is
+    right, no helper thread outlives the phase), a background recompile of
+    a grown table, and a compile-cache hit for the segment-sum library in
+    a second Python process."""
+    import shutil
+    import tempfile
+
+    from dask_sql_tpu_torch import _build
+    from dask_sql_tpu_torch.resilience import faults, watchdog
+    from dask_sql_tpu_torch.serving import compile_cache
+    from tests.tpch import QUERIES
+
+    # the compile cache: this process builds the segment-sum library into
+    # it (nvcc) and keeps there the native planner it built at its start;
+    # a second process, run beside the rest of the phase, finds both
+    work = tempfile.mkdtemp(prefix="dsql_coldstart_")
+    cache = os.path.join(work, "compile-cache")
+    native = _build.native_library_path()
+    compile_cache.enable(cache)
+    try:
+        t0 = time.perf_counter()
+        built = _build.build(["segsum"])
+        build_s = time.perf_counter() - t0
+        shutil.copy2(native, _build.native_library_path())
+    finally:
+        compile_cache.disable()
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-c", COMPILE_CACHE_CHILD, cache],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        frames = {"lineitem": df,
+                  **{f"tpch_{n}": t for n, t in tpch.items()}}
+        c, _, _ = load_tables(frames)
+        check_q1(c.sql(QUERY).compute(), want, "Q1 before the save")
+        c.sql(QUERIES[6].replace("lineitem", "tpch_lineitem")).compute()
+        before_bytes = {n: table_bytes(c, n) for n in frames}
+        loc = os.path.join(work, "snap")
+        t0 = time.perf_counter()
+        c.save_state(loc)
+        save_s = time.perf_counter() - t0
+        del c
+        gc.collect()
+        c2 = measuring_context()
+        t0 = time.perf_counter()
+        c2.load_state(loc)
+        load_s = time.perf_counter() - t0
+        after_bytes = {n: table_bytes(c2, n) for n in frames}
+        if after_bytes != before_bytes:
+            fail(f"card bytes after the load {after_bytes} differ from "
+                 f"before the save {before_bytes}")
+        warm = c2.warmup
+        if warm is None:
+            fail("load_state started no warm-up")
+        t0 = time.perf_counter()
+        warm.join(120)
+        warm_s = time.perf_counter() - t0
+        if not warm.ready or warm.warmed < 2 or warm.failed:
+            fail(f"the warm-up ended {warm.status()}")
+        reset_launches(segsum)
+        t0 = time.perf_counter()
+        got = c2.sql(QUERY).compute()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        builds = [s.name for s in c2.last_trace.spans
+                  if s.name.startswith("compile:")]
+        warm_launches = segsum.LAUNCHES["segsum"]
+        if builds or warm_launches != 1:
+            fail(f"the first Q1 after the warm-up built {builds}, launched "
+                 f"{segsum.LAUNCHES}")
+        rel = check_q1(got, want, "Q1 after the load")
+        phase("coldstart", part="save_load_warm", card=card,
+              tables=len(frames), card_bytes=sum(after_bytes.values()),
+              save_s=save_s, load_s=load_s, warmup_s=warm_s,
+              warmed=warm.warmed, first_q1_ms=first_ms, max_rel_err=rel)
+
+        # a hung pipeline build under the watchdog
+        before = counters(c2)
+        faults.reset()
+        t0 = time.perf_counter()
+        got = c2.sql(HANG_QUERY, config_options={
+            "resilience.inject": "compile_hang:once",
+            "resilience.inject.hang_s": 30.0,
+            "resilience.compile_timeout_ms": 200}).compute()
+        hang_ms = (time.perf_counter() - t0) * 1e3
+        faults.reset()
+        moves = moved(before, counters(c2))
+        g = df.groupby("l_returnflag")
+        if got["l_returnflag"].tolist() != sorted(df.l_returnflag.unique()) \
+                or got["n"].tolist() != g.size().tolist() \
+                or max_rel(got["q"], g.l_quantity.sum().to_numpy(
+                    np.float64)) > REL_BOUND:
+            fail("the query under a hung build answered wrong")
+        if moves.get("resilience.watchdog.timeout") != 1 \
+                or moves.get("resilience.degraded.compiled_aggregate") != 1:
+            fail(f"the hung build moved {moves}")
+        alive = watchdog.join_abandoned(10.0)
+        helpers = [t.name for t in threading.enumerate()
+                   if t.name.startswith("dsql-compile-watchdog")]
+        if alive or helpers:
+            fail(f"helper threads outlived the hung build: {helpers}")
+        phase("coldstart", part="compile_hang", card=card, ms=hang_ms,
+              moved={k: v for k, v in moves.items()
+                     if k.startswith("resilience.")})
+
+        # a background recompile: the table grows, the family rebuilds
+        # off the query's path and is found by the next query
+        c2.config.update({"serving.bg_compile.enabled": True})
+        small, grown = df.head(BG_ROWS), df.head(2 * BG_ROWS)
+        grown_want = q1_oracle(grown)
+        c2.create_table("bg", small)
+        sql_bg = QUERY.replace("FROM lineitem", "FROM bg")
+        check_q1(c2.sql(sql_bg).compute(), q1_oracle(small), "bg Q1")
+        c2.create_table("bg", grown)
+        before = counters(c2)
+        check_q1(c2.sql(sql_bg).compute(), grown_want,
+                 "bg Q1 while it rebuilds")
+        if not c2.background_compiler().wait_idle(60):
+            fail("the background recompile did not finish")
+        check_q1(c2.sql(sql_bg).compute(), grown_want, "bg Q1 rebuilt")
+        moves = moved(before, counters(c2))
+        if moves.get("serving.bg_compile.deferred") != 1 \
+                or moves.get("serving.bg_compile.completed") != 1 \
+                or moves.get("resilience.rung.compiled_aggregate") != 1 \
+                or moves.get("resilience.degraded"):
+            fail(f"the background recompile moved {moves}")
+        c2.background_compiler().cancel()
+        c2.background_compiler().join(10)
+        phase("coldstart", part="background_recompile", card=card,
+              moved={k: v for k, v in moves.items()
+                     if k.startswith(("serving.bg", "resilience.rung"))})
+        del c2
+
+        out, err = child.communicate(timeout=300)
+        child_s = time.perf_counter() - t_child
+        if child.returncode != 0:
+            fail(f"the compile-cache process failed: {err[-2000:]}")
+        seen = json.loads(out.strip().splitlines()[-1])
+        if not seen["right"] or seen["hit"] != 2 or seen["miss"] \
+                or seen["launches"]["segsum"] != 1 or "segsum" not in built:
+            fail(f"the compile cache: built {built}, the second process "
+                 f"saw {seen}")
+        phase("coldstart", part="compile_cache", card=card,
+              build_s=build_s, second_process_s=child_s, second=seen)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": {"coldstart_q1_after_warmup": warm_launches}}
 
 
 def spy_synchronize():
@@ -2353,7 +2849,8 @@ def cancel_on_the_card(c, sql, card):
 def tpcds(card, segsum, transfers):
     """The `tpcds` phase: every TPC-DS query on `tests/tpcds.py
     generate(scale_rows=TPCDS_ROWS)` loaded on the card with the
-    reference's encodings, cold once and TPCDS_WARM_RUNS times warm, each
+    reference's encodings, cold once and TPCDS_WARM_RUNS times warm (once
+    for the host-bound TPCDS_HOST_BOUND), each
     answer held against the port on the CPU on the same frames (in order,
     floats within TPCH_REL; where ties at an ORDER BY put rows in another
     order, the LIMIT-stripped query's rows as a multiset), on the CPU run's
@@ -2405,7 +2902,9 @@ def tpcds(card, segsum, transfers):
             reset_launches(segsum)
             ran.clear()
             runs, rel, compared = [], 0.0, "in_order"
-            for i in range(1 + TPCDS_WARM_RUNS):
+            runs_per_query = 1 + (1 if q in TPCDS_HOST_BOUND
+                                  else TPCDS_WARM_RUNS)
+            for i in range(runs_per_query):
                 transfers["d2h"] = 0
                 t0 = time.perf_counter()
                 got = ct.sql(sql).compute()
@@ -2426,13 +2925,11 @@ def tpcds(card, segsum, transfers):
             launches[q] = segsum.LAUNCHES["segsum"]
             rungs = {k: v - before.get(k, 0) for k, v in rung_counts(ct).items()
                      if v != before.get(k, 0)}
-            expected = {k: v * (1 + TPCDS_WARM_RUNS)
-                        for k, v in cpu_rungs.items()}
+            expected = {k: v * runs_per_query for k, v in cpu_rungs.items()}
             if rungs != expected:
                 fail(f"TPC-DS q{q} answered on rungs {rungs}, the CPU on "
                      f"{expected}")
             check_not_degraded(ct, f"tpcds q{q}")
-            runs_per_query = 1 + TPCDS_WARM_RUNS
             phase("tpcds", card=card, query=f"q{q}", rows=len(got),
                   cold_ms=runs[0], ms=float(np.median(runs[1:])),
                   runs_ms=runs[1:], cpu_ms=cpu_ms, d2h=transfers["d2h"],
@@ -3204,6 +3701,11 @@ def main() -> int:
     observability_out = observability(df, want, card, segsum,
                                       TRANSFER_STATS)
     check_card_freed(mem0, "observability")
+    # 8f. the `streamed` phase on the same rows: Q1 and the root select in
+    # partitions under an admission budget
+    mem0 = card_allocated()
+    streamed_out = streamed(df, want, card, segsum)
+    check_card_freed(mem0, "streamed")
 
     # 9. TPC-H Q3 through the compiled join->aggregate pipeline, over the
     # encoded columns
@@ -3212,6 +3714,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     all_tables = generate(scale_rows=Q3_ROWS, seed=7)
+    gen3_s = time.perf_counter() - t0
+    # 8g. the `pressure` and `coldstart` phases on Q1's rows and these
+    # frames: bands, reclaim, a rescued OOM, CRITICAL; checkpoints, the
+    # warm-up, a hung build, a background recompile, the compile cache
+    mem0 = card_allocated()
+    pressure_out = pressure(df, want, all_tables, card, segsum)
+    check_card_freed(mem0, "pressure")
+    mem0 = card_allocated()
+    coldstart_out = coldstart(df, want, all_tables, card, segsum)
+    check_card_freed(mem0, "coldstart")
+    t0 = time.perf_counter() - gen3_s
     tables = {n: all_tables[n] for n in ("customer", "orders", "lineitem")}
     mem0 = card_allocated()
     c3, q3_hbm, q3_load_s = load_tables(tables)
@@ -3291,6 +3804,15 @@ def main() -> int:
     # function registry, a registered function and aggregation
     surface_launches = surface_sql(ct, cpu, all_tables, card, segsum,
                                    TRANSFER_STATS)
+    # how often the ladder's cost-based skip chose a lower rung on the card
+    # over these queries, by rung, beside the CPU's count on the same runs
+    phase("cost_skip", card=card, card_skips={
+        k: v for k, v in counters(ct).items()
+        if k.startswith("serving.scheduler.cost_rung_skip")},
+        cpu_skips={k: v for k, v in counters(cpu).items()
+                   if k.startswith("serving.scheduler.cost_rung_skip")},
+        builds={k: v["count"] for k, v in ct.metrics.snapshot()[
+            "histograms"].items() if k.startswith("resilience.compile_ms.")})
     del ct, cpu
     check_card_freed(mem0, "tpch_more_surface_sql")
     # 10c. the `files` phase on Q3's frames: lineitem streamed from parquet
@@ -3440,7 +3962,10 @@ def main() -> int:
                                  files_q1_out["files_q1_persisted"],
                              "files_q3_streamed": files_q3_out["launches"],
                              **resilience_out["launches"],
-                             **observability_out["launches"]},
+                             **observability_out["launches"],
+                             **streamed_out["launches"],
+                             **pressure_out["launches"],
+                             **coldstart_out["launches"]},
         "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"],
                            tpcds_launches["max_abs_err"],
                            surface_q1_launches["max_abs_err"],
@@ -3448,7 +3973,8 @@ def main() -> int:
                            files_q1_out["max_abs_err"],
                            files_q3_out["max_abs_err"],
                            resilience_out["max_abs_err"],
-                           observability_out["max_abs_err"]),
+                           observability_out["max_abs_err"],
+                           streamed_out["max_abs_err"]),
         "ms": t_ms,
         "plain_ms": t_plain_ms,
         "bound_ms": t_bound_ms,

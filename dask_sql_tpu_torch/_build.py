@@ -10,6 +10,10 @@ The native planner (the repo's ``native/*.cpp``: tokenizer, parser, binder
 and core optimizer) compiles with ``g++`` and the flags of
 ``native/Makefile`` into the same directory (`native_library`), under a
 file lock so that concurrent processes build it once.
+
+Both are kept where the compile cache says (`serving/compile_cache.py`:
+``serving.compile_cache.path``, else ``_build/``); a library found intact
+there is a hit, a compiler run a miss, and a torn file is rebuilt.
 """
 from __future__ import annotations
 
@@ -63,11 +67,17 @@ def _nvcc() -> str:
                        "with the CUDA toolkit on the machine with the card")
 
 
+def _dir() -> Path:
+    from .serving import compile_cache
+
+    return compile_cache.cache_dir(BUILD_DIR)
+
+
 def library_path(name: str) -> Path:
     source = _CSRC / KERNELS[name][0]
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return _dir() / f"lib{name}-{digest}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
@@ -76,8 +86,11 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     compiled; raises with the compiler's output when one fails."""
     import time
 
-    BUILD_DIR.mkdir(exist_ok=True)
-    todo = [n for n in (names or KERNELS) if not library_path(n).exists()]
+    from .serving import compile_cache
+
+    _dir().mkdir(parents=True, exist_ok=True)
+    todo = [n for n in (names or KERNELS)
+            if not compile_cache.lookup(library_path(n))]
     if not todo:
         return {}
     nvcc = _nvcc()
@@ -97,6 +110,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             errors.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{out}")
             continue
         os.replace(tmp, target)
+        compile_cache.stored(target)
         times[name] = time.perf_counter() - t0
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -122,7 +136,7 @@ def native_library_path() -> Path:
     for name in NATIVE_SOURCES:
         h.update(name.encode())
         h.update((NATIVE_DIR / name).read_bytes())
-    return BUILD_DIR / f"libdsql_native-{h.hexdigest()[:16]}.so"
+    return _dir() / f"libdsql_native-{h.hexdigest()[:16]}.so"
 
 
 def native_library() -> Path:
@@ -135,13 +149,15 @@ def native_library() -> Path:
     missing = [n for n in NATIVE_SOURCES if not (NATIVE_DIR / n).exists()]
     if missing:
         raise RuntimeError(f"native planner sources missing: {missing}")
+    from .serving import compile_cache
+
     target = native_library_path()
-    if target.exists():
+    if compile_cache.lookup(target):
         return target
-    BUILD_DIR.mkdir(exist_ok=True)
-    with open(BUILD_DIR / ".native.lock", "w") as lock:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with open(target.parent / ".native.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if target.exists():
+        if compile_cache.lookup(target):
             return target
         gxx = shutil.which("g++") or shutil.which("c++")
         if gxx is None:
@@ -157,4 +173,5 @@ def native_library() -> Path:
                 f"g++ failed for the native planner (rc {proc.returncode}):\n"
                 f"{proc.stdout}")
         os.replace(tmp, target)
+        compile_cache.stored(target)
     return target

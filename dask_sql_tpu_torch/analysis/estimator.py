@@ -38,10 +38,11 @@ Consumers in the port: ``EXPLAIN ESTIMATE <query>``, and the degradation
 ladder: an Aggregate whose compiled intermediate-buffer *lower* bound
 cannot fit ``analysis.estimate.device_budget_bytes`` has its compiled
 rungs pre-skipped (``_dsql_skip_rungs``, ``analysis.rung_skip.*``).  The
-admission byte gate and result-cache admission wait for the serving tier,
-and the profile store's feedback (`apply_feedback`; ROADMAP.md Queue 1
-item 8).  The port runs on one device, so the reference's sharded-scan
-bounds (mesh width, exchange buffers; item 10) are left out, and a PREDICT
+admission byte gate, result-cache admission and partitioned streaming
+(streaming/plan.py, on ``scan_bytes_lo``) read the verdict, and the
+profile store's feedback (`apply_feedback`) tightens its upper bounds from
+a family's observed history, above the fused programs' charge.  The port
+runs on one device, so the reference's sharded-scan bounds (mesh width, exchange buffers; item 10) are left out, and a PREDICT
 node's transients are unbounded above until the inference port (item 9).
 """
 from __future__ import annotations
@@ -185,6 +186,15 @@ class PlanEstimate:
     #: the non-scan remainder (materialized root, per-device exchange) does
     #: not shrink with partitioning and must stay whole
     scan_bytes_lo: int = 0
+    #: True when profile feedback tightened the UPPER bounds
+    #: (`apply_feedback`): they are then predictions from the family's
+    #: observed history, and the lower bounds stay provable
+    feedback: bool = False
+    #: the transient bytes every node charges (``scratch_hi``, the larger
+    #: of the reference's charge and the port's fused program at its peak,
+    #: `fused.py`) summed, or None when one is unbounded: the floor
+    #: feedback never lowers ``peak_bytes.hi`` below, over ``lo``
+    scratch_hi: Optional[int] = 0
 
     def format_rows(self) -> List[str]:
         rows = [
@@ -196,6 +206,9 @@ class PlanEstimate:
                 else self.peak_bytes.hi),
             f"result: bytes={self.result_bytes.fmt()} (d2h transfer)",
         ]
+        if self.feedback:
+            rows.insert(1, "feedback: upper bounds tightened from observed "
+                           "family history (lower bounds stay provable)")
         for n in self.nodes:
             if n.scratch_hi is None:
                 # the node whose transients made bytes_hi unbounded must be
@@ -506,6 +519,10 @@ class _Estimator:
                 peak_hi += n.out_bytes.hi + n.scratch_hi
         if peak_hi is not None:
             peak_hi = max(peak_hi, peak_lo)
+        scratch: Optional[int] = 0
+        for n in self.nodes:
+            scratch = None if n.scratch_hi is None or scratch is None \
+                else scratch + n.scratch_hi
         return PlanEstimate(
             rows=root_rows,
             result_bytes=root_bytes,
@@ -513,6 +530,7 @@ class _Estimator:
             nodes=list(reversed(self.nodes)),  # root first for display
             rung_proofs=[],
             scan_bytes_lo=sum(self._scan_lo.values()),
+            scratch_hi=scratch,
         )
 
 
@@ -613,6 +631,69 @@ def collect_rung_proofs(verdict: PlanEstimate, budget: Optional[int]
     return [(node, _AGG_RUNGS, matrix_lo)
             for node, matrix_lo in getattr(verdict, "_agg_intermediates", [])
             if matrix_lo > budget]
+
+
+def _tighten(iv: Interval, pred_hi: int) -> Interval:
+    """One feedback-tightened interval: the upper bound drops to the
+    prediction but never below the lower bound, which is untouched."""
+    hi = pred_hi if iv.hi is None else min(iv.hi, pred_hi)
+    return Interval(iv.lo, max(iv.lo, hi))
+
+
+def apply_feedback(verdict: PlanEstimate, profile: Optional[dict],
+                   config, metrics=None) -> PlanEstimate:
+    """Profile-feedback priors (``analysis.estimate.feedback``), the
+    reference's: with at least ``feedback.min_obs`` observed executions,
+    ``rows.hi`` and ``result_bytes.hi`` drop to ``margin x`` the largest
+    observed rows and result bytes, and ``peak_bytes.hi`` drops to the
+    provable floor plus ``margin x`` the observed result bytes.  Lower
+    bounds are copied untouched, and an upper bound never drops below its
+    lower bound, so the admission gate and the rung proofs (both on
+    ``lo``) are unaffected.  Returns a new estimate; the family's memoized
+    one stays as it was.
+
+    Divergence from the reference (ROADMAP.md Queue 3): the port's
+    ``peak_bytes.hi`` bounds the card, the resident tables plus each
+    node's transients (`fused.py`), so feedback applies only above that
+    charge: the prediction is ``lo + scratch_hi + margin x`` the observed
+    result bytes, and with an unbounded scratch ``hi`` is kept."""
+    if profile is None or not config.get("analysis.estimate.feedback", True):
+        return verdict
+    min_obs = max(1, int(config.get("analysis.estimate.feedback.min_obs", 2)))
+    margin = max(1.0, float(
+        config.get("analysis.estimate.feedback.margin", 2.0)))
+    obs_rows = profile.get("rows") or []
+    obs_bytes = profile.get("result_bytes") or []
+    rows = verdict.rows
+    result_bytes = verdict.result_bytes
+    peak = verdict.peak_bytes
+    changed = False
+    if len(obs_rows) >= min_obs:
+        tightened = _tighten(rows, int(margin * max(obs_rows)))
+        changed = changed or tightened != rows
+        rows = tightened
+    if len(obs_bytes) >= min_obs:
+        pred_result = int(margin * max(obs_bytes))
+        tightened = _tighten(result_bytes, pred_result)
+        changed = changed or tightened != result_bytes
+        result_bytes = tightened
+        if verdict.scratch_hi is not None:
+            tightened = _tighten(
+                peak, peak.lo + verdict.scratch_hi + pred_result)
+            changed = changed or tightened != peak
+            peak = tightened
+    if not changed:
+        return verdict
+    if metrics is not None:
+        metrics.inc("analysis.estimate.feedback")
+    import dataclasses
+
+    out = dataclasses.replace(verdict, rows=rows, result_bytes=result_bytes,
+                              peak_bytes=peak, feedback=True)
+    agg = getattr(verdict, "_agg_intermediates", None)
+    if agg is not None:
+        out._agg_intermediates = agg
+    return out
 
 
 def estimate_and_apply(plan: p.LogicalPlan, context) -> PlanEstimate:

@@ -48,6 +48,12 @@ DEFAULTS: Dict[str, Any] = {
     # packed-matrix lower bound exceeds it skips its compiled rungs.  None
     # disables the proof
     "analysis.estimate.device_budget_bytes": None,
+    # profile feedback (estimator.apply_feedback): tighten an estimate's
+    # upper bounds from the family's observed history, never below its
+    # lower bounds nor, for peak_bytes.hi, below the fused programs' peak
+    "analysis.estimate.feedback": True,
+    "analysis.estimate.feedback.margin": 2.0,  # safety multiple over the observed max
+    "analysis.estimate.feedback.min_obs": 2,  # observed executions before feedback applies
     # the degradation ladder (resilience/ladder.py): off runs each rung bare,
     # so a degradable failure propagates instead of stepping down
     "resilience.ladder.enabled": True,
@@ -58,9 +64,32 @@ DEFAULTS: Dict[str, Any] = {
     "resilience.breaker.enabled": True,
     "resilience.breaker.threshold": 3,  # consecutive failures that trip it
     "resilience.breaker.cooldown_s": 30.0,  # seconds to a half-open trial
+    # max age of checkpointed breaker verdicts restored on load_state
+    # (0 = never restore)
+    "resilience.breaker.persist_ttl_s": 300.0,
+    # cost-based rung selection (resilience/ladder.py cost_skip): skip a
+    # compiled rung whose predicted build cost (the p50 of its
+    # resilience.compile_ms history) exceeds amortize_factor x the family's
+    # hits x its observed exec_ms p50; a choice, not a degradation
+    "resilience.ladder.cost_based": True,
+    "resilience.ladder.cost.amortize_factor": 4.0,
+    # watchdog deadline on a pipeline build, ms (None = off): expiry
+    # degrades the rung (resilience/watchdog.py)
+    "resilience.compile_timeout_ms": None,
+    # the pressure controller (resilience/pressure.py): bands of the
+    # ledger's headroom against serving.scheduler.device_budget_bytes only
+    # (no device budget = GREEN always); YELLOW suspends speculative work,
+    # RED reclaims cold bytes, CRITICAL streams or sheds new admissions;
+    # enabled also gates the ladder's reclaim-before-degrade retry
+    "resilience.pressure.enabled": True,
+    "resilience.pressure.yellow_frac": 0.25,  # headroom <= frac*budget enters YELLOW
+    "resilience.pressure.red_frac": 0.10,  # headroom <= frac*budget enters RED
+    "resilience.pressure.critical_frac": 0.05,  # headroom <= frac*budget enters CRITICAL
+    "resilience.pressure.model_idle_s": 120.0,  # idle model params reclaimable (no model tier yet)
     # fault injection (resilience/faults.py), e.g. "compile:0.5,oom:once"
     "resilience.inject": None,
     "resilience.inject.seed": 0,  # PRNG seed of the probabilistic modes
+    "resilience.inject.hang_s": 30.0,  # the hang of the compile_hang site, seconds
     # bounded retry of taxonomy-retryable failures at the serving worker
     # (resilience/retry.py BackoffPolicy)
     "resilience.retry.max_attempts": 3,  # total tries (1 = no retry)
@@ -86,6 +115,30 @@ DEFAULTS: Dict[str, Any] = {
     # provable peak device bytes (the estimate's lower bound) exceed this
     # budget, before any executor work.  None disables the gate
     "serving.admission.max_estimated_bytes": None,
+    # partitioned streaming (streaming/): a provably over-budget scan of one
+    # registered table runs as row partitions with partial aggregate
+    # states combined in order, and a mid-stream OOM halves the partition
+    # and resumes from the last completed one
+    "serving.stream.enabled": True,
+    # explicit partition size in rows (0/None = derived from the estimate)
+    "serving.stream.chunk_rows": None,
+    # the repartition floor: below it a mid-stream OOM degrades the rung
+    "serving.stream.min_chunk_rows": 4096,
+    # a plan needing more partitions than this is shed
+    "serving.stream.max_partitions": 256,
+    # per-partition launch deadline, ms (None/0 = off): the launch waits
+    # for its own CUDA event under the watchdog
+    "serving.stream.launch_timeout_ms": None,
+    # cold starts: where the built kernel and planner libraries are kept
+    # and found (None = the package's _build/), the profile-driven warm-up
+    # and the background recompiler
+    "serving.compile_cache.path": None,
+    "serving.compile_cache.min_compile_time_s": 0.0,  # the reference's floor; every library build is kept
+    "serving.warmup.enabled": True,  # warm the top profiled fingerprints after load_state
+    "serving.warmup.top_n": 8,  # how many hot fingerprints the warm-up replays
+    "serving.warmup.throttle_s": 0.0,  # pause between warm statements
+    "serving.bg_compile.enabled": False,  # rebuild grown or replaced families off the query's path
+    "serving.bg_compile.max_pending": 8,  # bounded background queue (past it: foreground)
     # the packing scheduler (serving/scheduler.py): queries packed against
     # the device byte budget by their provable floors, deadline first,
     # with per-tenant quotas; enabled=false keeps plain FIFO class queues

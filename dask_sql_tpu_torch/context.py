@@ -20,10 +20,14 @@ registry (`metrics`, `serving/metrics.py`) and the per-fingerprint
 profiles (`profiles`), which SHOW METRICS and SHOW PROFILES read.  Each
 execution is an entry of the in-flight query table (`live_queries`: SHOW
 QUERIES, CANCEL QUERY), looks in the result cache first, passes the
-estimated-bytes gate, and feeds the card-byte ledger (`ledger`); a
+estimated-bytes gate (which routes an over-budget plan to partitioned
+streaming, `streaming/`, and consults the pressure controller,
+`pressure`), and feeds the card-byte ledger (`ledger`); a
 `serving.ServingRuntime` attached as `serving` runs queries on its worker
-pool.  The reference's semantic reuse (materialization, ROADMAP.md Queue
-1 item 8c) is not ported yet.
+pool.  `save_state`/`load_state` checkpoint the catalog (checkpoint.py),
+and a load warms the hottest profiled statements (`warmup`).  The
+reference's semantic reuse (materialization, ROADMAP.md Queue 1 item 8c's
+`materialize/`) is not ported yet.
 """
 from __future__ import annotations
 
@@ -91,6 +95,11 @@ class TorchFrame:
     def columns(self) -> List[str]:
         return list(self._field_names)
 
+    @property
+    def plan(self):
+        """The optimized logical plan this frame executes."""
+        return self._plan
+
     def execute(self) -> Table:
         """Run the plan to a Table (cached).  Every failure leaves here as
         a taxonomy `QueryError` (``code``, ``retryable``, ``degradable``;
@@ -104,7 +113,9 @@ class TorchFrame:
         table (`Context.live_queries`: the serving front end's, or one of
         its own with a cancellable ticket), the ``cache_lookup`` stage
         (a hit in `Context._result_cache` answers without executing), and
-        the estimated-bytes gate (`serving/admission.py`).  After it: the
+        the estimated-bytes gate (`serving/admission.py`), whose routing to
+        partitioned streaming is this execution's
+        (`Executor.stream_decisions`).  After it: the
         measured footprint on the serving ticket (the scheduler's
         reserve drift) and the result into the cache, tagged with the
         tables it read.  The reference's semantic reuse (item 8c) would
@@ -212,11 +223,13 @@ class TorchFrame:
                     self._result = hit
                     return self._result
                 estimate = ctx._plan_estimate(self._plan)
+                routed = None
                 if estimate is not None:
                     # sheds a provably over-budget query before any
-                    # executor work
-                    check_estimated_bytes(estimate, ctx.config, ctx.metrics,
-                                          plan=self._plan, context=ctx)
+                    # executor work, or routes it to partitioned streaming
+                    routed = check_estimated_bytes(
+                        estimate, ctx.config, ctx.metrics, plan=self._plan,
+                        context=ctx)
                     # a result whose provable bytes exceed the per-entry
                     # cap is never cacheable: skip the insert
                     if key is not None and estimate.result_bytes.lo > \
@@ -226,6 +239,12 @@ class TorchFrame:
                 trace = bool(ctx.config.get("serving.metrics.node_traces",
                                             False))
                 executor = Executor(ctx, trace=trace)
+                if routed is not None:
+                    # the streaming verdict is THIS execution's, keyed by
+                    # the streamable node: a concurrent run of the same
+                    # cached plan under another budget never sees it
+                    node, decision = routed
+                    executor.stream_decisions[id(node)] = decision
                 t0 = time.perf_counter()
                 with observability.stage("execute"):
                     self._result = wrap_boundary(
@@ -248,7 +267,9 @@ class TorchFrame:
                     # tables' resident bytes) the scheduler reconciles its
                     # reservation with (serving.scheduler.reserve_drift)
                     ticket.measured_bytes = result_bytes \
-                        + ctx._measured_scan_bytes(self._plan)
+                        + ctx._measured_scan_bytes(
+                            self._plan,
+                            routed[1] if routed is not None else None)
                     entry.measured_bytes = ticket.measured_bytes
                 est = getattr(self._plan, "_dsql_estimate", None)
                 if est is not None:
@@ -365,11 +386,90 @@ class Context:
                                               64)))
         #: card-byte accounting (observability/ledger.py)
         self.ledger = observability.DeviceLedger(self)
+        from .resilience.pressure import PressureController
+
+        #: the pressure controller (resilience/pressure.py): bands the
+        #: ledger's headroom against the device budget, suspends
+        #: speculative work at YELLOW, reclaims at RED, streams or sheds
+        #: new admissions at CRITICAL
+        self.pressure = PressureController(self)
+        #: the active warm-up pass (serving/warmup.py) after load_state
+        self.warmup = None
+        #: the background recompiler (serving/background.py), made on
+        #: first use under _plan_lock: read it with background_compiler()
+        self._bg_compiler = None
+        #: plan family -> the table identity its pipeline was built over
+        #: (physical/compiled.py remember_family): a miss of a known family
+        #: over another table is the background recompile's trigger
+        self._compiled_families: Dict[Tuple, Tuple] = {}
         #: (schema, table) -> ((uid, delta epoch), resident bytes), for
         #: `_measured_scan_bytes`
         self._scan_bytes: Dict[Tuple[str, str], Tuple[Tuple, int]] = {}
         observability.flight.RECORDER.resize(
             int(self.config.get("observability.flight.capacity", 4096)))
+
+    # ------------------------------------------------------------ state
+    def save_state(self, location: str) -> dict:
+        """Snapshot every schema (checkpoint.py: tables as parquet, the
+        profiles, the open breaker verdicts) so a new process can
+        `load_state` it; returns the manifest."""
+        from . import checkpoint
+
+        return checkpoint.save_state(self, location)
+
+    def load_state(self, location: str) -> dict:
+        """Load a `save_state` snapshot (the port's or the reference's)
+        into this Context, then start the profile-driven warm-up."""
+        from . import checkpoint
+
+        manifest = checkpoint.load_state(self, location)
+        self.maybe_start_warmup()
+        return manifest
+
+    def maybe_start_warmup(self):
+        """Start a background warm-up over the hottest profiled
+        fingerprints (serving/warmup.py) when configured and there is
+        anything to warm; a pass in flight is returned as it is, a
+        finished one replaced.  Returns the `WarmupManager` or None."""
+        if not self.config.get("serving.warmup.enabled", True):
+            return None
+        top_n = int(self.config.get("serving.warmup.top_n", 8) or 0)
+        if top_n <= 0 or not len(self.profiles):
+            return None
+        if self.warmup is not None and not self.warmup.ready:
+            return self.warmup
+        from .serving.warmup import WarmupManager
+
+        manager = WarmupManager(
+            self, top_n=top_n,
+            throttle_s=float(self.config.get(
+                "serving.warmup.throttle_s", 0.0) or 0.0))
+        self.warmup = manager
+        self._register_background(manager)
+        return manager.start()
+
+    def background_compiler(self):
+        """The background recompiler (serving/background.py), or None with
+        ``serving.bg_compile.enabled`` off; made on first use."""
+        if not self.config.get("serving.bg_compile.enabled", False):
+            return None
+        with self._plan_lock:
+            bg = self._bg_compiler
+            if bg is not None:
+                return bg
+            from .serving.background import BackgroundCompiler
+
+            bg = self._bg_compiler = BackgroundCompiler.from_config(
+                self.config, metrics=self.metrics,
+                suspended=self.pressure.suspend_speculative)
+        self._register_background(bg)
+        return bg
+
+    def _register_background(self, worker) -> None:
+        """Hand a background worker to the attached serving runtime, whose
+        shutdown cancels and joins it."""
+        if self.serving is not None:
+            self.serving.register_background(worker)
 
     # ------------------------------------------------------------ tables
     def create_table(self, table_name: str, input_table: Any,
@@ -641,6 +741,12 @@ class Context:
             raise ValueError("sql must be a string")
         with contextlib.ExitStack() as scope:
             scope.enter_context(self.config.set(config_options))
+            if self.config.get("serving.compile_cache.path"):
+                # the compile cache: the kernel and planner libraries are
+                # kept and found there from this statement on
+                from .serving import compile_cache
+
+                compile_cache.maybe_enable(self.config, self.metrics)
             # the lifecycle trace of this call: an outer scope's active
             # trace is reused, else this call opens (and owns) one
             tr = None
@@ -738,8 +844,9 @@ class Context:
         plan cache: its estimate's provable floor ``peak_bytes.lo``, the
         family's predicted exec ms (SHOW PROFILES' p50) and its family.
         None for a text not planned yet: submit never plans, and the
-        scheduler treats such a query as costing nothing.  (The reference's
-        per-chunk floor of a streamed plan is item 8c's.)"""
+        scheduler treats such a query as costing nothing.  A plan the gate
+        would stream under this submit's config reserves its per-partition
+        floor (``chunk_bytes_lo``)."""
         from .resilience.ladder import plan_fingerprint
         from .serving.scheduler import QueryCost
 
@@ -755,11 +862,29 @@ class Context:
         est = getattr(plan, "_dsql_estimate", None)
         fam = getattr(plan, "_dsql_family", None)
         fam_fp = fam.fingerprint if fam is not None else None
+        chunk = None
+        if est is not None:
+            chunk = self._stream_chunk_hint(plan, est, config_options)
         return QueryCost(
             bytes_lo=int(est.peak_bytes.lo) if est is not None else 0,
             pred_exec_ms=self.profiles.predicted_exec_ms(
                 fam_fp or plan_fingerprint(plan)),
-            family=fam_fp)
+            family=fam_fp, chunk_bytes_lo=chunk)
+
+    def _stream_chunk_hint(self, plan, est, config_options):
+        """The per-partition floor a streamed execution of `plan` would
+        reserve under this submit's config, or None (a single run): the
+        gate's routing (`streaming.stream_decision`), read only."""
+        from .config import parse_byte_budget
+        from .streaming import stream_decision
+
+        with self.config.set(dict(config_options or {})):
+            budget = parse_byte_budget(
+                self.config.get("serving.admission.max_estimated_bytes"))
+            if budget is None or int(est.peak_bytes.lo) <= budget:
+                return None
+            routed = stream_decision(plan, est, self, self.config, budget)
+        return int(routed[1].chunk_bytes_lo) if routed is not None else None
 
     def submit(self, sql: str, priority_class: str = "interactive",
                deadline_s: Optional[float] = None, tenant: str = "",
@@ -927,11 +1052,13 @@ class Context:
             stack.extend(node.inputs())
         return frozenset(deps)
 
-    def _measured_scan_bytes(self, plan) -> int:
+    def _measured_scan_bytes(self, plan, stream_decision=None) -> int:
         """Resident bytes of the registered tables `plan` scans
         (`serving.cache.table_nbytes`), the scan side of the measured
         footprint the scheduler reconciles its reservation with; a lazy
-        parquet table counts nothing.  A table's count is kept until its
+        parquet table counts nothing, and the table of a streamed
+        execution (``stream_decision``) its per-partition share, as its
+        reservation was the per-partition floor.  A table's count is kept until its
         uid or delta epoch changes: it walks the host dictionaries, which
         takes tens of ms over a table of a million strings, and every
         query reports it."""
@@ -956,19 +1083,56 @@ class Context:
             got = self._scan_bytes.get(key)
             if got is None or got[0] != version:
                 got = self._scan_bytes[key] = (version, table_nbytes(dc.table))
-            total += got[1]
+            nbytes = got[1]
+            if stream_decision is not None \
+                    and stream_decision.partitions > 1 \
+                    and (stream_decision.schema_name,
+                         stream_decision.table_name) == key:
+                nbytes = -(-nbytes // stream_decision.partitions)
+            total += nbytes
         return total
+
+    def _feedback_estimate(self, plan, est, fam):
+        """Tighten one fresh or family-memoized estimate's upper bounds
+        from the family's observed history (`estimator.apply_feedback`:
+        never below the lower bounds, and ``peak_bytes.hi`` never below
+        the fused programs' charge) and attach it to the plan.  The
+        memoized estimate is never changed, so each later member applies
+        feedback against its own, fresher history.  A failure keeps the
+        static estimate."""
+        if est is None:
+            return None
+        try:
+            from .analysis import estimator
+            from .resilience.ladder import plan_fingerprint
+
+            fam_fp = fam.fingerprint if fam is not None else None
+            fp = fam_fp or plan_fingerprint(plan)
+            # the static rows bound beside the observed ones (SHOW PROFILES)
+            self.profiles.record_estimate(fp, est.rows.hi, family=fam_fp)
+            out = estimator.apply_feedback(est, self.profiles.get(fp),
+                                           self.config, self.metrics)
+            plan._dsql_estimate = out
+            return out
+        except Exception:  # advisory: the static estimate stays in force
+            self.metrics.inc("analysis.estimate.internal_error")
+            logger.debug("estimate feedback failed; static estimate kept",
+                         exc_info=True)
+            return est
 
     def _plan_estimate(self, plan):
         """The estimate riding a plan (made when it was planned), or a
         fresh one when the estimated-bytes gate is configured and the plan
-        was never estimated; None otherwise.  (The reference also tightens
-        it with the profiles' observed rows, `apply_feedback`, ROADMAP.md
-        Queue 1 item 8b's second half.)"""
+        was never estimated; None otherwise.  A plan-cached query's
+        estimate takes the profiles' feedback once history exists
+        (`_feedback_estimate`)."""
         from .config import parse_byte_budget
 
         est = getattr(plan, "_dsql_estimate", None)
         if est is not None:
+            if not est.feedback:
+                est = self._feedback_estimate(
+                    plan, est, getattr(plan, "_dsql_family", None))
             return est
         if parse_byte_budget(self.config.get(
                 "serving.admission.max_estimated_bytes")) is None \
@@ -1154,13 +1318,13 @@ class Context:
                 if cached is not None:
                     plan._dsql_estimate = cached
                     self.metrics.inc("families.estimate.hit")
-                    return cached
+                    return self._feedback_estimate(plan, cached, fam)
             est = estimator.estimate_and_apply(plan, self)
             if key is not None and est is not None:
                 if len(self._family_estimates) >= 512:
                     self._family_estimates.clear()
                 self._family_estimates[key] = est
-            return est
+            return self._feedback_estimate(plan, est, fam)
         except Exception:  # advisory: the query runs unestimated
             self.metrics.inc("analysis.estimate.internal_error")
             logger.debug("plan estimation failed; query runs ungated",

@@ -7,8 +7,9 @@ by the layers that know each fact: the serving front end or
 ticket, trace); `observability.stage(...)` stamps the lifecycle stage;
 the degradation ladder stamps the rung that answered; the family batcher
 stamps the batch role and size; the scheduler's `QueryCost` rides the
-ticket, so reserved bytes and the deadline remaining read off it.  (The
-streamed partitions' progress fields are item 8c's, and stay None here.)
+ticket, so reserved bytes and the deadline remaining read off it; the
+streamed rungs' runner (streaming/runner.py) fills the partitions' and
+rows' progress.
 
 Surfaced as ``SHOW QUERIES``; ``CANCEL QUERY '<qid>'`` resolves the
 entry's `QueryTicket` and cancels it cooperatively (the executor's

@@ -1,14 +1,15 @@
 """Per-fingerprint query profiles.
 
-A copy of `dask_sql_tpu/observability/profiles.py`, less
-`warm_candidates` (the pre-warm of ROADMAP.md Queue 1 item 8b's second
-half); `predicted_exec_ms` is the packing scheduler's drain prediction.  One rolling profile per plan fingerprint (resilience/ladder.py
+A copy of `dask_sql_tpu/observability/profiles.py`: `warm_candidates` is
+the warm-up's work list (serving/warmup.py), `predicted_exec_ms` the
+packing scheduler's drain prediction, and the exec and rung history the
+ladder's cost-based skip.  One rolling profile per plan fingerprint (resilience/ladder.py
 `plan_fingerprint`, or the family's): hit counts, recent execute wall
 times, result bytes, the rows returned, the ladder rungs that answered
 and per-rung compile (pipeline build) wall times.  ``SHOW PROFILES [LIKE
 'pat']`` renders the store as a result set (physical/rel/custom/ddl.py);
 `snapshot` and `load` give and take its JSON state, which the checkpoint
-subsystem persists (item 8b).
+subsystem persists (checkpoint.py).
 
 Everything is plain-JSON state (dicts, lists, floats) so snapshot/load is
 `json.dump`/`json.load` with no schema mapping.
@@ -69,8 +70,8 @@ class ProfileStore:
                 "exec_ms": [],
                 "result_bytes": [],
                 #: observed output cardinalities (rolling) — the prior the
-                #: estimator's feedback will tighten its upper bounds with
-                #: (`apply_feedback`, ROADMAP.md Queue 1 item 8b)
+                #: estimator's feedback tightens its upper bounds with
+                #: (analysis/estimator.py `apply_feedback`)
                 "rows": [],
                 #: the estimator's most recent rows upper bound for this
                 #: family (None = unbounded/never estimated): SHOW PROFILES
@@ -80,8 +81,9 @@ class ProfileStore:
                 "compile": {},  # rung -> {"count": n, "ms": [rolling]}
                 #: per-ladder-rung exec wall times, surfaced as SHOW
                 #: PROFILES ``rung.<rung>.*`` rows so operators can compare
-                #: what each rung actually costs a family (the evidence of
-                #: the ladder's cost-based skip, item 8b)
+                #: what each rung actually costs a family (the ladder's
+                #: cost-based skip reads the family's exec history and the
+                #: per-rung compile priors, resilience/ladder.py cost_skip)
                 "rungs": {},  # rung -> {"count": n, "ms": [rolling]}
                 "last_seen": 0.0,
             }
@@ -205,6 +207,35 @@ class ProfileStore:
                     out.append((fp, fam, f"compile.{rung}.ms.max",
                                 _fmt(max(r["ms"]))))
         return out
+
+    def warm_candidates(self, n: int = 10) -> List[Tuple[str, str]]:
+        """(fingerprint, sql) for the hottest REPLAYABLE fingerprints — the
+        warm-up's work list (serving/warmup.py).  Entries with no recorded
+        SQL or a truncation-lossy one are excluded: replaying a prefix
+        would warm (or fail) the wrong statement.  Deduped by family —
+        one compiled executable serves every literal variant, so pre-warm
+        replays ONE representative statement per family.  With the
+        engine's current recording (entries KEYED by family fingerprint)
+        the collapse is structural and this dedupe is a no-op guard; it
+        exists to keep the store's contract honest for callers that key
+        by literal fingerprint and pass `family` as the rollup field
+        (the record_* API explicitly allows that split)."""
+        with self._lock:
+            ranked = sorted(self._entries.items(),
+                            key=lambda kv: kv[1]["hits"], reverse=True)
+            out: List[Tuple[str, str]] = []
+            seen_families: set = set()
+            for fp, e in ranked:
+                if len(out) >= max(0, int(n)):
+                    break
+                if not e["sql"] or e.get("sql_truncated"):
+                    continue
+                family = e.get("family") or fp
+                if family in seen_families:
+                    continue
+                seen_families.add(family)
+                out.append((fp, e["sql"]))
+            return out
 
     def get(self, fingerprint: str) -> Optional[Dict[str, Any]]:
         with self._lock:

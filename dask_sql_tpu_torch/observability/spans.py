@@ -23,10 +23,11 @@ builds, the device-to-host transfer.  This module records those:
   fingerprint's profile entry; a warm hit records nothing.
 
 `stage` also stamps the stage on the in-flight query table (``live``),
-and a build records ``compile.start``/``compile.end`` flight events.  The
-persistent compile cache and the compile watchdog that the reference's
-`timed_jit_call` also reports to come with the cold-start half of
-ROADMAP.md Queue 1 item 8b.
+and a build records ``compile.start``/``compile.end`` flight events.  With
+``resilience.compile_timeout_ms`` set, a build runs under the compile
+watchdog (resilience/watchdog.py).  The reference's persistent-cache hit
+flag on the span has no counterpart: the port's compile cache keeps the
+kernel and planner libraries (serving/compile_cache.py), not pipelines.
 
 Span clocks: `time.perf_counter()` (monotonic, process-wide comparable);
 each trace also carries an epoch anchor so exported timestamps are
@@ -395,14 +396,21 @@ def compile_sink(metrics, profiles=None, fingerprint: Optional[str] = None,
         _sink.reset(token)
 
 
-def timed_build(rung: str, build: Callable[[], Any]) -> Any:
+def timed_build(rung: str, build: Callable[[], Any], context=None) -> Any:
     """Build a compiled pipeline for `rung` (a pipeline-cache miss) and
     record the build as the rung's compile: a
     ``resilience.compile_ms.<rung>`` histogram observation and a
     per-fingerprint profile entry (through the installed `compile_sink`,
     so they stay populated with tracing off), plus a ``compile:<rung>``
     detail span when a trace is active.  A build that raises (the pipeline
-    declines the plan) records nothing."""
+    declines the plan) records nothing.
+
+    With ``context`` given and its ``resilience.compile_timeout_ms`` set,
+    the build runs under the compile watchdog (resilience/watchdog.py): a
+    hung build raises a degradable `CompileTimeoutError` and the ladder
+    steps down (the ``compile_hang`` site arms here).  On the card every
+    kernel library is built and loaded first, outside the deadline, so an
+    ``nvcc`` run is never what the watchdog abandons."""
     metrics = profiles = fingerprint = sql = family = None
     sink = _sink.get()
     if sink is not None:
@@ -410,8 +418,25 @@ def timed_build(rung: str, build: Callable[[], Any]) -> Any:
     tr = current_trace()
     if tr is not None and metrics is None:
         metrics = tr.metrics
-    t0 = time.perf_counter()
-    out = build()
+    deadline_ms = None
+    if context is not None:
+        from ..resilience import faults, watchdog
+
+        deadline_ms = watchdog.timeout_ms(context.config)
+    if deadline_ms is not None:
+        if context.device.type == "cuda":
+            from .. import _build
+
+            for name in _build.KERNELS:
+                _build.library(name)
+        t0 = time.perf_counter()
+        out = watchdog.watched_call(
+            rung, build, deadline_ms=deadline_ms,
+            hang_s=faults.hang_duration("compile_hang", context.config),
+            metrics=metrics if metrics is not None else context.metrics)
+    else:
+        t0 = time.perf_counter()
+        out = build()
     t1 = time.perf_counter()
     ms = (t1 - t0) * 1000.0
     if tr is not None:

@@ -1573,7 +1573,9 @@ def singleflight_get_or_build(cache: "OrderedDict", key: Tuple, build,
     under its own.  ``build()`` constructs the pipeline; the build is the rung's
     compile (`observability.timed_build`: ``resilience.compile_ms.<rung>``,
     a ``compile:<rung>`` span, the profile's compile entry), and a hit
-    records nothing.  The key is prefixed with the Context's owner token,
+    records nothing.  A build the watchdog abandons
+    (``resilience.compile_timeout_ms``) raises here, and the finally
+    releases its entry, so its waiters build under their own.  The key is prefixed with the Context's owner token,
     so the entry leaves the cache when its Context is collected
     (`pipeline_owner`).  Returns (pipeline, built_here)."""
     from ..observability import timed_build
@@ -1592,7 +1594,7 @@ def singleflight_get_or_build(cache: "OrderedDict", key: Tuple, build,
         if not pending.wait(_BUILD_WAIT_S):
             break  # the other query's build stalled: build here
     try:
-        compiled = timed_build(rung, build)
+        compiled = timed_build(rung, build, context)
         with _cache_lock:
             cache[key] = compiled
             while len(cache) > cap:
@@ -1628,9 +1630,12 @@ def pipeline_owner(context) -> int:
 def evict_owner(token: int) -> None:
     """Drop every cached pipeline of the Context whose token this is."""
     from . import compiled_join, compiled_select
+    from ..streaming import aggregate as streamed_agg
+    from ..streaming import select as streamed_sel
 
     with _cache_lock:
-        for cache in (_cache, compiled_join._cache, compiled_select._cache):
+        for cache in (_cache, compiled_join._cache, compiled_select._cache,
+                      streamed_agg._cache, streamed_sel._cache):
             for key in [k for k in cache if k[0] == token]:
                 del cache[key]
 
@@ -1651,6 +1656,82 @@ def evict(cache: "OrderedDict", compiled) -> None:
 #: table version and the plan
 _CACHE_CAP = 32
 _cache: "OrderedDict[tuple, CompiledAggregate]" = OrderedDict()
+#: cap on a Context's family memory (``Context._compiled_families``)
+_FAMILY_CAP = 256
+
+
+def remember_family(ctx, family: Tuple, bucket: Tuple) -> None:
+    """Record that ``family`` (a plan shape) built a pipeline over the
+    table identity ``bucket``: a later miss of the family over another
+    table is the background recompile's trigger (`defer_rebuild`)."""
+    with ctx._plan_lock:
+        if len(ctx._compiled_families) >= _FAMILY_CAP:
+            ctx._compiled_families.clear()
+        ctx._compiled_families[family] = bucket
+
+
+def defer_rebuild(ctx, rung: str, cache, cache_cap: int, key: Tuple,
+                  family: Tuple, bucket: Tuple, build_and_warm) -> bool:
+    """The background-recompile deferral (`dask_sql_tpu/physical/
+    compiled.py` ``defer_rebuild``): a family seen before whose table was
+    replaced or grew (another ``bucket``) rebuilds on the background
+    compiler (serving/background.py) while the query that missed is served
+    on a lower rung.  ``build_and_warm()`` builds the pipeline and runs it
+    once; the task runs it through `timed_build` under the query's config
+    and swaps the pipeline into ``cache`` under the cache lock.  Returns
+    True when deferred (the caller declines the rung this time)."""
+    bg = ctx.background_compiler()
+    if bg is None:
+        return False
+    with ctx._plan_lock:
+        stored = ctx._compiled_families.get(family)
+    if stored is None or stored == bucket:
+        # first sight of the family, or an LRU eviction of an unchanged
+        # table: the foreground builds as before
+        return False
+    effective = dict(ctx.config.effective_items())
+    from ..observability import current_trace
+
+    trigger = current_trace()
+
+    def task():
+        from .. import observability
+
+        try:
+            with ctx.config.set(effective), \
+                    observability.compile_sink(ctx.metrics, ctx.profiles):
+                obj = observability.timed_build(rung, build_and_warm, ctx)
+            with _cache_lock:
+                cache[(pipeline_owner(ctx),) + tuple(key)] = obj
+                while len(cache) > cache_cap:
+                    cache.popitem(last=False)
+            remember_family(ctx, family, bucket)
+            observability.flight.record(
+                "bg.recompile", rung=rung,
+                qid=trigger.qid if trigger is not None else None)
+        except BaseException:
+            # the next query of the family takes the foreground path,
+            # where the ladder's policy applies
+            with ctx._plan_lock:
+                ctx._compiled_families.pop(family, None)
+            raise
+
+    task_key = (rung, key)
+    # while the rebuild is pending every query of the family is served on
+    # a lower rung rather than building anyway
+    if not bg.pending(task_key) and not bg.submit(task_key, task):
+        return False
+    ctx.metrics.inc("serving.bg_compile.deferred")
+    from ..observability import trace_event
+
+    trace_event(f"bg_compile_deferred:{rung}")
+    logger.debug("%s family's table changed; building in the background "
+                 "and serving a lower rung", rung)
+    return True
+
+
+class _Deferred(Exception):
+    """The pipeline rebuilds in the background; this query declines."""
 
 
 def _scan_chain_pipeline(rel, chain, executor):
@@ -1658,7 +1739,8 @@ def _scan_chain_pipeline(rel, chain, executor):
     pipeline from the cache or built and cached (a build counts its
     code-space predicates in ``metrics.counter("columnar.encoding.codespace_pred")``,
     a reuse with parameters ``families.hit``); raises _Unsupported when the
-    pipeline declines the chain.  The filters' and the aggregate
+    pipeline declines the chain, and _Deferred when the background
+    compiler rebuilds the family's pipeline (`defer_rebuild`).  The filters' and the aggregate
     arguments' literals lift into parameters first, so the key, and the
     pipeline, serve the whole family."""
     from .. import families
@@ -1689,8 +1771,25 @@ def _scan_chain_pipeline(rel, chain, executor):
         return CompiledAggregate(rel, table, filters, group_exprs, agg_exprs,
                                  executor.config)
 
+    # the family is the plan shape less the table's identity and rows
+    family = ("compiled_aggregate",) + key[2:9] + key[10:]
+    bucket = (key[0], key[1], key[9])
+    with _cache_lock:
+        cached = ((pipeline_owner(ctx),) + key) in _cache
+
+    def build_and_warm():
+        obj = build()
+        obj.run(table, params)  # loads the kernels, warms the allocator
+        return obj
+
+    if not cached and defer_rebuild(ctx, "compiled_aggregate", _cache,
+                                    _CACHE_CAP, key, family, bucket,
+                                    build_and_warm):
+        raise _Deferred()
     compiled, built_here = singleflight_get_or_build(
         _cache, key, build, "compiled_aggregate", ctx, _CACHE_CAP)
+    if built_here:
+        remember_family(ctx, family, bucket)
     if not built_here and params:
         ctx.metrics.inc("families.hit")
     if built_here and compiled.codespace_preds:
@@ -1738,6 +1837,8 @@ def try_compiled_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
                 batched=lambda members: pipeline.run_batched(table, members))
         else:
             result = compiled.run(table, params)
+    except _Deferred:
+        return None  # served on a lower rung while the rebuild runs
     except _Unsupported as e:
         logger.info("compiled aggregate declined the scan chain: %s", e)
         metrics.inc("compiled_aggregate.declined")

@@ -2,7 +2,9 @@
 
 Counterpart of `dask_sql_tpu/physical/executor.py` on one device: the plan
 root runs under the degradation ladder (`resilience/ladder.py`): the
-compiled root select (`compiled_select.py`) first, then the interpreted
+streamed root select of a plan the admission gate routed to partitions
+(`streaming/select.py`, `stream_decisions`), the compiled root select
+(`compiled_select.py`), then the interpreted
 walk, where each plan node goes to the plugin registered for its node
 type: the relational operators (`rel/logical/`) and the statements
 (`rel/custom/ddl.py`).  With ``trace`` on, each plan node runs under the
@@ -37,6 +39,9 @@ class Executor:
         #: (schema, table) -> the Table that a scan of it reads instead
         #: (a batch of the streamed aggregate, `streaming.py`)
         self.table_overrides: Dict[tuple, Table] = {}
+        #: id(plan node) -> the admission gate's `StreamDecision` for THIS
+        #: execution (streaming/): the streamed rungs fire only for it
+        self.stream_decisions: Dict[int, object] = {}
 
     @classmethod
     def add_plugin_class(cls, plugin_class):
@@ -60,13 +65,29 @@ class Executor:
         if ticket is not None:  # checkpoint before the one-kernel fast path
             ticket.checkpoint()
         faults.maybe_inject("execute", self.config)
+        # a root select the admission gate routed to partitions (streaming/)
+        streamed = id(rel) in self.stream_decisions
         if self.config.get("resilience.ladder.enabled", True):
+            if streamed:
+                from ..streaming import try_streamed_select
+
+                out = ladder.attempt(self, "streamed_select",
+                                     lambda: try_streamed_select(rel, self),
+                                     rel=rel)
+                if out is not None:
+                    return out
             out = ladder.attempt(self, "compiled_select",
                                  lambda: try_compiled_select(rel, self),
                                  rel=rel, inject_site="compile")
             if out is not None:
                 return out
             return ladder.execute_interpreted(self, rel)
+        if streamed:
+            from ..streaming import try_streamed_select
+
+            out = try_streamed_select(rel, self)
+            if out is not None:
+                return out
         faults.maybe_inject("compile", self.config)
         out = try_compiled_select(rel, self)
         if out is not None:

@@ -5,8 +5,9 @@ An aggregate over a lazy parquet table larger than
 ``sql.streaming.batch_rows`` streams it in batches first
 (`physical/streaming.py`); that is not a rung of the ladder, and a failure
 there raises.  Then the rungs of the degradation ladder in the reference's
-single-device order, each with the ``compile`` fault site at its entry:
-the join->aggregate pipeline, the fused scan-chain aggregate, then the
+single-device order: the streamed aggregate of a plan the admission gate
+routed to partitions (`streaming/aggregate.py`), then, each with the
+``compile`` fault site at its entry, the join->aggregate pipeline, the fused scan-chain aggregate, then the
 eager aggregate here.  The eager rung runs its input through the
 other plugins and groups it: a mixed radix of small-domain keys
 (`ops.grouping.radix_gid`, no sort; the present groups compacted at the
@@ -48,6 +49,16 @@ class AggregatePlugin(BaseRelPlugin):
         streamed = try_streaming_aggregate(rel, executor)
         if streamed is not None:
             return streamed
+        if id(rel) in executor.stream_decisions:
+            # a plan the admission gate routed to partitions (streaming/):
+            # its own (family, rung) breaker entity above the single runs
+            from ....streaming import try_streamed_aggregate
+
+            streamed = ladder.attempt(
+                executor, "streamed_aggregate",
+                lambda: try_streamed_aggregate(rel, executor), rel=rel)
+            if streamed is not None:
+                return streamed
         joined = rung("compiled_join_aggregate",
                       lambda: try_compiled_join_aggregate(rel, executor))
         if joined is not None:

@@ -12,10 +12,12 @@ Counterpart of `dask_sql_tpu/resilience/__init__.py`, with its exports:
   (``resilience.inject = "compile:0.5,oom:once"``), so every rung and the
   breaker are provable in tests.
 
-Retry with backoff (`BackoffPolicy`, `retry_call`), the memory-pressure
-controller, the compile watchdog and the chaos campaigns (`pressure.py`,
-`watchdog.py`, `chaos.py`) wait for the serving worker, ROADMAP.md Queue 1
-item 8.
+- `pressure`: the memory-pressure controller (bands, reclaim,
+  reclaim-before-degrade);
+- `watchdog`: the deadline on a pipeline build or a watched launch.
+
+Retry with backoff (`BackoffPolicy`, `retry_call`) is in `retry`; the
+chaos campaigns (`chaos.py`) wait for ROADMAP.md Queue 1 item 8d.
 """
 from .errors import (
     BindingError,

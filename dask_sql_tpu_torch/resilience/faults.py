@@ -8,7 +8,9 @@
 - ``always``     fail every time;
 - an integer N   fail the first N arms;
 - ``atK``        fail exactly the K-th arm (1-based), once — positions a
-                 fault MID-SEQUENCE;
+                 fault MID-SEQUENCE (``partition:at2`` fails the second
+                 partition launch of a streamed scan, proving that the
+                 resume re-runs nothing already completed);
 - a float p<1    fail with probability p from a seeded PRNG
                  (``resilience.inject.seed``), so a given (seed, spec)
                  produces the same failure sequence every run.
@@ -28,10 +30,17 @@ refused:
     d2h         the packed device-to-host transfer (columnar/pack.py;
                 TransientExecutionError: retryable, never a charge on the
                 rung breaker nor a step down)
+    partition   one streamed partition launch (streaming/runner.py;
+                ResourceExhaustedError: the mid-stream OOM recovery halves
+                the partition and resumes)
+    checkpoint  checkpoint.save_state after the snapshot is written and
+                before the atomic CURRENT repoint (ExecutionError)
+    compile_hang  a HANG, not an error: a pipeline build or a watched
+                partition launch sleeps ``resilience.inject.hang_s`` inside
+                the watchdog's helper thread (`hang_duration`)
 
-The reference's other sites come with their code (ROADMAP.md Queue 1):
-``partition``, ``checkpoint`` and ``compile_hang`` (item 8), ``predict``
-(item 9) and ``spmd`` (item 10).
+The reference's ``predict`` (ROADMAP.md Queue 1 item 9) and ``spmd``
+(item 10) sites come with their code.
 
 The injector is rebuilt whenever the spec string changes, so tests can flip
 faults on and off through plain config scopes.  When the key is unset the
@@ -47,6 +56,7 @@ from typing import Dict, Optional, Tuple
 
 from .errors import (
     CompileError,
+    ExecutionError,
     InjectedFault,
     ResourceExhaustedError,
     TransientExecutionError,
@@ -70,6 +80,10 @@ class InjectedTransientError(InjectedFault, TransientExecutionError):
     code = "INJECTED_TRANSIENT_ERROR"
 
 
+class InjectedWriteError(InjectedFault, ExecutionError):
+    code = "INJECTED_WRITE_ERROR"
+
+
 #: site -> error class raised when the site arms
 SITE_ERRORS = {
     "compile": InjectedCompileError,
@@ -77,7 +91,15 @@ SITE_ERRORS = {
     "exec_oom": InjectedOomError,
     "execute": InjectedTransientError,
     "d2h": InjectedTransientError,
+    "partition": InjectedOomError,
+    "checkpoint": InjectedWriteError,
 }
+
+#: sites that model a HANG rather than an error: arming one yields a sleep
+#: of ``resilience.inject.hang_s`` inside the watched region instead of
+#: raising
+HANG_SITES = frozenset({"compile_hang"})
+HANG_SECONDS_KEY = "resilience.inject.hang_s"
 
 
 class _SiteRule:
@@ -137,10 +159,10 @@ class FaultInjector:
                 continue
             site, _, mode = part.partition(":")
             site = site.strip()
-            if site not in SITE_ERRORS:
+            if site not in SITE_ERRORS and site not in HANG_SITES:
                 raise ValueError(
                     f"unknown fault site {site!r} in {CONFIG_KEY}; known "
-                    f"sites: {sorted(SITE_ERRORS)}")
+                    f"sites: {sorted(SITE_ERRORS) + sorted(HANG_SITES)}")
             self._rules[site] = _SiteRule(mode.strip() or "once")
 
     def arm(self, site: str) -> bool:
@@ -205,3 +227,13 @@ def maybe_inject(site: str, config) -> None:
     if inj is not None:
         inj.check(site)
 
+
+
+def hang_duration(site: str, config) -> float:
+    """Seconds a HANG-site fault should sleep now, 0.0 when not armed.
+    Resolved on the calling thread (config overlays are thread-local); the
+    watchdog passes the duration into its helper thread, which sleeps."""
+    inj = get_injector(config)
+    if inj is None or not inj.arm(site):
+        return 0.0
+    return float(config.get(HANG_SECONDS_KEY, 30.0) or 0.0)

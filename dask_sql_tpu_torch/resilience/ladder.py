@@ -29,21 +29,31 @@ by a lower rung.  The rung that answers is counted in
   never moves a card query's work to the host behind the caller's back,
   where the kernels would not run.
 
-Rungs in the port: ``compiled_select`` (physical/compiled_select.py),
+- The cost-based skip (`cost_skip`, ``resilience.ladder.cost_based``):
+  a compiled rung whose predicted build cost can never amortize for a
+  family that already runs on a lower rung is skipped, a choice counted
+  in ``serving.scheduler.cost_rung_skip``, never a degradation.
+- Reclaim-before-degrade: a ``RESOURCE_EXHAUSTED`` failure (an injected
+  one or a real ``torch.cuda.OutOfMemoryError``) first asks the pressure
+  controller (`pressure.py`) to free cold cached bytes and retries the
+  same rung once (``resilience.pressure.rung_retry``/``_ok``); with
+  nothing to free it steps down as before.
+
+Rungs in the port: ``streamed_select`` and ``streamed_aggregate``
+(streaming/, only for plans the admission gate routed there),
+``compiled_select`` (physical/compiled_select.py),
 ``compiled_join_aggregate`` (physical/compiled_join.py),
 ``compiled_aggregate`` (physical/compiled.py), ``interpreted`` (the eager
-plugins) and ``cpu`` (on a CPU Context).  Left out until the modules they need are ported
-(ROADMAP.md Queue 1): the cost-based skip (`cost_skip`, which reads
-``observability/profiles.py``) and reclaim-before-degrade, which retries a
-rung after `resilience/pressure.py` frees cached bytes (item 8b); the
-predict,
-streamed, SPMD and distributed rungs (items 8-10), with the ``rung:<rung>``
-event the reference records for an SPMD rung.  Each skip and step down is
-an event on the query's lifecycle trace (`observability/spans.py`), and a
-step down a marker in EXPLAIN ANALYZE's node tree; a rung that answers
-records its wall time on the fingerprint's profile (SHOW PROFILES).  The
-reference's CPU rung also serves a query on the accelerator (jax steers new
-arrays to the host); the port's does not (ROADMAP.md Queue 3).
+plugins) and ``cpu`` (on a CPU Context).  Left out until the modules they
+need are ported (ROADMAP.md Queue 1): the predict, SPMD and distributed
+rungs (items 9-10), with the ``rung:<rung>`` event the reference records
+for an SPMD rung.  Each skip and step down is an event on the query's
+lifecycle trace (`observability/spans.py`), and a step down a marker in
+EXPLAIN ANALYZE's node tree; a rung that answers records its wall time on
+the fingerprint's profile (SHOW PROFILES), the evidence `cost_skip`
+reads.  The reference's CPU rung also serves a query on the accelerator
+(jax steers new arrays to the host); the port's does not (ROADMAP.md
+Queue 3).
 """
 from __future__ import annotations
 
@@ -54,11 +64,15 @@ from typing import Callable, Optional, TypeVar
 
 from ..observability import flight, live, trace_event
 from . import faults
-from .errors import QueryError, classify
+from .errors import QueryError, ResourceExhaustedError, classify
 
 logger = logging.getLogger(__name__)
 
 T = TypeVar("T")
+
+#: rung-name prefixes whose first run for a family pays a build: the
+#: candidates of the cost-based skip
+_COMPILE_RUNG_PREFIXES = ("compiled_", "spmd_")
 
 
 def plan_fingerprint(rel) -> str:
@@ -87,6 +101,58 @@ def _breaker_of(executor):
     if not executor.config.get("resilience.breaker.enabled", True):
         return None
     return getattr(executor.context, "breaker", None)
+
+
+def cost_skip(executor, rung: str, rel) -> bool:
+    """Cost-based rung selection (``resilience.ladder.cost_based``), the
+    reference's rule: skip a build-bearing rung whose predicted build cost
+    can never amortize for this family.  Evidence-gated: the family must
+    have observed exec history, the rung must not have built for it yet,
+    and a per-rung build-cost prior (the p50 of the Context's
+    ``resilience.compile_ms.<rung>`` history) must exist.  Skip when
+    ``prior > amortize_factor x hits x observed exec_ms p50``.  The port's
+    prior is a pipeline build (`timed_build`), far cheaper than the
+    reference's XLA compile, so on the same history the skip fires less
+    often; given the same profile entries the decision is the
+    reference's.  Any failure here means no skip."""
+    try:
+        config = executor.config
+        if not config.get("resilience.ladder.cost_based", True):
+            return False
+        if not rung.startswith(_COMPILE_RUNG_PREFIXES):
+            return False
+        # the prior first: without one there is no claim, and reading it
+        # is cheaper than copying the family's profile
+        compile_pred = executor.context.metrics.hist_percentile(
+            f"resilience.compile_ms.{rung}", 0.5)
+        if compile_pred is None:
+            return False
+        profiles = getattr(executor.context, "profiles", None)
+        if profiles is None:
+            return False
+        entry = profiles.get(_fingerprint_of(executor, rel))
+        if entry is None:
+            return False
+        if entry["compile"].get(rung):
+            return False
+        exec_hist = entry.get("exec_ms") or []
+        if not exec_hist:
+            return False
+        observed = sorted(exec_hist)[len(exec_hist) // 2]
+        hits = max(1, int(entry.get("hits", 0)))
+        factor = float(
+            config.get("resilience.ladder.cost.amortize_factor", 4.0))
+        return compile_pred > factor * hits * max(observed, 1e-3)
+    except Exception:  # an advisory choice: a bug means no skip
+        logger.debug("cost-based rung selection failed open", exc_info=True)
+        return False
+
+
+def _reclaimed(executor) -> int:
+    """Bytes the pressure controller freed for an in-flight OOM."""
+    from .pressure import reclaim_for_oom
+
+    return reclaim_for_oom(executor.context, executor.config)
 
 
 def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
@@ -123,17 +189,44 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
             trace_event(f"breaker_skip:{rung}", fingerprint=key[0])
             logger.debug("breaker open for rung %s: skipping", rung)
             return None
+    if rel is not None and cost_skip(executor, rung, rel):
+        # a predicted-cost choice, not a failure: no degradation count,
+        # no breaker charge
+        metrics.inc("serving.scheduler.cost_rung_skip")
+        metrics.inc(f"serving.scheduler.cost_rung_skip.{rung}")
+        trace_event(f"cost_rung_skip:{rung}")
+        logger.debug("cost model predicts rung %s cannot amortize: "
+                     "skipping", rung)
+        return None
     t0 = time.perf_counter()
-    try:
-        if inject_site is not None:
-            faults.maybe_inject(inject_site, executor.config)
-        out = fn()
-    except (KeyboardInterrupt, SystemExit):
-        raise
-    except BaseException as exc:  # degradable failures are the ladder's
-        err = classify(exc)
-        if not err.degradable:
+    reclaim_tried = retried = False
+    err = None
+    while True:
+        try:
+            if inject_site is not None:
+                faults.maybe_inject(inject_site, executor.config)
+            out = fn()
+            break
+        except (KeyboardInterrupt, SystemExit):
             raise
+        except BaseException as exc:  # degradable failures are the ladder's
+            err = classify(exc)
+            if not err.degradable:
+                raise
+            if not reclaim_tried and isinstance(err, ResourceExhaustedError):
+                # reclaim-before-degrade: free cold cached bytes and retry
+                # the same rung once; nothing freed steps down as before
+                reclaim_tried = True
+                code = err.code
+                err = exc = None  # the failed run's tensors go first
+                if _reclaimed(executor) > 0:
+                    metrics.inc("resilience.pressure.rung_retry")
+                    trace_event(f"pressure_retry:{rung}", code=code)
+                    retried = True
+                    continue
+                err = ResourceExhaustedError(code=code)
+            break
+    if err is not None:
         metrics.inc("resilience.degraded")
         metrics.inc(f"resilience.degraded.{rung}")
         trace_event(f"degraded:{rung}", code=err.code)
@@ -154,6 +247,9 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
         logger.info("rung %s degraded (%s); stepping down", rung, err.code)
         return None
     if out is not None:
+        if retried:
+            # the retry after a reclaim answered on the same rung
+            metrics.inc("resilience.pressure.rung_retry_ok")
         metrics.inc(f"resilience.rung.{rung}")
         live.update(rung=rung)
         if key is not None and breaker.record_success(key):
@@ -176,7 +272,13 @@ def execute_interpreted(executor, rel):
     paths off; a failure of the re-run propagates.  On the card a
     degradable failure propagates as it is (`wrap_boundary` makes it a
     `ResourceExhaustedError`, degradable): the rung would run the plan on
-    the host copies of the tables, past the card's kernels."""
+    the host copies of the tables, past the card's kernels.  Before either,
+    a ``RESOURCE_EXHAUSTED`` failure reclaims cold cached bytes and, when
+    any were freed, re-runs the walk once on the same device."""
+    metrics = executor.context.metrics
+    cpu_rung = executor.context.device.type == "cpu" and \
+        executor.config.get("resilience.ladder.cpu_fallback", True)
+    freed = 0
     try:
         faults.maybe_inject("exec_oom", executor.config)
         return executor.execute(rel)
@@ -184,13 +286,34 @@ def execute_interpreted(executor, rel):
         raise
     except BaseException as exc:  # only degradable failures go on below
         err = classify(exc)
-        if not err.degradable or executor.context.device.type != "cpu" \
-                or not executor.config.get("resilience.ladder.cpu_fallback",
-                                           True):
+        if not err.degradable:
+            raise
+        if isinstance(err, ResourceExhaustedError):
+            # reclaim-before-degrade: free cold cached bytes, then the walk
+            # once more on the same device
+            freed = _reclaimed(executor)
+        if not freed and not cpu_rung:
             raise
         code = err.code
         err = None  # the failed walk's tensors go with its traceback
-    metrics = executor.context.metrics
+    if freed:
+        metrics.inc("resilience.pressure.rung_retry")
+        trace_event("pressure_retry:interpreted", code=code)
+        executor._memo.clear()  # drop the failed walk's partials
+        try:
+            faults.maybe_inject("exec_oom", executor.config)
+            out = executor.execute(rel)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except BaseException as exc2:  # re-classified below
+            err = classify(exc2)
+            if not err.degradable or not cpu_rung:
+                raise
+            code = err.code
+            err = None
+        else:
+            metrics.inc("resilience.pressure.rung_retry_ok")
+            return out
     metrics.inc("resilience.degraded")
     metrics.inc("resilience.degraded.interpreted")
     trace_event("degraded:interpreted", code=code)

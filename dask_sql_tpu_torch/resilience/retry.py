@@ -1,7 +1,7 @@
 """Bounded retry with exponential backoff and jitter, and the per-(plan
 family, rung) circuit breaker.  Copied from
-`dask_sql_tpu/resilience/retry.py`, less the breaker's persistence (the
-checkpoints of ROADMAP.md Queue 1 item 8b's second half).
+`dask_sql_tpu/resilience/retry.py`; the breaker's open verdicts ride a
+checkpoint (`snapshot_state`/`load_state`, checkpoint.py).
 
 Retry runs at the serving worker (serving/runtime.py wraps each admitted
 query in `retry_call`): only errors the taxonomy marks `retryable` are
@@ -190,6 +190,50 @@ class CircuitBreaker:
             return {"keys": len(self._state), "open": open_keys,
                     "threshold": self.threshold,
                     "cooldownSeconds": self.cooldown_s}
+
+    # ------------------------------------------------------- persistence
+    def snapshot_state(self) -> dict:
+        """JSON-ready snapshot of the OPEN circuits (checkpoint.py writes
+        this as breaker.json): a restarted process should not re-prove
+        rungs this one already proved bad.  Only open verdicts persist —
+        sub-threshold failure streaks are too cheap to be worth staleness.
+        Ages are relative (monotonic clocks do not survive a process), and
+        `saved_at` wall time lets the loader add the downtime on top."""
+        now = self._clock()
+        with self._lock:
+            entries = [
+                {"key": list(key), "failures": int(st[0]),
+                 "open_age_s": round(now - st[1], 3)}
+                for key, st in self._state.items() if st[1] is not None
+            ]
+        return {"version": 1, "saved_at": time.time(), "open": entries}
+
+    def load_state(self, data: dict, ttl_s: float) -> int:
+        """Restore open circuits younger than `ttl_s` (open age at save
+        plus the wall-clock downtime since).  Bounded staleness: the data
+        that tripped a breaker may be gone after a restart, so verdicts
+        expire instead of sticking forever; a restored circuit whose
+        cooldown already elapsed simply admits its half-open trial on
+        first use.  Returns the number of circuits restored."""
+        if not data:
+            return 0
+        stale_s = max(0.0, time.time() - float(data.get("saved_at") or 0.0))
+        now = self._clock()
+        restored = 0
+        with self._lock:
+            for e in data.get("open") or []:
+                try:
+                    key = tuple(e["key"])
+                    age = float(e.get("open_age_s") or 0.0) + stale_s
+                    failures = int(e.get("failures", self.threshold))
+                except (KeyError, TypeError, ValueError):
+                    continue  # malformed entry: skip, never fail the load
+                if age >= ttl_s:
+                    continue
+                self._state[key] = [max(failures, self.threshold), now - age]
+                restored += 1
+            self._evict_locked()
+        return restored
 
     def _evict_locked(self) -> None:
         # bounded memory: drop oldest entries past the cap (dict preserves

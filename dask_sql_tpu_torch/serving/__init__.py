@@ -7,10 +7,10 @@ executor for multi-query traffic (counterpart of `dask_sql_tpu/serving/`).
 - :mod:`.metrics` — counters, gauges and histograms (``c.metrics``);
 - :mod:`.scheduler` — the packing scheduler (device byte budget,
   deadlines, tenant quotas);
-- :mod:`.runtime` — the worker pool tying them together.
-
-The persistent compile cache, the warm-up and the background recompiler
-are ROADMAP.md Queue 1 item 8b's second half.
+- :mod:`.runtime` — the worker pool tying them together;
+- :mod:`.warmup`, :mod:`.background`, :mod:`.compile_cache` — cold
+  starts: the profile-driven warm-up, background rebuilds and the kept
+  kernel and planner libraries.
 """
 from ..resilience.errors import ShutdownError
 from .admission import (

@@ -1,6 +1,7 @@
 """Admission control: bounded per-class queues, deadlines, load shedding.
-(A copy of `dask_sql_tpu/serving/admission.py`, less the routes into
-partitioned streaming and the pressure controller.)
+(A copy of `dask_sql_tpu/serving/admission.py`: the estimated-bytes gate
+routes an over-budget plan to partitioned streaming (streaming/), and in
+the pressure controller's CRITICAL band streams or sheds new admissions.)
 
 Two concurrency classes: ``interactive`` (dashboards, point lookups:
 scheduled first) and ``batch`` (reports, ETL: capped so it can never
@@ -98,131 +99,84 @@ class EstimatedBytesExceededError(ResourceExhaustedError):
         return out
 
 
-def would_stream(plan, estimate, context, config, budget: int) -> bool:
-    """True where the reference's admission gate would route this
-    over-budget plan to a streamed rung (`dask_sql_tpu/streaming/plan.py`
-    `stream_decision`) instead of shedding it: the same eligibility walk
-    and partition sizing over the provable floors, answering only whether
-    a decision exists.  The port has no partitioned streaming yet
-    (ROADMAP.md Queue 1 item 8c), so `check_estimated_bytes` refuses such
-    a plan rather than shed what the reference would answer."""
-    from ..datacontainer import LazyParquetContainer
-    from ..columnar.encodings import Encoding
-    from ..planner import plan as p
-
-    if not config.get("serving.stream.enabled", True) \
-            or not config.get("sql.compile", True):
-        return False
-    scan_lo = int(getattr(estimate, "scan_bytes_lo", 0) or 0)
-    if scan_lo <= 0:
-        return False
-    rest = max(0, int(estimate.peak_bytes.lo) - scan_lo)
-    headroom = budget - rest
-    if headroom <= 0:
-        return False
-    scans = [n for n in p.walk_plan(plan) if isinstance(n, p.TableScan)]
-    if len(scans) != 1:
-        return False
-    container = context.schema.get(scans[0].schema_name)
-    dc = container.tables.get(scans[0].table_name) \
-        if container is not None else None
-    if dc is None or isinstance(dc, LazyParquetContainer):
-        return False
-    table = dc.table
-    if any(c.encoding is Encoding.RLE for c in table.columns.values()):
-        return False
-    total = int(table.num_rows)
-    if total <= 1:
-        return False
-    kind = _streamable_kind(plan)
-    if kind is None or (kind == "select"
-                        and not config.get("sql.compile.select", True)):
-        return False
-    chunk_rows = int(config.get("serving.stream.chunk_rows") or 0)
-    if chunk_rows <= 0:
-        chunk_rows = headroom * total // scan_lo
-    min_rows = max(1, int(config.get("serving.stream.min_chunk_rows", 4096)))
-    chunk_rows = max(min(chunk_rows, total), min(min_rows, total))
-    if chunk_rows < 1:
-        return False
-    n_parts = -(-total // chunk_rows)
-    if n_parts < 2 or n_parts > int(
-            config.get("serving.stream.max_partitions", 256)):
-        return False
-    return -(-scan_lo * chunk_rows // total) + rest <= budget
-
-
-def _streamable_kind(plan) -> Optional[str]:
-    """``"aggregate"`` or ``"select"`` where the reference's streamed rungs
-    serve the plan (`dask_sql_tpu/streaming/plan.py` `_streamable_node`),
-    else None."""
-    from ..physical.compiled import (
-        _Unsupported,
-        _extract_chain,
-        check_agg_static_support,
-    )
-    from ..physical.compiled_select import _extract
-    from ..planner import plan as p
-    from ..planner.expressions import ColumnRef
-
-    for node in p.walk_plan(plan):
-        if not isinstance(node, p.Aggregate):
-            continue
-        chain = _extract_chain(node)
-        if chain is None:
-            continue
-        _, _, group_exprs, agg_exprs = chain
-        try:
-            check_agg_static_support(agg_exprs)
-        except _Unsupported:
-            return None
-        if not all(isinstance(e, ColumnRef) and type(e) is ColumnRef
-                   for e in group_exprs):
-            return None
-        return "aggregate"
-    got = _extract(plan)
-    if got is not None and got[3] is None and got[4] is None \
-            and got[5] is None and got[6] is None:
-        return "select"
-    return None
-
-
 def check_estimated_bytes(estimate, config, metrics=None, plan=None,
-                          context=None) -> None:
-    """The ``serving.admission.max_estimated_bytes`` gate: raise
-    `EstimatedBytesExceededError` when the estimate's *lower* bound on
-    peak device bytes exceeds the budget.  Called by
-    ``TorchFrame.execute`` after the result-cache lookup and before any
-    executor work; only the lower bound sheds, because only it is
-    provable (``peak_bytes.hi`` is never read here).
+                          context=None):
+    """The ``serving.admission.max_estimated_bytes`` gate, the reference's:
+    when the estimate's *lower* bound on peak device bytes exceeds the
+    budget, route the plan to partitioned streaming where it can run in
+    partitions (`streaming.stream_decision`: returns ``(streamable node,
+    StreamDecision)``, which the caller hands to ITS executor), and shed
+    with `EstimatedBytesExceededError` only when even one partition
+    provably cannot fit.  Returns None when the query is simply admitted.
+    Called by ``TorchFrame.execute`` after the result-cache lookup and
+    before any executor work; only the lower bound, which is provable,
+    decides.
 
-    Where the reference would route the plan to partitioned streaming
-    instead (`would_stream`), the port raises `NotImplementedError`
-    naming ROADMAP.md Queue 1 item 8c: it neither sheds nor runs the
-    whole over-budget plan.  The reference's CRITICAL pressure band
-    needs the pressure controller, which the port does not have yet, so
-    that branch never applies."""
+    It is also the per-query step of the pressure controller
+    (resilience/pressure.py): ``pressure.evaluate()`` reclaims in the RED
+    band, and in the CRITICAL band even an under-budget plan is routed to
+    the streamed rungs, sized to the device budget, where it can be, and
+    shed with a retryable, drain-predicted `PressureShedError` where it
+    cannot."""
     from ..config import parse_byte_budget
 
     budget = None if config is None else parse_byte_budget(
         config.get("serving.admission.max_estimated_bytes"))
-    if budget is None or estimate is None:
-        return
+    pressure = getattr(context, "pressure", None) if context is not None \
+        else None
+    critical = pressure is not None and pressure.evaluate() == "critical"
+    if (budget is None and not critical) or estimate is None:
+        return None
     lo = int(estimate.peak_bytes.lo)
-    if lo <= budget:
-        return
-    if plan is not None and context is not None \
-            and would_stream(plan, estimate, context, config, budget):
-        raise NotImplementedError(
-            f"estimated peak device bytes >= {lo} exceed "
-            f"serving.admission.max_estimated_bytes ({budget}), and the "
-            f"reference would stream this plan in partitions: partitioned "
-            f"streaming (streaming/, ROADMAP.md Queue 1 item 8c) is not in "
-            f"the port yet")
+    over = budget is not None and lo > budget
+    if not over and not critical:
+        return None
     from ..observability import flight, trace_event
     from .runtime import current_ticket
 
+    stream_budget = budget
+    if stream_budget is None and pressure is not None:
+        stream_budget = pressure.budget_bytes()
+    if plan is not None and context is not None \
+            and stream_budget is not None:
+        from ..streaming import stream_decision
+
+        routed = stream_decision(plan, estimate, context, config,
+                                 stream_budget)
+        if routed is not None:
+            _, decision = routed
+            if metrics is not None:
+                metrics.inc("serving.stream.admitted")
+                if critical and not over:
+                    metrics.inc("resilience.pressure.critical_streamed")
+            trace_event("admit:streamed", bytes_lo=lo,
+                        budget=stream_budget, critical=critical,
+                        partitions=decision.partitions,
+                        chunk_bytes_lo=decision.chunk_bytes_lo)
+            return routed
     ticket = current_ticket()
+    if not over:
+        # CRITICAL with no streamed rung to run on: shed with a
+        # drain-predicted retry hint
+        from ..resilience.pressure import PressureShedError
+
+        retry = 1.0 if config is None else float(
+            config.get("serving.retry_after_s", 1.0) or 1.0)
+        runtime = getattr(context, "serving", None)
+        drain = runtime._predicted_drain_s() if runtime is not None else None
+        if drain is not None and drain > retry:
+            retry = drain
+        retry = min(retry_after_cap(config), retry)
+        if metrics is not None:
+            metrics.inc("resilience.pressure.critical_shed")
+        trace_event("shed:pressure", bytes_lo=lo, retry_after_s=retry)
+        flight.record("query.shed",
+                      qid=ticket.qid if ticket is not None else None,
+                      reason="pressure", bytes_lo=lo)
+        raise PressureShedError(
+            f"device memory pressure is CRITICAL and the plan has no "
+            f"streamed rung; retry after {retry:.1f}s",
+            retry_after_s=retry)
     if metrics is not None:
         metrics.inc("serving.shed_estimated_bytes")
     trace_event("shed:estimated_bytes", bytes_lo=lo, budget=budget)

@@ -1,6 +1,5 @@
 """Metrics registry: counters, gauges, and latency histograms for the
-serving runtime.  Copied from `dask_sql_tpu/serving/metrics.py`; the
-serving runtime that also reads it is ROADMAP.md Queue 1 item 8b.
+serving runtime.  Copied from `dask_sql_tpu/serving/metrics.py`.
 
 Role parity: the reference points users at the dask dashboard for this;
 an inference-serving stack needs its own registry (admissions, rejections,

@@ -1,7 +1,6 @@
 """ServingRuntime: the worker pool queries run on.
-(A copy of `dask_sql_tpu/serving/runtime.py`, less the background
-workers of the warm-up and recompile passes, ROADMAP.md Queue 1 item 8b's
-second half.)
+(A copy of `dask_sql_tpu/serving/runtime.py`: the warm-up pass and the
+background recompiler register with it, and its shutdown drains them.)
 
 Class-aware scheduling over the admission controller:
 
@@ -155,6 +154,9 @@ class ServingRuntime:
         #: a replica kill (fleet/replica.py) fails immediately
         self._inflight: Dict[str, Tuple[QueryTicket, Future]] = {}
         self._shutdown = False
+        #: the warm-up pass and the background recompiler
+        #: (`register_background`), cancelled and joined at shutdown
+        self._background: list = []
         self._threads = [
             threading.Thread(target=self._worker, daemon=True,
                              name=f"dsql-serving-{i}")
@@ -440,12 +442,27 @@ class ServingRuntime:
                 failed += 1
         return failed
 
+    def register_background(self, worker) -> None:
+        """Track a background worker (with ``cancel()`` and
+        ``join(timeout)``) so shutdown() drains it with the queues; one
+        registered after shutdown is cancelled at once."""
+        with self._cv:
+            if not self._shutdown:
+                self._background.append(worker)
+                return
+        try:
+            worker.cancel()
+        except Exception:  # a worker's teardown bug must not propagate
+            logger.warning("background worker cancel failed", exc_info=True)
+
     def shutdown(self, wait: bool = False, timeout: float = 5.0) -> None:
         """Stop accepting work and drain deterministically.
 
         Queued-but-not-started queries fail immediately with a structured
         (retryable) `ShutdownError` instead of hanging on futures no worker
-        will ever pop; ``wait=True`` joins the worker threads.
+        will ever pop.  Registered background workers (the warm-up pass,
+        the background recompiler) are cancelled too; ``wait=True`` joins
+        the worker threads and the background threads.
 
         The ``wait=True`` drain is BOUNDED by ``drain_timeout_s``
         (``serving.shutdown.drain_timeout_s``): an in-flight query that
@@ -457,6 +474,7 @@ class ServingRuntime:
         drained = []
         with self._cv:
             self._shutdown = True
+            background = list(self._background)
             for cls in CLASSES:
                 q = self._queues[cls]
                 while q:
@@ -470,6 +488,12 @@ class ServingRuntime:
             if fut.set_running_or_notify_cancel():
                 fut.set_exception(ShutdownError(
                     f"query {ticket.qid} shed: serving runtime shutting down"))
+        for worker in background:
+            try:
+                worker.cancel()
+            except Exception:  # one worker's teardown bug must not block
+                logger.warning("background worker cancel failed",
+                               exc_info=True)
         if wait:
             deadline = time.monotonic() + self.drain_timeout_s
             for t in self._threads:
@@ -489,6 +513,8 @@ class ServingRuntime:
                         "shutdown drain timed out after %gs; failed %d "
                         "in-flight futures with retryable ShutdownError",
                         self.drain_timeout_s, n)
+            for worker in background:
+                worker.join(timeout)
 
     def snapshot(self) -> Dict[str, object]:
         adm = self.admission.snapshot()

@@ -3,9 +3,10 @@
 provable floor, deadline ordering, tenant quotas, the drain-based retry
 hint and the family-mates probe of the batcher.  Each case runs the same
 body on the port's modules and the reference's (``sv``); every wait is
-bounded and every runtime shuts down in a ``finally``.  (The cost-based
-rung skip and the estimator's feedback cases come with ROADMAP.md Queue 1
-item 8b's second half.)"""
+bounded and every runtime shuts down in a ``finally``.  The cost-based
+rung skip and the estimator's feedback run through both engines' Contexts
+on one frame (``engine``), each case under scoped config, since the
+reference's config is process-wide."""
 import sys
 import threading
 import time
@@ -358,3 +359,234 @@ def test_family_mates_visible_to_batcher_probe(sv):
     sched.pop_locked(batch_ok=True)  # q1 runs
     assert sched.family_mates_locked("fam_a", exclude_qid="q1") == 1
     assert sched.family_mates_locked("fam_b") == 0
+
+
+# ------------------------------------------------- cost-based rung selection
+ENGINES = ("port", "ref")
+COST_FRAME = pd.DataFrame({
+    "k": np.arange(4000, dtype=np.int64) % 7,
+    "v": np.arange(4000, dtype=np.float64),
+})
+NO_CACHE = {"serving.cache.enabled": False}
+
+
+@pytest.fixture(params=ENGINES)
+def engine(request):
+    return request.param
+
+
+def _cost_ctx(engine):
+    c = Context(device="cpu") if engine == "port" else dask_sql_tpu.Context()
+    c.create_table("t", COST_FRAME)
+    return c
+
+
+def _counters(c):
+    return c.metrics.snapshot()["counters"]
+
+
+def test_cost_based_rung_skip_no_degradation(engine):
+    """A family with cheap observed history and a build prior that can
+    never amortize skips its compiled rungs: counted as
+    ``serving.scheduler.cost_rung_skip``, no degradation, and the answer
+    of the interpreted rung."""
+    c = _cost_ctx(engine)
+    q = "SELECT k, SUM(v) AS s, COUNT(*) AS n FROM t GROUP BY k"
+    with c.config.set(NO_CACHE):
+        fam = c.sql(q).plan._dsql_family
+        for _ in range(2):
+            c.profiles.record_exec(fam.fingerprint, sql=q, exec_ms=1.0,
+                                   family=fam.fingerprint)
+        for rung in ("compiled_aggregate", "compiled_join_aggregate",
+                     "compiled_select"):
+            c.metrics.observe(f"resilience.compile_ms.{rung}", 60_000.0)
+        got = c.sql(q).compute().sort_values("k").reset_index(drop=True)
+    snap = _counters(c)
+    assert snap.get("serving.scheduler.cost_rung_skip", 0) >= 1
+    assert snap.get(
+        "serving.scheduler.cost_rung_skip.compiled_aggregate", 0) == 1
+    assert snap.get("resilience.degraded", 0) == 0
+    assert snap.get("resilience.rung.compiled_aggregate", 0) == 0
+    v, k = COST_FRAME["v"].to_numpy(), COST_FRAME["k"].to_numpy()
+    np.testing.assert_allclose(got["s"], [v[k == i].sum() for i in range(7)],
+                               rtol=1e-9)
+    assert list(got["n"]) == [int((k == i).sum()) for i in range(7)]
+
+
+def test_cost_skip_never_fires_cold_or_after_compile(engine):
+    """A first-seen family always builds; a family whose rung built is
+    never skipped on it."""
+    c = _cost_ctx(engine)
+    q = "SELECT k, SUM(v) AS s FROM t GROUP BY k"
+    with c.config.set(NO_CACHE):
+        for rung in ("compiled_aggregate", "compiled_select"):
+            c.metrics.observe(f"resilience.compile_ms.{rung}", 60_000.0)
+        c.sql(q).compute()
+        snap = _counters(c)
+        assert snap.get("serving.scheduler.cost_rung_skip", 0) == 0
+        assert snap.get("resilience.rung.compiled_aggregate", 0) == 1
+        c.sql(q).compute()
+    snap = _counters(c)
+    assert snap.get(
+        "serving.scheduler.cost_rung_skip.compiled_aggregate", 0) == 0
+    assert snap.get("resilience.rung.compiled_aggregate", 0) == 2
+
+
+def test_cost_skip_off_switch(engine):
+    c = _cost_ctx(engine)
+    q = "SELECT k, SUM(v) AS s FROM t GROUP BY k"
+    with c.config.set({**NO_CACHE, "resilience.ladder.cost_based": False}):
+        fam = c.sql(q).plan._dsql_family
+        c.profiles.record_exec(fam.fingerprint, sql=q, exec_ms=0.5,
+                               family=fam.fingerprint)
+        c.metrics.observe("resilience.compile_ms.compiled_aggregate",
+                          60_000.0)
+        c.sql(q).compute()
+    snap = _counters(c)
+    assert snap.get("serving.scheduler.cost_rung_skip", 0) == 0
+    assert snap.get("resilience.rung.compiled_aggregate", 0) == 1
+
+
+@pytest.mark.parametrize("hits,exec_ms,prior,skip", [
+    (1, 1.0, 60_000.0, True),
+    (2, 100.0, 60_000.0, True),
+    (200, 100.0, 60_000.0, False),   # popularity amortizes the build
+    (3, 10.0, 100.0, False),         # 100 <= 4 x 3 x 10
+    (3, 1e-9, 0.02, True),           # exec floors at 1e-3 ms
+])
+def test_cost_skip_decides_as_the_reference(hits, exec_ms, prior, skip):
+    """Given the same profile entries and compile priors, the port's
+    `cost_skip` makes the reference's decision."""
+    from dask_sql_tpu.resilience import ladder as ref_ladder
+    from dask_sql_tpu_torch.resilience import ladder as port_ladder
+
+    q = "SELECT k, SUM(v) AS s FROM t GROUP BY k"
+    got = {}
+    for eng, lad in (("port", port_ladder), ("ref", ref_ladder)):
+        c = _cost_ctx(eng)
+        with c.config.set(NO_CACHE):
+            plan = c.sql(q).plan
+            fp = plan._dsql_family.fingerprint
+            for _ in range(hits):
+                c.profiles.record_exec(fp, sql=q, exec_ms=exec_ms, family=fp)
+            c.metrics.observe("resilience.compile_ms.compiled_aggregate",
+                              prior)
+
+            class _Ex:
+                context = c
+                config = c.config
+                _resilience_fp = fp
+
+            got[eng] = lad.cost_skip(_Ex(), "compiled_aggregate", plan)
+    assert got == {"port": skip, "ref": skip}
+
+
+# -------------------------------------------------------- estimator feedback
+def _estimators(engine):
+    if engine == "port":
+        from dask_sql_tpu_torch.analysis import estimator
+    else:
+        from dask_sql_tpu.analysis import estimator
+    return estimator
+
+
+def test_feedback_priors_never_cross_provable_floors(engine):
+    """Feedback tightens upper bounds only: lo is the same with feedback on
+    or off, hi never drops below lo, across margins; the port's
+    ``peak_bytes.hi`` never drops below ``lo`` plus the fused charge."""
+    estimator = _estimators(engine)
+    c = _cost_ctx(engine)
+    q = "SELECT v FROM t WHERE v < 50"
+    with c.config.set(NO_CACHE):
+        for _ in range(3):
+            c.sql(q).compute()
+        plan = c.sql(q).plan
+        with c.config.set({"analysis.estimate.feedback": False}):
+            base = estimator.estimate_plan(plan, context=c)
+        prof = c.profiles.get(plan._dsql_family.fingerprint)
+        assert prof is not None and len(prof["rows"]) >= 2
+        for margin in (1.0, 1.5, 2.0, 10.0):
+            with c.config.set({"analysis.estimate.feedback.margin": margin}):
+                fb = estimator.apply_feedback(base, prof, c.config)
+            assert fb.peak_bytes.lo == base.peak_bytes.lo
+            assert fb.rows.lo == base.rows.lo
+            assert fb.result_bytes.lo == base.result_bytes.lo
+            assert fb.peak_bytes.hi >= fb.peak_bytes.lo
+            assert fb.rows.hi >= fb.rows.lo
+            assert fb.result_bytes.hi >= fb.result_bytes.lo
+            assert fb.rows.hi <= base.rows.hi
+            assert fb.rows.hi == min(base.rows.hi, int(margin * 50))
+            if engine == "port":
+                assert fb.peak_bytes.hi >= \
+                    base.peak_bytes.lo + base.scratch_hi
+        # the port's feedback rows are the reference's on the same history
+        assert fb.feedback
+
+
+def test_feedback_rows_match_the_reference():
+    """Both engines tighten rows and result bytes alike on the same
+    observed history; the port's peak ``hi`` keeps the fused charge."""
+    out = {}
+    q = "SELECT v FROM t WHERE v < 50"
+    for eng in ENGINES:
+        estimator = _estimators(eng)
+        c = _cost_ctx(eng)
+        with c.config.set(NO_CACHE):
+            for _ in range(2):
+                c.sql(q).compute()
+            plan = c.sql(q).plan
+            with c.config.set({"analysis.estimate.feedback": False}):
+                base = estimator.estimate_plan(plan, context=c)
+            fb = estimator.apply_feedback(
+                base, c.profiles.get(plan._dsql_family.fingerprint),
+                c.config, c.metrics)
+        out[eng] = ((fb.rows.lo, fb.rows.hi), fb.result_bytes.lo,
+                    fb.peak_bytes.lo,
+                    fb.feedback, c.metrics.counter(
+                        "analysis.estimate.feedback"))
+    assert out["port"] == out["ref"]
+
+
+def test_feedback_tightens_only_with_enough_observations(engine):
+    estimator = _estimators(engine)
+    c = _cost_ctx(engine)
+    q = "SELECT v FROM t WHERE v < 50"
+    with c.config.set(NO_CACHE):
+        c.sql(q).compute()  # one observation < min_obs (2)
+        plan = c.sql(q).plan
+        prof = c.profiles.get(plan._dsql_family.fingerprint)
+        with c.config.set({"analysis.estimate.feedback": False}):
+            base = estimator.estimate_plan(plan, context=c)
+        fb = estimator.apply_feedback(base, prof, c.config)
+    assert fb.feedback is False and fb.rows.hi == base.rows.hi
+
+
+def test_feedback_reaches_the_gate_estimate_of_a_cached_plan():
+    """A plan-cached query's estimate takes feedback once its family has
+    history (`Context._plan_estimate`), and EXPLAIN ESTIMATE's bounds of
+    the port stay the static ones."""
+    c = _cost_ctx("port")
+    q = "SELECT v FROM t WHERE v < 50"
+    with c.config.set(NO_CACHE):
+        for _ in range(3):
+            c.sql(q).compute()
+        plan = c.sql(q).plan
+        est = c._plan_estimate(plan)
+    assert est.feedback and est.rows.hi == 100
+    assert c.metrics.counter("analysis.estimate.feedback") >= 1
+    assert not any("feedback" in r for r in
+                   c.sql("EXPLAIN ESTIMATE " + q).compute().iloc[:, 0])
+
+
+def test_show_profiles_estimated_vs_observed_rows(engine):
+    c = _cost_ctx(engine)
+    q = "SELECT v FROM t WHERE v < 50"
+    with c.config.set(NO_CACHE):
+        for _ in range(2):
+            c.sql(q).compute()
+        df = c.sql("SHOW PROFILES LIKE 'rows.%'").compute()
+    by_metric = {m: v for _, (_, _, m, v) in df.iterrows()}
+    assert {"rows.est_hi", "rows.observed.last", "rows.observed.max"} \
+        <= set(by_metric)
+    assert int(by_metric["rows.observed.last"]) == 50
+    assert int(by_metric["rows.est_hi"]) >= 50

@@ -795,17 +795,20 @@ def test_gate_sheds_where_the_reference_sheds():
 
 def test_gate_refuses_what_the_reference_would_stream():
     """Where the reference routes an over-budget plan to its partitioned
-    streaming (item 8c), the port raises NotImplementedError naming it: it
-    neither sheds nor runs the whole plan."""
+    streaming instead of shedding it, so does the port (streaming/): the
+    same answer, the same partitions, no shed."""
     rc, pc = _gate_pair(40_000)
-    q = "SELECT k, SUM(v) AS s FROM g GROUP BY k"
+    q = "SELECT k, SUM(v) AS s FROM g GROUP BY k ORDER BY k"
     est = rc.sql(f"EXPLAIN ESTIMATE {q}", return_futures=False)
     lo = int(est["ESTIMATE"][0].split("bytes_lo=")[1].split()[0])
     opts = {"serving.admission.max_estimated_bytes": lo // 2}
     want = rc.sql(q, config_options=opts, return_futures=False)
-    assert rc.metrics.counter("serving.stream.admitted") == 1
+    got = pc.sql(q, config_options=opts, return_futures=False)
     assert len(want) == 7
-    with pytest.raises(NotImplementedError, match="item 8c"):
-        pc.sql(q, config_options=opts, return_futures=False)
-    assert pc.metrics.counter("serving.shed_estimated_bytes") == 0
-    assert pc.metrics.counter("query.executed") == 0
+    pd.testing.assert_frame_equal(got, want)
+    for c in (rc, pc):
+        assert c.metrics.counter("serving.stream.admitted") == 1
+        assert c.metrics.counter("resilience.rung.streamed_aggregate") == 1
+        assert c.metrics.counter("serving.shed_estimated_bytes") == 0
+    assert pc.metrics.counter("serving.stream.partitions") == \
+        rc.metrics.counter("serving.stream.partitions") > 1
