@@ -103,7 +103,17 @@ phase saves and loads Q1's table and the TPC-H tables (the card's bytes
 equal after the load), waits for the warm-up (the first Q1 builds no
 pipeline), degrades a hung build under the watchdog, rebuilds a grown
 table's pipeline in the background, and runs a second Python process that
-finds the kernel and planner libraries in a compile cache.
+finds the kernel and planner libraries in a compile cache.  The
+``reuse`` phase (``materialize/``) folds three appends of 10,000 rows
+into an aggregate over TPC-H lineitem at 1,000,000 rows (one launch a
+fold, none at an answer, each answer against the float64 oracle), serves
+tighter date windows of Q1's table by re-filtering cached rows on the
+card, pins the stem ``l_quantity < 10`` under three downstream shapes
+(its bytes the ledger's, each shape on the interpreted walk after the
+pin) and reclaims the cache and then the stem at RED.  The ``server``
+phase starts the Presto-wire server on the card (Q1 and eight members
+of its family over HTTP, a 429, a cancel, ``/v1/metrics``) and pipes a
+CREATE TABLE WITH (location = ...) and Q1 into the REPL on the card.
 Every phase but ``resilience`` and ``coldstart`` fails if a rung steps
 down, answers on the CPU or moves a breaker (``observability`` allows only
 its ``compile:always`` run's steps).
@@ -3417,6 +3427,592 @@ def serving(df, c3, check_q3, queries, card, segsum):
             "stacks": stacks}
 
 
+#: the `reuse` phase: the incremental aggregate over TPC-H lineitem loaded
+#: PLAIN (an integer group key of domain 7: the kernel), its appends, the
+#: stem of Q1's table under three downstream shapes, and a date window
+REUSE_AGG_QUERY = ("SELECT l_linenumber, COUNT(*) AS n, SUM(l_quantity) AS q,"
+                   " SUM(l_extendedprice) AS p, MIN(l_extendedprice) AS lo,"
+                   " MAX(l_quantity) AS hi FROM lineitem GROUP BY l_linenumber")
+REUSE_APPEND_ROWS = 10_000
+REUSE_APPEND_SEEDS = (11, 12, 13)
+REUSE_STEM = "FROM lineitem WHERE l_quantity < 10"
+REUSE_STEM_SHAPES = {
+    "grouped_sum": ("SELECT l_returnflag, l_linestatus, SUM(l_extendedprice)"
+                    f" AS s, COUNT(*) AS n {REUSE_STEM} GROUP BY l_returnflag,"
+                    " l_linestatus ORDER BY l_returnflag, l_linestatus"),
+    "global_avg": f"SELECT AVG(l_discount) AS d {REUSE_STEM}",
+    "top_100": (f"SELECT l_shipdate, l_extendedprice {REUSE_STEM} ORDER BY "
+                "l_extendedprice DESC, l_shipdate LIMIT 100"),
+}
+#: ``serving.materialize.max_bytes`` of the stem's Context (the default is
+#: 128 MiB)
+REUSE_PIN_BUDGET = 256 << 20
+REUSE_WINDOWS = (("1995-01-01", "1996-01-01"), ("1995-03-01", "1995-10-01"),
+                 ("1995-06-01", "1995-07-01"))
+REUSE_WINDOW_QUERY = ("SELECT l_shipdate, l_quantity, l_extendedprice FROM "
+                      "lineitem WHERE l_shipdate >= DATE '{}' AND "
+                      "l_shipdate < DATE '{}'")
+
+
+def reuse_agg_oracle(frame):
+    """REUSE_AGG_QUERY in float64 pandas, sorted by the key."""
+    work = frame.assign(q=frame.l_quantity.astype(np.float64),
+                        p=frame.l_extendedprice.astype(np.float64))
+    return work.groupby("l_linenumber", as_index=False).agg(
+        n=("q", "count"), q=("q", "sum"), p=("p", "sum"), lo=("p", "min"),
+        hi=("q", "max")).sort_values("l_linenumber").reset_index(drop=True)
+
+
+def check_reuse_agg(got, want, label) -> float:
+    """Keys, counts, MIN and MAX exact; the sums within REL_BOUND of the
+    float64 oracle.  Returns the largest relative error."""
+    got = got.sort_values("l_linenumber").reset_index(drop=True)
+    for name in ("l_linenumber", "n", "lo", "hi"):
+        if got[name].tolist() != want[name].tolist():
+            fail(f"{label}: {name} differs from the oracle")
+    rel = max(max_rel(got[name], want[name]) for name in ("q", "p"))
+    if not rel <= REL_BOUND:
+        fail(f"{label}: relative error {rel} > {REL_BOUND}")
+    return rel
+
+
+def stem_oracles(df):
+    """REUSE_STEM_SHAPES in float64 pandas over Q1's frame."""
+    sel = df[df.l_quantity < np.float32(10)]
+    grouped = sel.assign(s=sel.l_extendedprice.astype(np.float64)).groupby(
+        KEYS, as_index=False).agg(s=("s", "sum"), n=("s", "count"))
+    top = sel.sort_values(["l_extendedprice", "l_shipdate"],
+                          ascending=[False, True]).head(100)
+    return {"grouped_sum": grouped.sort_values(KEYS).reset_index(drop=True),
+            "global_avg": float(sel.l_discount.astype(np.float64).mean()),
+            "top_100": top[["l_shipdate", "l_extendedprice"]].reset_index(
+                drop=True)}
+
+
+def check_stem_shape(name, got, want) -> float:
+    if name == "grouped_sum":
+        for key in KEYS + ["n"]:
+            if got[key].tolist() != want[key].tolist():
+                fail(f"stem {name}: {key} differs from the oracle")
+        rel = max_rel(got["s"], want["s"])
+    elif name == "global_avg":
+        rel = abs(float(got["d"][0]) - want) / abs(want)
+    else:
+        if got["l_extendedprice"].tolist() != \
+                want["l_extendedprice"].tolist() or \
+                got["l_shipdate"].tolist() != want["l_shipdate"].tolist():
+            fail(f"stem {name}: rows differ from the oracle")
+        rel = 0.0
+    if not rel <= REL_BOUND:
+        fail(f"stem {name}: relative error {rel} > {REL_BOUND}")
+    return rel
+
+
+def synced_ms(fn):
+    """(fn()'s value, its ms with the card's work finished)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def rows_as_set(frame):
+    return frame.sort_values(list(frame.columns)).reset_index(drop=True)
+
+
+def reuse(df, want, tpch, card, segsum, transfers):
+    """The `reuse` phase (materialize/) on Contexts on the card with the
+    result cache on.  (a) incremental: TPC-H lineitem (1,000,000 rows,
+    encodings off) under REUSE_AGG_QUERY, then three appends of 10,000
+    rows of the same generator under other seeds, re-queried after each:
+    one bootstrap launch and one launch a fold, none at an answer (one
+    transfer), each answer against the float64 oracle over all rows, each
+    fold's and answer's ms beside the query's on a fresh cache-off Context
+    over the grown table.  (c) subsumption on Q1's encoded 6,000,000 rows:
+    a date window, then two tighter ones served from the cached rows with
+    no launch, equal (as sets) to a fresh run's.  (b) the stem
+    ``l_quantity < 10`` under three downstream shapes: pinned at the second
+    shape's run, its bytes the ledger's ``materializedBytes``; each shape's
+    rung and ms before the pin (a cache-off Context) and after it (the
+    interpreted walk over the pinned rows); then a RED reclaim that frees
+    the result cache, then the pinned stem.  A card Context re-filters only
+    cached rows on the card (the eager walk's); the compiled select's rows
+    lie on the host, so its tighter windows run afresh.  Returns the kernel's launches
+    by path and its largest error against the plain version on the calls
+    these paths make."""
+    import pandas as pd
+
+    from dask_sql_tpu_torch.observability import flight
+    from tests.tpch import generate
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "max_abs_err": 0.0}
+    errs = []
+    # (a) incremental folds
+    base = tpch["lineitem"]
+    c, _, _ = load_tables({"lineitem": base}, {"columnar.encoding": "off"})
+    c.config.update({"serving.cache.enabled": True})
+    reset_launches(segsum)
+    check_reuse_agg(c.sql(REUSE_AGG_QUERY).compute(), reuse_agg_oracle(base),
+                    "incremental first run")
+    first_launches = segsum.LAUNCHES["segsum"]
+    inc = c.materialize.incremental
+    on_append = inc.on_append
+    fold_ms = []
+
+    def timed_on_append(*args):
+        got, ms = synced_ms(lambda: on_append(*args))
+        fold_ms.append(ms)
+        return got
+
+    inc.on_append = timed_on_append
+    frames = [base]
+    steps = []
+    try:
+        for i, seed in enumerate(REUSE_APPEND_SEEDS):
+            delta = generate(scale_rows=REUSE_APPEND_ROWS, seed=seed)[
+                "lineitem"].head(REUSE_APPEND_ROWS)
+            frames.append(delta)
+            reset_launches(segsum)
+            calls = capture_calls(segsum, lambda: c.append_rows("lineitem",
+                                                                delta))
+            fold_launches = segsum.LAUNCHES["segsum"]
+            want_rows = 1 if i else 2  # the bootstrap, then the fold
+            if fold_launches != want_rows or len(calls) != want_rows:
+                fail(f"append {i}: {fold_launches} launches, "
+                     f"{len(calls)} calls, expected {want_rows}")
+            errs.append(check_calls(segsum, calls, f"reuse_fold_{i}"))
+            reset_launches(segsum)
+            transfers["d2h"] = 0
+            hits = c.metrics.counter("serving.reuse.incremental.hits")
+            got, answer_ms = synced_ms(
+                lambda: c.sql(REUSE_AGG_QUERY).compute())
+            if sum(segsum.LAUNCHES.values()) or transfers["d2h"] != 1 or \
+                    c.metrics.counter("serving.reuse.incremental.hits") \
+                    != hits + 1:
+                fail(f"answer {i}: launches {dict(segsum.LAUNCHES)}, "
+                     f"{transfers['d2h']} transfers, not from the state")
+            grown = pd.concat(frames, ignore_index=True)
+            rel = check_reuse_agg(got, reuse_agg_oracle(grown),
+                                  f"incremental answer {i}")
+            fresh, _, _ = load_tables({"lineitem": grown},
+                                      {"columnar.encoding": "off"})
+            fresh.sql(REUSE_AGG_QUERY).compute()
+            full_ms = float(np.median([synced_ms(lambda: fresh.sql(
+                REUSE_AGG_QUERY).compute())[1] for _ in range(WARM_RUNS)]))
+            del fresh
+            steps.append({"append": i, "rows": int(len(grown)),
+                          "fold_ms": fold_ms[-1], "fold_launches":
+                          fold_launches, "answer_ms": answer_ms,
+                          "answer_launches": 0, "full_query_ms": full_ms,
+                          "max_rel_err": rel})
+    finally:
+        inc.on_append = on_append
+    moves = {k: c.metrics.counter(k) for k in (
+        "serving.reuse.incremental.folds", "serving.reuse.incremental.hits",
+        "serving.reuse.incremental.declined")}
+    if moves != {"serving.reuse.incremental.folds": 3,
+                 "serving.reuse.incremental.hits": 3,
+                 "serving.reuse.incremental.declined": 0}:
+        fail(f"incremental counters {moves}")
+    out["launches"]["reuse_incremental_first_run"] = first_launches
+    out["launches"]["reuse_incremental_bootstrap_and_folds"] = sum(
+        st["fold_launches"] for st in steps)
+    out["launches"]["reuse_incremental_answers"] = 0
+    phase("reuse", part="incremental", card=card, rows=int(len(base)),
+          append_rows=REUSE_APPEND_ROWS, steps=steps, counters=moves)
+    check_not_degraded(c, "reuse_incremental")
+    del c, frames, delta, grown, got, calls
+
+    # (c) subsumption, then (b) the stem, on Q1's encoded rows.  Both
+    # engines' estimators floor a full-width stem over this table at its
+    # resident bytes (144,020,453), above the default 128 MiB budget for
+    # pinned stems: the budget is raised to let it pin
+    c, _, _ = load_tables({"lineitem": df})
+    c.config.update({"serving.cache.enabled": True,
+                     "serving.materialize.max_bytes": REUSE_PIN_BUDGET})
+    cold, _, _ = load_tables({"lineitem": df})
+    windows = []
+    # the eager walk's rows stay on the card, and a tighter window is
+    # re-filtered there; the compiled select's rows lie on the host (its
+    # one transfer), so a card Context declines them and runs the tighter
+    # window afresh on the card (its windows a day later: another stem,
+    # so nothing pins here)
+    for mode, options, shift, where, serves in (
+            ("eager_walk", {"sql.compile": False}, 0, "cuda", True),
+            ("compiled_select", {}, 1, "cpu", False)):
+        for i, (lo, hi) in enumerate(REUSE_WINDOWS):
+            lo = str(np.datetime64(lo) + np.timedelta64(shift, "D"))
+            sql = REUSE_WINDOW_QUERY.format(lo, hi)
+            reset_launches(segsum)
+            transfers["d2h"] = 0
+            hits = c.metrics.counter("serving.reuse.subsumption.hits")
+            declined = c.metrics.counter(
+                "serving.reuse.subsumption.declined")
+            frame = c.sql(sql, config_options=options)
+            got, ms = synced_ms(frame.compute)
+            device = next(iter(frame.execute().columns.values())).device
+            served = c.metrics.counter("serving.reuse.subsumption.hits") \
+                - hits
+            declined = c.metrics.counter(
+                "serving.reuse.subsumption.declined") - declined
+            launches = sum(segsum.LAUNCHES.values())
+            want_served = 1 if i and serves else 0
+            want_declined = 1 if i and not serves else 0
+            if served != want_served or declined != want_declined \
+                    or launches or device.type != where:
+                fail(f"{mode} window {lo}..{hi}: served {served}, declined "
+                     f"{declined}, launches {launches}, rows on {device}")
+            fresh, fresh_ms = synced_ms(lambda: cold.sql(sql).compute())
+            if not rows_as_set(got).equals(rows_as_set(fresh)):
+                fail(f"{mode} window {lo}..{hi}: rows differ from a fresh "
+                     "run")
+            windows.append({"mode": mode, "window": [lo, hi],
+                            "rows": int(len(got)), "served": bool(served),
+                            "declined": bool(declined),
+                            "rows_on": str(device), "launches": launches,
+                            "d2h": transfers["d2h"], "ms": ms,
+                            "fresh_ms": fresh_ms})
+    del frame
+    out["launches"]["reuse_subsumption"] = sum(
+        w["launches"] for w in windows if w["served"])
+    phase("reuse", part="subsumption", card=card, windows=windows)
+
+    oracles = stem_oracles(df)
+    shapes = {}
+    for name, sql in REUSE_STEM_SHAPES.items():
+        before = counters(cold)
+        cold.sql(sql).compute()
+        runs = []
+        for _ in range(WARM_RUNS):
+            got, ms = synced_ms(lambda: cold.sql(sql).compute())
+            runs.append(ms)
+        check_stem_shape(name, got, oracles[name])
+        rungs = {k: v for k, v in moved(before, counters(cold)).items()
+                 if k.startswith("resilience.rung.")}
+        shapes[name] = {"before": {"rungs": rungs,
+                                   "ms": float(np.median(runs))}}
+    for name in ("grouped_sum", "global_avg"):
+        check_stem_shape(name, c.sql(REUSE_STEM_SHAPES[name]).compute(),
+                         oracles[name])
+    if c.metrics.counter("serving.materialize.stored") != 1:
+        fail("two shapes over the stem did not pin it: "
+             f"{c.metrics.counter('serving.materialize.stored')}")
+    pinned = c.materialize.pinned_bytes()
+    ledger = c.ledger.snapshot()["materializedBytes"]
+    if not pinned or pinned != ledger:
+        fail(f"pinned bytes {pinned} against the ledger's {ledger}")
+    stem_rows = c.materialize.rows()[0][3]
+    if stem_rows != int((df.l_quantity < np.float32(10)).sum()):
+        fail(f"the pinned stem holds {stem_rows} rows")
+    after_calls = []
+    for name, sql in REUSE_STEM_SHAPES.items():
+        runs = []
+        for _ in range(WARM_RUNS):
+            c._result_cache.invalidate_all()
+            before = counters(c)
+            reset_launches(segsum)
+            if not runs:
+                calls = capture_calls(segsum, lambda: c.sql(sql).compute())
+                after_calls += calls
+                c._result_cache.invalidate_all()
+                before = counters(c)
+                reset_launches(segsum)
+            got, ms = synced_ms(lambda: c.sql(sql).compute())
+            runs.append(ms)
+        moves = moved(before, counters(c))
+        check_stem_shape(name, got, oracles[name])
+        rungs = {k: v for k, v in moves.items()
+                 if k.startswith("resilience.rung.")}
+        if rungs or moves.get("serving.materialize.hits") != 1:
+            fail(f"stem {name} after the pin moved {moves}")
+        shapes[name]["after"] = {"rungs": rungs, "walk": "interpreted",
+                                 "ms": float(np.median(runs)),
+                                 "launches": segsum.LAUNCHES["segsum"]}
+        out["launches"][f"reuse_stem_{name}_after_pin"] = \
+            segsum.LAUNCHES["segsum"]
+    if after_calls:
+        errs.append(check_calls(segsum, after_calls, "reuse_stem_walk"))
+    # the captured calls hold the pinned table's columns
+    del calls, after_calls
+    phase("reuse", part="stem", card=card, rows=N_ROWS, stem_rows=stem_rows,
+          pinned_bytes=pinned, ledger_materialized_bytes=ledger,
+          shapes=shapes)
+
+    # a RED reclaim: its deficit exceeds the cached results, so it frees
+    # the cache tier and then the pinned stem
+    snap = c.ledger.snapshot()
+    used = (snap["reservedBytes"] + snap["resultCacheBytes"]
+            + snap["tableBytes"] + snap["materializedBytes"])
+    budget = int(used / 0.92)
+    cache_bytes = snap["resultCacheBytes"]
+    alloc0 = card_allocated()
+    flight.RECORDER.clear()
+    with c.config.set({"serving.scheduler.device_budget_bytes": budget}):
+        band = c.pressure.band()
+        after_band = c.pressure.evaluate()
+    alloc1 = card_allocated()
+    ev = flight.RECORDER.events(name="pressure.reclaim")
+    if band != "red" or not ev or ev[-1]["cache_bytes"] != cache_bytes \
+            or ev[-1]["stem_bytes"] != pinned \
+            or c.materialize.pinned_bytes() \
+            or alloc0 - alloc1 < pinned:
+        fail(f"RED reclaim: band {band}, events {ev}, "
+             f"memory_allocated fell by {alloc0 - alloc1}")
+    phase("reuse", part="red_reclaim", card=card, budget=budget,
+          band=band, band_after=after_band, cache_bytes=cache_bytes,
+          stem_bytes=ev[-1]["stem_bytes"], allocated_before=alloc0,
+          allocated_after=alloc1)
+    check_not_degraded(c, "reuse")
+    check_not_degraded(cold, "reuse_cold")
+    del c, cold, got, fresh
+    out["max_abs_err"] = max(errs, default=0.0)
+    phase("reuse", part="seconds", card=card,
+          seconds=time.perf_counter() - t_phase)
+    return out
+
+
+#: the `server` phase: workers and the interactive queue's bound of its
+#: server, and the row function's sleep a row of its slow statements
+SERVER_WORKERS = 2
+SERVER_QUEUE = 2
+SERVER_SLEEP_S = 0.25
+SERVER_FAMILY = 9  # Q1 and eight more members of its family
+
+
+def http_post(port, sql, headers=None):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/statement",
+                                 data=sql.encode(), method="POST")
+    for k, v in (headers or {}).items():
+        req.add_header(k, v)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read()), dict(resp.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def http_get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=120) as resp:
+        return json.loads(resp.read())
+
+
+def http_follow(payload, timeout=300):
+    import urllib.request
+
+    deadline = time.time() + timeout
+    while "nextUri" in payload:
+        if time.time() > deadline:
+            fail(f"a statement did not finish in {timeout} s")
+        time.sleep(0.01)
+        with urllib.request.urlopen(payload["nextUri"], timeout=120) as resp:
+            payload = json.loads(resp.read())
+    return payload
+
+
+def wire_frame(payload):
+    import pandas as pd
+
+    return pd.DataFrame(payload["data"],
+                        columns=[col["name"] for col in payload["columns"]])
+
+
+def printed_frame(text, columns):
+    """The rows of a pandas frame as ``print`` shows it (wrapped into
+    column blocks or not, middle columns elided as ``...`` or not; prompts
+    and terminal escapes stripped): {column: [printed value, ...]} in
+    index order, for the columns it shows."""
+    import re
+
+    values = {name: {} for name in columns}
+    current = None
+    for line in text.splitlines():
+        line = re.sub(r"\x1b\[[0-9;?]*[A-Za-z]", "", line)
+        line = line.split("(torch-sql) > ")[-1]
+        toks = line.replace("\\", " ").split()
+        if not toks:
+            current = None
+            continue
+        if all(t in values or t == "..." for t in toks) \
+                and any(t in values for t in toks):
+            current = toks
+            continue
+        if current and toks[0].isdigit() and len(toks) == len(current) + 1:
+            for name, tok in zip(current, toks[1:]):
+                if name in values:
+                    values[name][int(toks[0])] = tok
+    return {name: [v[i] for i in sorted(v)] for name, v in values.items()
+            if v}
+
+
+def printed_close(token: str, value: float) -> bool:
+    """A printed float within REL_BOUND of `value` plus half a unit of its
+    last printed digit."""
+    mant, _, exp = token.lower().partition("e")
+    decimals = len(mant.split(".")[1]) if "." in mant else 0
+    half = 0.5 * 10.0 ** (int(exp or 0) - decimals)
+    return abs(float(token) - value) <= REL_BOUND * abs(value) + half
+
+
+def server(df, want, card, segsum):
+    """The `server` phase: the Presto-wire server (server/app.py) and the
+    REPL (cmd.py) on the card.  `run_server()` without a Context builds one
+    on the card; then a server over a card Context with Q1's 6,000,000
+    rows (SERVER_WORKERS workers, interactive queue bound SERVER_QUEUE)
+    answers Q1 and eight more members of its family over HTTP (one launch
+    each, against `q1_oracle`), sheds a statement past the queue bound
+    with a 429 and ``Retry-After``, cancels a running statement by DELETE
+    ``/v1/cancel``, and prints ``/v1/metrics``; it shuts down and the card
+    keeps no byte of it.  Last, ``python -m dask_sql_tpu_torch.cmd`` is fed
+    a CREATE TABLE WITH (location = ...) of Q1's rows written as parquet
+    files (the `files` phase's layout) and Q1 on stdin: it exits 0 and
+    prints the oracle's rows."""
+    import tempfile
+
+    import pandas as pd
+
+    from dask_sql_tpu_torch import Context
+    from dask_sql_tpu_torch.server.app import run_server
+
+    t_phase = time.perf_counter()
+    srv = run_server(host="127.0.0.1", port=0, blocking=False)
+    try:
+        device = str(srv.context.device)
+        one = http_follow(http_post(srv.port, "SELECT 1 + 1 AS x")[1])
+    finally:
+        srv.shutdown()
+    if not device.startswith("cuda") or one.get("data") != [[2]]:
+        fail(f"run_server() served on {device}: {one}")
+    del srv
+
+    c = Context()
+    c.config.update({"serving.workers": SERVER_WORKERS,
+                     "serving.queue.interactive": SERVER_QUEUE,
+                     "serving.retry_after_s": 2.0})
+    c.create_table("lineitem", df)
+    c.create_table("sleepy", pd.DataFrame({"a": np.arange(4,
+                                                          dtype=np.int64)}))
+
+    def slow(row):
+        time.sleep(SERVER_SLEEP_S)
+        return int(row["x"])
+
+    c.register_function(slow, "slowid", [("x", np.int64)], np.int64,
+                        row_udf=True)
+    srv = run_server(context=c, host="127.0.0.1", port=0, blocking=False)
+    port = srv.port
+    try:
+        dates = serving_dates(SERVER_FAMILY)
+        oracles = q1_family_oracle(df, dates)
+        family = []
+        reset_launches(segsum)
+        for date in dates:
+            sql = QUERY.replace("1998-09-02", date)
+            st, p, _ = http_post(port, sql)
+            payload, ms = synced_ms(lambda: http_follow(p))
+            if st != 200 or payload["stats"]["state"] != "FINISHED":
+                fail(f"Q1 on {date} over HTTP: {st} {payload.get('error')}")
+            rel = check_q1(wire_frame(payload), oracles[date],
+                           f"Q1 on {date} over HTTP")
+            family.append({"date": date, "ms": ms, "max_rel_err": rel})
+        family_launches = dict(segsum.LAUNCHES)
+        if sum(family_launches.values()) != SERVER_FAMILY:
+            fail(f"the family over HTTP launched {family_launches}")
+        phase("server", part="q1_family", card=card, members=SERVER_FAMILY,
+              launches=family_launches, runs=family)
+
+        # the queue bound: two running, two queued, the fifth shed
+        slow_sql = [f"SELECT slowid(a) + {i} AS v FROM sleepy"
+                    for i in range(5)]
+        posted = [http_post(port, slow_sql[0]), http_post(port, slow_sql[1])]
+        deadline = time.time() + 30
+        while time.time() < deadline and \
+                http_get(port, "/v1/metrics")["running"] < SERVER_WORKERS:
+            time.sleep(0.01)
+        posted += [http_post(port, sql) for sql in slow_sql[2:4]]
+        shed = http_post(port, slow_sql[4])
+        if [st for st, _, _ in posted] != [200] * 4 or shed[0] != 429 \
+                or shed[1]["error"]["errorName"] != "QUERY_QUEUE_FULL" \
+                or int(shed[2].get("Retry-After", 0)) < 1:
+            fail(f"the queue bound: {[st for st, _, _ in posted]}, "
+                 f"then {shed[0]} {shed[1].get('error')}")
+        # a running statement cancelled
+        import urllib.request
+
+        qid = posted[0][1]["id"]
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/v1/cancel/{qid}", method="DELETE")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            cancelled = json.loads(resp.read())["cancelled"]
+        finals = [http_follow(p) for _, p, _ in posted]
+        if cancelled is not True or "error" not in finals[0] or any(
+                f["stats"]["state"] != "FINISHED" for f in finals[1:]):
+            fail(f"cancel {cancelled}: {[f['stats']['state'] for f in finals]}")
+        metrics = http_get(port, "/v1/metrics")
+        if metrics["rejected"] != 1 or metrics["cancelled"] != 1:
+            fail(f"/v1/metrics after the shed and the cancel: {metrics}")
+        phase("server", part="shed_and_cancel", card=card,
+              shed_status=shed[0], retry_after=shed[2].get("Retry-After"),
+              cancelled=finals[0]["error"]["errorName"])
+        phase("server", part="metrics", card=card, metrics={
+            k: metrics[k] for k in ("workers", "queueDepth", "running",
+                                    "completed", "failed", "cancelled",
+                                    "rejected", "avgLatencyMillis",
+                                    "avgQueuedMillis")},
+            ledger=metrics["ledger"],
+            counters={k: v for k, v in metrics["registry"][
+                "counters"].items() if k.startswith(("serving.", "query."))})
+    finally:
+        srv.shutdown()
+    check_not_degraded(c, "server")
+    del srv, c
+
+    # the REPL on the card: CREATE TABLE WITH (location = ...) and Q1
+    with tempfile.TemporaryDirectory() as d:
+        write_parquet(df, os.path.join(d, "lineitem"), FILES_PARTS,
+                      FILES_ROW_GROUP)
+        location = os.path.join(d, "lineitem", "*.parquet")
+        script = (f"CREATE TABLE lineitem WITH (location = '{location}', "
+                  "format = 'parquet', persist = true)\n"
+                  + " ".join(QUERY.split()) + "\n\\q\n")
+        t0 = time.perf_counter()
+        repl = subprocess.run(
+            [sys.executable, "-m", "dask_sql_tpu_torch.cmd"], input=script,
+            capture_output=True, text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        repl_s = time.perf_counter() - t0
+    # the rows as the REPL prints them: the keys and counts exact, every
+    # float column it shows within its printed digits
+    printed = printed_frame(repl.stdout, list(want.columns))
+    shown = [name for name in want.columns[2:-1] if name in printed]
+    ok = repl.returncode == 0 and "ERROR" not in repl.stderr \
+        and len(printed.get("count_order", ())) == len(want) and shown
+    if ok:
+        ok = printed["l_returnflag"] == want["l_returnflag"].tolist() \
+            and printed["l_linestatus"] == want["l_linestatus"].tolist() \
+            and [int(v) for v in printed["count_order"]] \
+            == want["count_order"].tolist() \
+            and all(len(printed[name]) == len(want) and all(
+                printed_close(tok, float(w))
+                for tok, w in zip(printed[name], want[name]))
+                for name in shown)
+    if not ok:
+        fail(f"the REPL: exit {repl.returncode}, stdout "
+             f"{repl.stdout[-2000:]!r}, stderr {repl.stderr[-2000:]!r}")
+    phase("server", part="repl", card=card, seconds=repl_s,
+          rows=len(printed["count_order"]), columns_shown=shown)
+    phase("server", part="seconds", card=card,
+          seconds=time.perf_counter() - t_phase)
+    return {"launches": family_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
@@ -3724,6 +4320,14 @@ def main() -> int:
     mem0 = card_allocated()
     coldstart_out = coldstart(df, want, all_tables, card, segsum)
     check_card_freed(mem0, "coldstart")
+    # 8h. the `reuse` and `server` phases: semantic reuse (incremental
+    # folds, subsumption, a pinned stem) and the front ends on the card
+    mem0 = card_allocated()
+    reuse_out = reuse(df, want, all_tables, card, segsum, TRANSFER_STATS)
+    check_card_freed(mem0, "reuse")
+    mem0 = card_allocated()
+    server_out = server(df, want, card, segsum)
+    check_card_freed(mem0, "server")
     t0 = time.perf_counter() - gen3_s
     tables = {n: all_tables[n] for n in ("customer", "orders", "lineitem")}
     mem0 = card_allocated()
@@ -3965,7 +4569,10 @@ def main() -> int:
                              **observability_out["launches"],
                              **streamed_out["launches"],
                              **pressure_out["launches"],
-                             **coldstart_out["launches"]},
+                             **coldstart_out["launches"],
+                             **reuse_out["launches"],
+                             "server_q1_family":
+                                 server_out["launches"]["segsum"]},
         "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"],
                            tpcds_launches["max_abs_err"],
                            surface_q1_launches["max_abs_err"],
@@ -3974,7 +4581,8 @@ def main() -> int:
                            files_q3_out["max_abs_err"],
                            resilience_out["max_abs_err"],
                            observability_out["max_abs_err"],
-                           streamed_out["max_abs_err"]),
+                           streamed_out["max_abs_err"],
+                           reuse_out["max_abs_err"]),
         "ms": t_ms,
         "plain_ms": t_plain_ms,
         "bound_ms": t_bound_ms,

@@ -159,6 +159,14 @@ DEFAULTS: Dict[str, Any] = {
     "serving.cache.max_bytes": 256 << 20,  # total resident bytes before LRU eviction
     "serving.cache.max_entry_bytes": 64 << 20,  # per-entry cap
     "serving.cache.ttl_s": 300.0,  # entry time-to-live, seconds (None = no TTL)
+    # semantic reuse (materialize/): stem materialization, subsumption
+    # answering over cached results, incremental maintenance on append
+    "serving.materialize.enabled": True,  # pin hot scan->filter stems as device-resident tables
+    "serving.materialize.min_hits": 2,  # stem family hit count before pinning (profile-driven)
+    "serving.materialize.max_bytes": 128 << 20,  # total pinned bytes before LRU eviction
+    "serving.materialize.min_bytes": 1024,  # floor: stems cheaper than this are not worth pinning
+    "serving.reuse.subsumption": True,  # answer tighter-literal families by re-filtering cached results
+    "serving.reuse.incremental": True,  # fold INSERT/append deltas through stored combine states
     # per-plan-node tracing of every execution, folded into the metrics
     # registry (``executor.node.*``; on the card each node then waits for
     # its device work, tracing.py)

@@ -24,10 +24,12 @@ estimated-bytes gate (which routes an over-budget plan to partitioned
 streaming, `streaming/`, and consults the pressure controller,
 `pressure`), and feeds the card-byte ledger (`ledger`); a
 `serving.ServingRuntime` attached as `serving` runs queries on its worker
-pool.  `save_state`/`load_state` checkpoint the catalog (checkpoint.py),
-and a load warms the hottest profiled statements (`warmup`).  The
-reference's semantic reuse (materialization, ROADMAP.md Queue 1 item 8c's
-`materialize/`) is not ported yet.
+pool.  Semantic reuse (`materialize`, materialize/) answers above the
+result cache: an incremental aggregate state folded forward by appends, a
+cached result that provably subsumes a tighter literal, and a pinned
+scan->filter stem that later plans scan instead of the base table.
+`save_state`/`load_state` checkpoint the catalog (checkpoint.py), and a
+load warms the hottest profiled statements (`warmup`).
 """
 from __future__ import annotations
 
@@ -118,9 +120,12 @@ class TorchFrame:
         (`Executor.stream_decisions`).  After it: the
         measured footprint on the serving ticket (the scheduler's
         reserve drift) and the result into the cache, tagged with the
-        tables it read.  The reference's semantic reuse (item 8c) would
-        answer between the cache and the gate; the port goes on as if it
-        found nothing to reuse."""
+        tables it read.  Between the cache and the gate the semantic
+        reuse tiers (`Context.materialize`) may answer, and their answer
+        goes into the cache; a plan the gate did not route to streaming
+        runs a copy that scans a pinned stem where one is pinned; after
+        the run the manager observes the plan (stem hits, subsumption
+        candidates, incremental registrations)."""
         if self._result is None:
             from .physical.executor import Executor
             from .resilience.ladder import plan_fingerprint, wrap_boundary
@@ -222,6 +227,24 @@ class TorchFrame:
                                              family=family_fp)
                     self._result = hit
                     return self._result
+                # semantic reuse (materialize/): an incremental aggregate
+                # state or a cached result that provably subsumes this
+                # query answers without a scan or a build
+                reuse = ctx.materialize.try_reuse(self._plan, family, key)
+                if reuse is not None:
+                    served, tier = reuse
+                    if tr is not None:
+                        tr.event(f"semantic_reuse:{tier}")
+                    ctx.profiles.record_exec(fp, sql=sql_text,
+                                             cache_hit=True,
+                                             family=family_fp)
+                    if key is not None:
+                        # an exact repeat of this query now hits the cache
+                        ctx._result_cache.put(
+                            key, served,
+                            deps=ctx._plan_table_deps(self._plan))
+                    self._result = served
+                    return self._result
                 estimate = ctx._plan_estimate(self._plan)
                 routed = None
                 if estimate is not None:
@@ -245,10 +268,22 @@ class TorchFrame:
                     # cached plan under another budget never sees it
                     node, decision = routed
                     executor.stream_decisions[id(node)] = decision
+                exec_plan = self._plan
+                if routed is None:
+                    # a pinned stem (materialize/manager.py): run a copy
+                    # that scans it on the interpreted walk.  A streamed
+                    # run keeps the original plan, whose node its routing
+                    # is keyed on
+                    rewritten = ctx.materialize.try_stem_rewrite(self._plan)
+                    if rewritten is not None:
+                        exec_plan, stem_overrides = rewritten
+                        executor.table_overrides.update(stem_overrides)
+                        if tr is not None:
+                            tr.event("materialized_stem_scan")
                 t0 = time.perf_counter()
                 with observability.stage("execute"):
                     self._result = wrap_boundary(
-                        lambda: executor.execute_root(self._plan))
+                        lambda: executor.execute_root(exec_plan))
                 exec_ms = (time.perf_counter() - t0) * 1000.0
                 ctx.metrics.observe("query.execute_ms", exec_ms)
                 ctx.metrics.inc("query.executed")
@@ -277,12 +312,16 @@ class TorchFrame:
                     # now that the entry exists
                     ctx.profiles.record_estimate(fp, est.rows.hi,
                                                  family=family_fp)
+                deps = ctx._plan_table_deps(self._plan)
                 if key is not None:
                     # tagged with the tables it read: an append or a DDL
                     # drops exactly the entries reading them
                     ctx._result_cache.put(
-                        key, self._result, nbytes=result_bytes,
-                        deps=ctx._plan_table_deps(self._plan))
+                        key, self._result, nbytes=result_bytes, deps=deps)
+                # stem hits (a pin at the threshold), the subsumption
+                # candidate, the incremental registration
+                ctx.materialize.observe(self._plan, family, key, deps,
+                                        self._result)
         return self._result
 
     def compute(self):
@@ -393,6 +432,11 @@ class Context:
         #: speculative work at YELLOW, reclaims at RED, streams or sheds
         #: new admissions at CRITICAL
         self.pressure = PressureController(self)
+        from .materialize import MaterializationManager
+
+        #: semantic reuse (materialize/): pinned stems, subsumption over
+        #: cached results, incremental aggregate states
+        self.materialize = MaterializationManager(self)
         #: the active warm-up pass (serving/warmup.py) after load_state
         self.warmup = None
         #: the background recompiler (serving/background.py), made on
@@ -584,7 +628,10 @@ class Context:
         dictionaries (`columnar/concat.py`), as the reference's does.  A
         lazy parquet table cannot grow in place: it is loaded and replaced
         by an in-memory table of the rows and the appended ones, with a new
-        uid, as in the reference.  Returns the number of rows appended."""
+        uid, as in the reference.  Pinned stems over the table refresh
+        over the delta alone and incremental aggregate states fold it
+        (`materialize.on_append`).  Returns the number of rows
+        appended."""
         from .datacontainer import DataContainer, LazyParquetContainer
         from .input_utils import InputUtil
 
@@ -596,17 +643,32 @@ class Context:
         delta = InputUtil.to_dc(rows, table_name, self.device,
                                 config=self.config).table
         appended = int(delta.num_rows)
+        self.metrics.inc("serving.reuse.append_rows", appended)
+        tkey = (schema_name, table_name)
         if isinstance(dc, LazyParquetContainer):
+            # a replace: a new uid, so every reuse tier fails closed
             dc = DataContainer(Table.concat([dc.table, delta]))
             container.tables[table_name] = dc
             container.filepaths.pop(table_name, None)
-        else:
-            dc.table = Table.concat([dc.table, delta])
+            container.statistics[table_name] = Statistics(
+                float(dc.table.num_rows))
+            self._bump_table_epoch(schema_name, table_name)
+            self._on_catalog_change(tables={tkey})
+            return appended
+        old_rows = int(dc.table.num_rows)
+        dc.table = Table.concat([dc.table, delta])
         container.statistics[table_name] = Statistics(float(dc.table.num_rows))
-        self._bump_table_epoch(schema_name, table_name)
+        epoch = self._bump_table_epoch(schema_name, table_name)
         # the table was rewritten in place: a cached result that read it
-        # (and may alias its tensors) drops now
-        self._on_catalog_change(tables={(schema_name, table_name)})
+        # (and may alias its tensors) drops now; the reuse state refreshes
+        # instead: pinned stems run over the delta alone, incremental
+        # states fold it
+        n = self._result_cache.invalidate_tables({tkey})
+        if n:
+            self.metrics.inc("query.cache.invalidated", n)
+        self._family_estimates.clear()
+        self.materialize.on_append(schema_name, table_name, dc, old_rows,
+                                   epoch)
         return appended
 
     def table_epoch(self, schema_name: str, table_name: str) -> int:
@@ -622,16 +684,20 @@ class Context:
         return epoch
 
     def _on_catalog_change(self, tables=None) -> None:
-        """Drop the cached results a catalog change makes stale: with
-        ``tables`` (a set of (schema, table) names) exactly those that read
-        them (``query.cache.invalidated``), else all of them (a view,
-        function or schema change, whose reach no table names)."""
+        """Drop the cached results and the reuse state (pinned stems,
+        subsumption candidates, incremental states) a catalog change makes
+        stale: with ``tables`` (a set of (schema, table) names) exactly
+        those that read them (``query.cache.invalidated``), else all of
+        them (a view, function or schema change, whose reach no table
+        names)."""
         if tables:
             n = self._result_cache.invalidate_tables(tables)
+            n += self.materialize.invalidate_tables(tables)
             if n:
                 self.metrics.inc("query.cache.invalidated", n)
         else:
             self._result_cache.invalidate_all()
+            self.materialize.invalidate_all()
         self._family_estimates.clear()
 
     # ------------------------------------------------------------ schemas

@@ -4,7 +4,8 @@ Counterpart of `dask_sql_tpu/families/__init__.py`, with the parts the
 planning and compiled paths use: a *family* is the set of queries that
 differ only in literal values (``WHERE d <= DATE '1998-09-02'`` and
 ``WHERE d <= DATE '1998-08-01'``).  `family_of` gives a planned query its
-family identity; the compiled pipelines (physical/compiled*.py) rewrite
+family identity, `compute_stem` its scan->filter prefix's (the stem
+`materialize/` pins); the compiled pipelines (physical/compiled*.py) rewrite
 their expressions with `pipeline_parameterizer`, key their caches on the
 parameterized expressions and take the values at run time, so one
 pipeline serves the whole family (``families.hit``).  Under the serving
@@ -20,9 +21,13 @@ from .batcher import FamilyBatcher
 from .parameterize import (
     FamilyInfo,
     Parameterizer,
+    StemInfo,
     compute_family,
+    compute_stem,
+    full_width_stem,
     normalize_in_values,
     pow2_bucket,
+    stem_of,
 )
 
 logger = logging.getLogger(__name__)
@@ -31,13 +36,17 @@ __all__ = [
     "FamilyBatcher",
     "FamilyInfo",
     "Parameterizer",
+    "StemInfo",
     "batcher_of",
     "compute_family",
+    "compute_stem",
     "enabled",
     "family_of",
+    "full_width_stem",
     "normalize_in_values",
     "pipeline_parameterizer",
     "pow2_bucket",
+    "stem_of",
 ]
 
 

@@ -1,11 +1,11 @@
 """Post-optimize parameterization: lift literals out of a plan into a
 runtime parameter vector.
 
-Copied from `dask_sql_tpu/families/parameterize.py` without its stem
-section (`stem_of`, `compute_stem`, `full_width_stem`: sub-plan
-materialization, which belongs to serving); only import paths differ.  In
-the port a parameter stays a host numpy value: the pipelines' evaluator
-moves it to the device, and code-space compares search the host
+Copied from `dask_sql_tpu/families/parameterize.py`, its stem section
+(`stem_of`, `compute_stem`, `full_width_stem`: the identity of the
+scan->filter prefix that `materialize/` pins) included; only import paths
+differ.  In the port a parameter stays a host numpy value: the pipelines'
+evaluator moves it to the device, and code-space compares search the host
 dictionary with it.
 
 Every query with a different literal used to be a different plan
@@ -287,3 +287,153 @@ def compute_family(plan: p.LogicalPlan) -> FamilyInfo:
     fingerprint = hashlib.sha1(family_repr.encode()).hexdigest()[:16]
     return FamilyInfo(fingerprint, family_repr, tuple(pz.key_values),
                       len(pz.values))
+
+
+# ---------------------------------------------------------------------------
+# plan-prefix (stem) identity — sub-plan materialization
+# ---------------------------------------------------------------------------
+def stem_of(plan: p.LogicalPlan) -> Optional[p.LogicalPlan]:
+    """The plan's materializable *stem*: the maximal contiguous Filter
+    chain sitting directly on the plan's single TableScan (the shared
+    scan->filter prefix a dashboard's sibling queries re-execute).  None
+    when the plan scans zero or several tables, or when the scan carries
+    no filtering work at all (materializing a bare scan would just copy
+    the registered table).  Returns the topmost node of the stem subtree —
+    the SAME object inside ``plan``, so callers can substitute it by
+    identity."""
+    scans = [n for n in p.walk_plan(plan) if isinstance(n, p.TableScan)]
+    if len(scans) != 1:
+        return None
+    scan = scans[0]
+
+    def find(node: p.LogicalPlan) -> Optional[p.LogicalPlan]:
+        # preorder: the first Filter whose chain bottoms at the scan is the
+        # topmost one — the maximal prefix
+        if isinstance(node, p.Filter):
+            cur: p.LogicalPlan = node.input
+            while isinstance(cur, p.Filter):
+                cur = cur.input
+            if cur is scan:
+                return node
+        for child in node.inputs():
+            got = find(child)
+            if got is not None:
+                return got
+        return None
+
+    stem = find(plan)
+    if stem is None and scan.filters:
+        # no Filter node, but pushed-down scan filters still do per-query
+        # work a pinned stem would skip
+        stem = scan
+    return stem
+
+
+@dataclasses.dataclass(frozen=True)
+class StemInfo:
+    """A plan's materializable scan->filter prefix and its identity.
+
+    ``stem``/``scan`` are the ORIGINAL objects inside the plan (substitute
+    by identity); ``preds`` are the Filter-chain predicates bottom-to-top
+    (excluding the scan's pushed-down ``filters``); ``info`` is the
+    PROJECTION-AGNOSTIC family identity — see `compute_stem`."""
+
+    stem: p.LogicalPlan
+    scan: p.TableScan
+    preds: Tuple[Any, ...]
+    info: FamilyInfo
+
+
+def rewrite_column_indexes(expr, index_of) -> Any:
+    """Structural copy of a (frozen-dataclass) expression tree with every
+    `ColumnRef.index` replaced by ``index_of(name)``.  Raises ValueError
+    for shapes whose identity or remapping is not trustworthy: exprs
+    carrying nested plans (their column refs bind elsewhere) and
+    `InArrayExpr` (ndarray reprs truncate, so repr is not identity-grade).
+    Shared by the stem canonicalizer (``index_of`` = constant -1) and the
+    full-width stem builder (``index_of`` = table column position)."""
+    from ..planner.expressions import ColumnRef, InArrayExpr
+
+    if isinstance(expr, ColumnRef):
+        return dataclasses.replace(expr, index=int(index_of(expr.name)))
+    if isinstance(expr, (InArrayExpr, ExistsExpr, InSubqueryExpr,
+                         ScalarSubqueryExpr)) or hasattr(expr, "plan"):
+        raise ValueError(f"unremappable expression {type(expr).__name__}")
+
+    def value_of(v):
+        if isinstance(v, Expr):
+            return rewrite_column_indexes(v, index_of)
+        if isinstance(v, tuple):
+            return tuple(value_of(x) for x in v)
+        return v
+
+    if dataclasses.is_dataclass(expr) and isinstance(expr, Expr):
+        kw = {f.name: value_of(getattr(expr, f.name))
+              for f in dataclasses.fields(expr)}
+        return dataclasses.replace(expr, **kw)
+    return expr
+
+
+def compute_stem(plan: p.LogicalPlan) -> Optional[StemInfo]:
+    """The plan's materializable scan->filter prefix identity, or None.
+
+    The identity must be PROJECTION-AGNOSTIC: column pruning bakes each
+    sibling's projection (and the pruned column indexes) into its
+    TableScan, so fingerprinting the literal stem subtree would give
+    `SELECT a ...` and `SELECT b ...` over the same WHERE different stems.
+    Instead the fingerprint is computed over a canonical form — projection
+    and schemas stripped, every ColumnRef keyed by NAME (index -1) — so
+    sibling queries sharing the prefix map to one stem fingerprint,
+    whatever they project or aggregate above it.  A concrete
+    materialization is keyed on ``(fingerprint, key_values)`` since pinned
+    rows are literal-specific."""
+    stem = stem_of(plan)
+    if stem is None:
+        return None
+    preds: List[Any] = []
+    cur = stem
+    while isinstance(cur, p.Filter):
+        preds.append(cur.predicate)
+        cur = cur.input
+    assert isinstance(cur, p.TableScan)
+    scan = cur
+    preds.reverse()
+    try:
+        nameize = lambda e: rewrite_column_indexes(e, lambda name: -1)
+        node: p.LogicalPlan = dataclasses.replace(
+            scan, schema=[], projection=None,
+            filters=[nameize(f) for f in scan.filters])
+        for pred in preds:
+            node = p.Filter(node, nameize(pred), [])
+    except (ValueError, TypeError):
+        return None
+    return StemInfo(stem, scan, tuple(preds), compute_family(node))
+
+
+def full_width_stem(si: StemInfo, table) -> Optional[p.LogicalPlan]:
+    """An EXECUTABLE copy of the stem reading every column of ``table``
+    (a columnar Table) in registration order — the form a materialization
+    pins, so any sibling's projection can be served from the pinned rows.
+    Filter column indexes remap from the sibling's pruned scan schema to
+    full-table positions by name; None when a referenced column is gone
+    or an expression shape cannot be remapped."""
+    from ..columnar.dtypes import SqlType
+    from ..planner.expressions import Field
+
+    pos = {name: i for i, name in enumerate(table.columns)}
+    fields = [
+        Field(name, col.sql_type,
+              col.validity is not None
+              or col.sql_type in (SqlType.FLOAT, SqlType.DOUBLE))
+        for name, col in table.columns.items()
+    ]
+    try:
+        remap = lambda e: rewrite_column_indexes(e, pos.__getitem__)
+        node: p.LogicalPlan = p.TableScan(
+            si.scan.schema_name, si.scan.table_name, fields,
+            projection=None, filters=[remap(f) for f in si.scan.filters])
+        for pred in si.preds:
+            node = p.Filter(node, remap(pred), fields)
+    except (KeyError, ValueError, TypeError):
+        return None
+    return node

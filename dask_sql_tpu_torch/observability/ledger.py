@@ -21,8 +21,8 @@ Accounting identities (all bytes):
     models            = the model tier's device-resident weights: 0 until
                         the inference tier is ported (ROADMAP.md Queue 1
                         item 9)
-    materialized      = pinned sub-plan stems: 0 until the reuse tier is
-                        ported (item 8c)
+    materialized      = pinned sub-plan stems (materialize/manager.py
+                        `pinned_bytes`)
     headroom          = budget - reserved - result_cache - tables - models
                         - materialized
     drift             = inflight_measured - reserved
@@ -111,10 +111,17 @@ class DeviceLedger:
         return 0
 
     def materialized_bytes(self) -> int:
-        """Device-resident bytes of pinned sub-plan stems: the semantic
-        reuse tier is ROADMAP.md Queue 1 item 8c, so none are pinned
-        yet."""
-        return 0
+        """Device-resident bytes of pinned sub-plan stems (the semantic
+        reuse tier's materializations, materialize/manager.py)."""
+        manager = getattr(self.context, "materialize", None)
+        if manager is None:
+            return 0
+        try:
+            return int(manager.pinned_bytes())
+        except Exception:  # advisory accounting
+            logger.debug("ledger materialized accounting failed",
+                         exc_info=True)
+            return 0
 
     # ------------------------------------------------------------- outputs
     def snapshot(self) -> Dict[str, Any]:

@@ -164,12 +164,11 @@ class CompiledSelect:
                     if dic is None or not _dictionary_sorted(dic):
                         raise _Unsupported("string sort key w/o sorted dict")
         self._ev = _TraceEval(_TableMeta(table))
-        self._tags: List[Tuple[str, np.dtype]] = []
         # both programs over one row: what the evaluator does not take
         # declines now, before the pipeline is cached
         datas, valids = _buffers(table.slice(0, 1))
         mask, ordinal = self._mask(datas, valids, params)
-        self._gather(datas, valids, mask, ordinal, 1, params)
+        self._gather(datas, valids, mask, ordinal, 1, params, [])
 
     # -- the two device programs -------------------------------------------
     def _mask(self, datas, valids, params: Tuple):
@@ -211,9 +210,11 @@ class CompiledSelect:
         return mask, torch.cumsum(mask, 0)
 
     def _gather(self, datas, valids, mask, ordinal, bucket: int,
-                params: Tuple):
+                params: Tuple, tags: List[Tuple[str, np.dtype]]):
         """The packed [2 x outputs, bucket] float64 matrix of the first
-        `bucket` survivors: each output's values, then its validity."""
+        `bucket` survivors: each output's values, then its validity.  The
+        rows' tags land in `tags`, which is this run's own: runs of one
+        cached pipeline on several serving workers share nothing else."""
         ev = self._ev
         idx = sized_nonzero(mask, ordinal, bucket)
         slots: Dict = {PARAMS_SLOT: tuple(params)}
@@ -230,7 +231,7 @@ class CompiledSelect:
                 v = v.expand(bucket)
             flat.append(d)
             flat.append(ones if v is None else v)
-        return pack_flat(flat, self._tags)
+        return pack_flat(flat, tags)
 
     # -- one query ----------------------------------------------------------
     def run(self, table: Table, params: Tuple = (),
@@ -251,15 +252,16 @@ class CompiledSelect:
         # ascend, so the first rows ARE the eager path's first rows
         count = self._limit_trim(count)
         host = None
+        tags: List[Tuple[str, np.dtype]] = []
         if count:
             bucket = 1 << (count - 1).bit_length()
             packed = self._gather(datas, valids, mask, ordinal, bucket,
-                                  params)
+                                  params, tags)
             clock.lap("gather")
             count_d2h()
             host = packed.cpu().numpy()
             clock.lap("d2h")
-        cols, valid_arrs = self._decode_packed(host, count)
+        cols, valid_arrs = self._decode_packed(host, count, tags)
         clock.lap("decode")
         out = self._assemble(cols, valid_arrs, count)
         clock.lap("host_sort")
@@ -271,9 +273,10 @@ class CompiledSelect:
             return min(count, self.limit[0] + self.limit[1])
         return count
 
-    def _decode_packed(self, host: Optional[np.ndarray], count: int):
-        """The packed host matrix -> per-output (data, validity) numpy
-        arrays; `host` is None when no row survives."""
+    def _decode_packed(self, host: Optional[np.ndarray], count: int,
+                       tags: List[Tuple[str, np.dtype]]):
+        """The packed host matrix (its rows' `tags`) -> per-output (data,
+        validity) numpy arrays; `host` is None when no row survives."""
         cols: List[np.ndarray] = []
         valid_arrs: List[Optional[np.ndarray]] = []
         if count == 0 or host is None:
@@ -282,8 +285,8 @@ class CompiledSelect:
                 valid_arrs.append(None)
             return cols, valid_arrs
         for i, (_, sql_type, _) in enumerate(self.out_meta):
-            d = unpack_row(host, 2 * i, self._tags)[:count]
-            v = unpack_row(host, 1 + 2 * i, self._tags).astype(bool)[:count]
+            d = unpack_row(host, 2 * i, tags)[:count]
+            v = unpack_row(host, 1 + 2 * i, tags).astype(bool)[:count]
             target = sql_to_np(sql_type)
             if d.dtype != target:
                 d = d.astype(target)

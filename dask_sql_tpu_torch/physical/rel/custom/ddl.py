@@ -14,10 +14,12 @@ registers files or a published dataset through `Context.create_table`.
 SHOW METRICS reads the Context's metrics registry (`serving/metrics.py`)
 and SHOW PROFILES its profile store (`observability/profiles.py`).
 
+SHOW MATERIALIZED reads the semantic-reuse state (`Context.materialize`,
+materialize/).
+
 The statements whose subsystem the port does not have yet raise
 `NotImplementedError`, naming it and its item in ROADMAP.md's Queue 1:
-SHOW MODELS (item 9), SHOW QUERIES and CANCEL QUERY (item 8b), SHOW
-MATERIALIZED (item 8c), SHOW REPLICAS (item 10).
+SHOW MODELS (item 9) and SHOW REPLICAS (item 10).
 """
 from __future__ import annotations
 
@@ -401,12 +403,36 @@ class CancelQueryPlugin(BaseRelPlugin):
                               "Cancelled": [str(bool(ok)).lower()]})
 
 
+@Executor.add_plugin_class
+class ShowMaterializedPlugin(BaseRelPlugin):
+    """SHOW MATERIALIZED [LIKE 'pat']: the semantic-reuse state
+    (materialize/) as a result set, one row per pinned sub-plan stem
+    (rows and bytes on the device, rewrite hits, the base table's delta
+    epoch it was last refreshed to) and per incrementally maintained
+    aggregate state.  LIKE filters on the kind, the fingerprint or the
+    table name."""
+
+    class_name = "ShowMaterializedNode"
+
+    def convert(self, rel: p.ShowMaterializedNode, executor) -> Table:
+        rows = executor.context.materialize.rows()
+        if rel.like:
+            rows = [r for r in rows
+                    if _like_match(rel.like, r[0])
+                    or _like_match(rel.like, r[1])
+                    or _like_match(rel.like, r[2])]
+        return _string_table({"Kind": [r[0] for r in rows],
+                              "Fingerprint": [r[1] for r in rows],
+                              "Table": [r[2] for r in rows],
+                              "Rows": [str(r[3]) for r in rows],
+                              "Bytes": [str(r[4]) for r in rows],
+                              "Hits": [str(r[5]) for r in rows],
+                              "Epoch": [str(r[6]) for r in rows]})
+
+
 for _node, _statement, _needs in (
         ("ShowModelsNode", "SHOW MODELS",
          "the model registry (ml/, ROADMAP.md Queue 1 item 9)"),
-        ("ShowMaterializedNode", "SHOW MATERIALIZED",
-         "the semantic-reuse state (materialize/, ROADMAP.md Queue 1 "
-         "item 8c)"),
         ("ShowReplicasNode", "SHOW REPLICAS",
          "the fleet router (fleet/, ROADMAP.md Queue 1 item 10)")):
     Executor.add_plugin_class(type(

@@ -9,13 +9,13 @@ card's bytes:
   with no device budget everything stays GREEN).  Transitions publish the
   ``resilience.pressure.band`` gauge and a ``pressure.band`` flight event.
 - **YELLOW** (`suspend_speculative`): the warm-up's replays
-  (serving/warmup.py) and background rebuilds (serving/background.py)
-  wait until the band recovers.
+  (serving/warmup.py), background rebuilds (serving/background.py) and
+  new stem pins (materialize/manager.py) wait until the band recovers.
 - **RED** (`evaluate`): cross-tier reclaim in priority order until
-  headroom is back at the YELLOW floor.  In the port only the result
-  cache's tier holds bytes (`serving/cache.py` `reclaim_bytes`); the stem
-  and model tiers read 0 until `materialize/` and the inference port
-  (ROADMAP.md Queue 1 items 8c and 9) bring them.
+  headroom is back at the YELLOW floor: the result cache's cold entries
+  (`serving/cache.py` `reclaim_bytes`), then the pinned stems
+  (`materialize/manager.py` `reclaim_bytes`); the model tier reads 0
+  until the inference port (ROADMAP.md Queue 1 item 9) brings it.
 - **CRITICAL**: serving/admission.py routes new admissions to the streamed
   rungs where the plan allows and sheds the rest with a drain-predicted
   `PressureShedError`.
@@ -220,8 +220,14 @@ class PressureController:
                 freed["cache"] = int(cache.reclaim_bytes(_remaining()))
             except Exception:  # advisory reclaim
                 logger.debug("cache reclaim failed", exc_info=True)
-        # the stem and model tiers (materialize/, inference/) are not in
-        # the port yet: they hold no bytes to reclaim
+        manager = getattr(ctx, "materialize", None)
+        if manager is not None and _need_more():
+            try:
+                freed["stems"] = int(manager.reclaim_bytes(_remaining()))
+            except Exception:  # advisory reclaim
+                logger.debug("stem reclaim failed", exc_info=True)
+        # the model tier (inference/) is not in the port yet: it holds no
+        # bytes to reclaim
         total = sum(freed.values())
         metrics = getattr(ctx, "metrics", None)
         if metrics is not None:

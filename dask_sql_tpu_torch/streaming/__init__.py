@@ -8,6 +8,9 @@ runs as row partitions instead of being shed:
 
 - `plan.stream_decision`: the routing and the partition sizing over the
   estimator's provable floors;
+- `partition`: the row ranges (`partition_layout`) and their slices of
+  the stored buffers (`slice_chunk`), which `materialize/incremental.py`'s
+  folds cut too;
 - `runner.drive_partitions`: the launches over row ranges (each a slice
   of the stored buffers, DICT and FOR codes as they lie; the reference
   keeps one chunk shape for its compiled executable and masks the last
@@ -24,12 +27,15 @@ This package is not `physical/streaming.py`, which streams lazy parquet
 files in batches and which `stream_decision` declines.
 """
 from .aggregate import StreamedAggregate, try_streamed_aggregate
+from .partition import partition_layout, slice_chunk
 from .plan import StreamDecision, stream_decision
 from .select import try_streamed_select
 
 __all__ = [
     "StreamDecision",
     "StreamedAggregate",
+    "partition_layout",
+    "slice_chunk",
     "stream_decision",
     "try_streamed_aggregate",
     "try_streamed_select",

@@ -44,6 +44,7 @@ from ..physical.compiled import (
     singleflight_get_or_build,
 )
 from ..planner import plan as p
+from .partition import slice_chunk
 from .plan import StreamDecision, shed_ineligible
 from .runner import drive_partitions
 
@@ -222,8 +223,8 @@ def try_streamed_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
     acc: List[Optional[List]] = [None]
 
     def launch(lo: int, chunk_rows: int) -> None:
-        states = compiled.run_partition(table.slice(lo, lo + chunk_rows),
-                                        params)
+        states = compiled.run_partition(
+            slice_chunk(table, lo, chunk_rows), params)
         acc[0] = compiled.combine(acc[0], states)
 
     launches = drive_partitions(executor, decision, launch,

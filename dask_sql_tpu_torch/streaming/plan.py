@@ -29,6 +29,7 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 from ..planner import plan as p
+from .partition import partition_layout
 
 logger = logging.getLogger(__name__)
 
@@ -169,7 +170,7 @@ def stream_decision(plan: p.LogicalPlan, estimate, context, config,
     chunk_rows = max(min(chunk_rows, total), min(min_rows, total))
     if chunk_rows < 1:
         return None
-    n_parts = -(-total // chunk_rows)
+    n_parts = len(partition_layout(total, chunk_rows))
     if n_parts < 2:
         return None
     if n_parts > int(config.get("serving.stream.max_partitions", 256)):

@@ -41,6 +41,7 @@ from ..resilience.errors import (
 )
 from ..resilience.retry import BackoffPolicy, retry_call
 from ..resilience.watchdog import watched_call
+from .partition import partition_layout
 
 logger = logging.getLogger(__name__)
 
@@ -100,7 +101,8 @@ def drive_partitions(executor, decision, launch: Callable[[int, int], None],
     max_launches = 2 * max(1, int(
         config.get("serving.stream.max_partitions", 256)))
     rows_done = part_idx = launches = 0
-    live.update(stream_partitions_total=-(-total // chunk_rows),
+    live.update(stream_partitions_total=len(partition_layout(total,
+                                                             chunk_rows)),
                 stream_partitions_done=0, stream_rows_total=total,
                 stream_rows_done=0, stream_chunk_rows=chunk_rows)
     while rows_done < total:

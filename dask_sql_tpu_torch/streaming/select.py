@@ -24,6 +24,7 @@ from ..physical.compiled_select import (
     _extract,
     resolve_pipeline_inputs,
 )
+from .partition import slice_chunk
 from .plan import StreamDecision, shed_ineligible
 from .runner import drive_partitions
 
@@ -100,7 +101,7 @@ def try_streamed_select(root, executor) -> Optional[Table]:
     parts: List[Table] = []
 
     def launch(lo: int, chunk_rows: int) -> None:
-        out = compiled.run(table.slice(lo, lo + chunk_rows), params)
+        out = compiled.run(slice_chunk(table, lo, chunk_rows), params)
         if out.num_rows:
             parts.append(out)
 
@@ -109,7 +110,7 @@ def try_streamed_select(root, executor) -> Optional[Table]:
     trace_event("rung:streamed_select", rung="streamed_select",
                 partitions=launches, chunk_rows=decision.chunk_rows)
     if not parts:
-        cols, valids = compiled._decode_packed(None, 0)
+        cols, valids = compiled._decode_packed(None, 0, [])
         result = compiled._assemble(cols, valids, 0)
     else:
         result = parts[0] if len(parts) == 1 else Table.concat(parts)

@@ -71,9 +71,10 @@ REWORDED = [
 ]
 
 
-#: the reference's stem materialization (its serving tier) is off for its
-#: EXPLAINs: a scan stem seen twice would be pinned, that is run, and the
-#: pin would change what the Context explains and runs next
+#: stem materialization (the serving tier, materialize/) is off for the
+#: EXPLAINs of both engines: an EXPLAIN observes its plan's scan stem, so a
+#: stem seen twice would be pinned, that is run, and the pin would change
+#: what the Context explains and runs next
 REF_EXPLAIN = {"serving.materialize.enabled": False}
 
 
@@ -588,7 +589,8 @@ def test_explain_rows_match_reference(both, kind, sql):
     rc, pc = both
     want = rc.sql(f"EXPLAIN {kind} {sql}", return_futures=False,
                   config_options=REF_EXPLAIN)
-    got = pc.sql(f"EXPLAIN {kind} {sql}").compute()
+    got = pc.sql(f"EXPLAIN {kind} {sql}",
+                 config_options=REF_EXPLAIN).compute()
     assert list(got.columns) == list(want.columns) == [kind]
     if kind == "ESTIMATE":
         assert_estimate_rows(list(got[kind]), list(want[kind]))

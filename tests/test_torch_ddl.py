@@ -199,7 +199,6 @@ def test_views_describe_and_drop_view(c, df):
     ("CREATE TABLE f WITH (location = '/nowhere.csv', format = 'csv', "
      "distributed = True)", "multi-device storage"),
     ("SHOW MODELS", "model registry"),
-    ("SHOW MATERIALIZED", "semantic-reuse state.*item 8c"),
     ("SHOW REPLICAS", "fleet router"),
 ])
 def test_statements_of_later_items_raise(c, sql, needs):
@@ -209,13 +208,15 @@ def test_statements_of_later_items_raise(c, sql, needs):
 
 @pytest.mark.parametrize("statement", ["SHOW METRICS", "SHOW PROFILES",
                                        "EXPLAIN ANALYZE", "SHOW QUERIES",
-                                       "CANCEL QUERY 'q1'"])
+                                       "CANCEL QUERY 'q1'",
+                                       "SHOW MATERIALIZED"])
 def test_observability_statements_answer(c, statement):
-    """The statements that raised before the observability and serving
-    slices answer: the registry, the profile store, the traced node tree
-    of the query run just before, the in-flight table and a cancel of an
-    unknown qid (`tests/test_torch_observability.py` and
-    `tests/test_torch_live.py` hold them against the reference)."""
+    """The statements that raised before the observability, serving and
+    reuse slices answer: the registry, the profile store, the traced node
+    tree of the query run just before, the in-flight table, a cancel of an
+    unknown qid and the reuse state (`tests/test_torch_observability.py`,
+    `tests/test_torch_live.py` and `tests/test_torch_reuse.py` hold them
+    against the reference)."""
     sql = "SELECT a, SUM(b) AS s FROM df GROUP BY a"
     c.sql(sql, return_futures=False)
     if statement == "EXPLAIN ANALYZE":
@@ -233,6 +234,12 @@ def test_observability_statements_answer(c, statement):
         return
     if statement.startswith("CANCEL"):
         assert got.to_dict("list") == {"Qid": ["q1"], "Cancelled": ["false"]}
+        return
+    if statement == "SHOW MATERIALIZED":
+        # one aggregate registered, no append yet: no state to list
+        assert list(got.columns) == ["Kind", "Fingerprint", "Table", "Rows",
+                                     "Bytes", "Hits", "Epoch"]
+        assert len(got) == 0
         return
     if statement == "SHOW METRICS":
         values = dict(zip(got["Metric"], got["Value"]))

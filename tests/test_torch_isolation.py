@@ -7,8 +7,10 @@ function, a lazy parquet table streamed through the out-of-core
 aggregate, EXPLAIN LINT, EXPLAIN ESTIMATE, a query down the degradation
 ladder under ``compile:always``, EXPLAIN ANALYZE (text and FORMAT JSON),
 SHOW METRICS and SHOW PROFILES, a Q1 family burst on the serving runtime
-with SHOW QUERIES and CANCEL QUERY; and the port's entry points refuse to
-run on the CPU unless asked to."""
+with SHOW QUERIES and CANCEL QUERY, the semantic reuse tiers with SHOW
+MATERIALIZED, a statement over the Presto-wire server and the REPL's
+runner; and the port's entry points refuse to run on the CPU unless asked
+to."""
 import os
 import subprocess
 import sys
@@ -162,6 +164,51 @@ assert c.metrics.counter("serving.batch.launches") == 1, \
 rows = c.sql("SHOW QUERIES", return_futures=False)
 assert {"leader x2", "member x2"} <= set(rows["Value"]), rows
 assert c.sql("CANCEL QUERY 'none'").compute()["Cancelled"][0] == "false"
+# semantic reuse (materialize/): a stem pinned by two siblings and scanned
+# by a third, a tighter literal served by subsumption, an aggregate state
+# folded by an append and answered from it; SHOW MATERIALIZED
+import pandas as pd
+rng = np.random.default_rng(0)
+r = pd.DataFrame({"a": rng.integers(0, 100, 2000),
+                  "k": rng.integers(0, 5, 2000)})
+c.create_table("r", r)
+REUSE = ("serving.materialize.stored", "serving.materialize.hits",
+         "serving.materialize.refreshed", "serving.reuse.subsumption.hits",
+         "serving.reuse.incremental.folds", "serving.reuse.incremental.hits")
+before = {k: c.metrics.counter(k) for k in REUSE}
+for q in ("SELECT a FROM r WHERE a > 3", "SELECT k FROM r WHERE a > 3",
+          "SELECT a, k FROM r WHERE a > 3", "SELECT a, k FROM r WHERE a > 50"):
+    c.sql(q).compute()
+agg = "SELECT k, SUM(a) AS s FROM r GROUP BY k"
+c.sql(agg).compute()
+c.append_rows("r", r.iloc[:10])
+assert c.sql(agg).compute()["s"].sum() == r.a.sum() + r.a[:10].sum()
+reuse = {k: c.metrics.counter(k) - before[k] for k in REUSE}
+assert set(reuse.values()) == {1}, reuse
+assert set(c.sql("SHOW MATERIALIZED").compute()["Kind"]) == {
+    "stem", "incremental"}
+# the front ends: a statement over the Presto wire, and the REPL's runner
+import json, time, urllib.request
+from dask_sql_tpu_torch.cmd import _run_query
+from dask_sql_tpu_torch.server.app import run_server
+srv = run_server(context=c, host="127.0.0.1", port=0, blocking=False)
+try:
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{srv.port}/v1/statement",
+        data=b"SELECT COUNT(*) AS n FROM r", method="POST")
+    with urllib.request.urlopen(req, timeout=30) as resp:
+        payload = json.loads(resp.read())
+    while "nextUri" in payload:
+        time.sleep(0.02)
+        with urllib.request.urlopen(payload["nextUri"], timeout=30) as resp:
+            payload = json.loads(resp.read())
+    assert payload["data"] == [[2010]], payload
+finally:
+    srv.shutdown()
+import contextlib, io
+with contextlib.redirect_stdout(io.StringIO()) as printed:
+    _run_query(c, "SELECT 1 AS one")
+assert "one" in printed.getvalue()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dask_sql_tpu"))
 assert not bad, bad

@@ -32,10 +32,6 @@ from dask_sql_tpu_torch.serving.metrics import MetricsRegistry
 
 import bench
 
-#: the reference's semantic reuse (item 8c) is off on its Contexts
-REF_OPTIONS = {"serving.materialize.enabled": False,
-               "serving.reuse.subsumption": False,
-               "serving.reuse.incremental": False}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -51,7 +47,6 @@ def _fresh_state():
     """Both flight recorders and the reference's config are process-wide:
     each test starts clean and gives back what it found."""
     saved = ref_config.config.effective_items()
-    ref_config.config.update(REF_OPTIONS)
     flight.RECORDER.clear()
     ref_flight.RECORDER.clear()
     yield

@@ -15,8 +15,8 @@ select and TPC-H Q3, the port's stage names equal the reference's less
 ``cache_lookup`` (its result cache), in the same order, and EXPLAIN
 ANALYZE's node labels and rows equal the reference's (the ms aside: the
 tolerance is exact for names, labels and rows, and no time is compared).
-The reference runs on fresh Contexts with its stem materialization off,
-which would change what a used Context runs.  On the card an enabled
+Both engines run on fresh Contexts fed the same statements, their stem
+materialization on (`materialize/`).  On the card an enabled
 tracer synchronizes each node's device before it reads the clock, and
 nothing else does (a spy on `torch.cuda.synchronize`).  A deleted Context
 leaves no table tensor behind in the pipeline caches.
@@ -57,9 +57,6 @@ from tests.tpch import QUERIES, generate
 SELECT_QUERY = ("SELECT l_returnflag, l_extendedprice * (1 - l_discount) "
                 "AS rev FROM lineitem WHERE l_discount > 0.09 "
                 "ORDER BY rev DESC LIMIT 100")
-#: the reference's stem materialization is off: a scan stem seen twice
-#: would be pinned and change what its Context runs next
-REF_OPTIONS = {"serving.materialize.enabled": False}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -117,7 +114,7 @@ def test_stages_and_explain_analyze_match_reference(frames, case):
     rc, pc = _fresh(frames)
     sql = CASES[case]
     got = pc.sql(sql).compute()
-    want = rc.sql(sql, config_options=REF_OPTIONS).compute()
+    want = rc.sql(sql).compute()
     assert len(got) == len(want) > 0
     stages = pc.last_trace.stage_spans()
     ref_names = [s.name for s in rc.last_trace.stage_spans()]
@@ -132,7 +129,7 @@ def test_stages_and_explain_analyze_match_reference(frames, case):
                 if r.endswith(" rows]")]
 
     mine = tree(pc)
-    assert mine == tree(rc, config_options=REF_OPTIONS)
+    assert mine == tree(rc)
     assert len(mine) >= 3
 
 

@@ -5,9 +5,8 @@ Bands, transitions, the reclaim walk, reclaim-before-degrade and the
 CRITICAL admission route run through a port Context and a reference
 Context on one seeded frame, under scoped config (the reference's config
 is process-wide), and must give the same bands, counters and flight
-events.  The port's reclaim has one tier with bytes, the result cache;
-its stem and model tiers read 0 until `materialize/` and the inference
-port arrive, so the reference's stem cases become the cache's here.
+events.  The reclaim walks the result cache, then the pinned stems
+(`materialize/`); the model tier reads 0 until the inference port.
 """
 import time
 
@@ -195,30 +194,71 @@ def test_yellow_pauses_warmup_and_resumes():
 
 # ------------------------------------------------------- RED-band reclaim
 def test_red_reclaim_walks_tiers_in_priority_order():
-    """A small target comes from the cold result cache alone; an OOM
-    reclaim drains every tier that has bytes.  The port's stem and model
-    tiers hold none."""
-    c = _ctx("port", _df(4000, seed=3))
-    c.sql("SELECT a FROM t WHERE a > 3").compute()
-    c.sql("SELECT b FROM t WHERE a > 3").compute()
-    snap = c.ledger.snapshot()
-    assert snap["resultCacheBytes"] > 0 and snap["materializedBytes"] == 0
-    flight.RECORDER.clear()
-    freed = c.pressure.reclaim(1, reason="band")
-    assert freed > 0
-    after = c.ledger.snapshot()
-    assert 0 < after["resultCacheBytes"] < snap["resultCacheBytes"]
-    ev = flight.RECORDER.events(name="pressure.reclaim")[-1]
-    assert ev["cache_bytes"] == freed == snap["resultCacheBytes"] \
-        - after["resultCacheBytes"]
-    assert ev["stem_bytes"] == 0 and ev["model_bytes"] == 0
-    c.pressure.reclaim(None, reason="oom")
-    assert c.ledger.snapshot()["resultCacheBytes"] == 0
-    ev2 = flight.RECORDER.events(name="pressure.reclaim")[-1]
-    assert ev2["reason"] == "oom" and ev2["cache_bytes"] > 0
-    assert c.metrics.counter("resilience.pressure.reclaims") == 2
-    assert c.metrics.counter("resilience.pressure.reclaimed_bytes") \
-        == snap["resultCacheBytes"]
+    """A small target comes from the cold result cache alone, the pinned
+    stem untouched; an OOM reclaim drains the cache, then the stem tier
+    (materialize/).  The same tiers, bytes freed in order and counters in
+    both engines; the model tier holds none."""
+    out = {}
+    for engine in ENGINES:
+        c = _ctx(engine, _df(4000, seed=3))
+        rec = _flight(engine).RECORDER
+        with c.config.set({"serving.materialize.min_bytes": 1}):
+            c.sql("SELECT a FROM t WHERE a > 3").compute()
+            c.sql("SELECT b FROM t WHERE a > 3").compute()
+            snap = c.ledger.snapshot()
+            assert snap["resultCacheBytes"] > 0
+            assert snap["materializedBytes"] > 0
+            assert snap["materializedBytes"] == c.materialize.pinned_bytes()
+            rec.clear()
+            freed = c.pressure.reclaim(1, reason="band")
+            assert freed > 0
+            after = c.ledger.snapshot()
+            assert after["materializedBytes"] == snap["materializedBytes"]
+            assert after["resultCacheBytes"] < snap["resultCacheBytes"]
+            ev = rec.events(name="pressure.reclaim")[-1]
+            assert ev["cache_bytes"] == freed
+            assert ev["stem_bytes"] == 0 and ev["model_bytes"] == 0
+            c.pressure.reclaim(None, reason="oom")
+            drained = c.ledger.snapshot()
+            assert drained["resultCacheBytes"] == 0
+            assert drained["materializedBytes"] == 0
+            ev2 = rec.events(name="pressure.reclaim")[-1]
+            assert ev2["reason"] == "oom"
+            assert ev2["stem_bytes"] == snap["materializedBytes"]
+            assert rec.events(name="materialize.evict")
+        assert c.metrics.counter("resilience.pressure.reclaims") == 2
+        assert c.metrics.counter("resilience.pressure.reclaimed_bytes") \
+            == snap["resultCacheBytes"] + snap["materializedBytes"]
+        out[engine] = (ev2["model_bytes"], c.metrics.counter(
+            "serving.materialize.evicted"), c.metrics.counter(
+            "serving.materialize.stored"))
+    assert out["port"] == out["ref"] == (0, 1, 1)
+
+
+def test_yellow_suspends_then_resumes_materialization():
+    """Under YELLOW a stem that earned its pin waits (a speculative pin),
+    its hit count kept; back in GREEN the next sibling pins it.  The same
+    counters in both engines."""
+    out = {}
+    for engine in ENGINES:
+        c = _ctx(engine, _df(4000, seed=1))
+        with c.config.set({"serving.materialize.min_bytes": 1}):
+            used = _used_bytes(c)
+            with c.config.set({"serving.scheduler.device_budget_bytes":
+                               int(used / 0.82)}):
+                assert c.pressure.band() == "yellow"
+                c.sql("SELECT a FROM t WHERE a > 96").compute()
+                c.sql("SELECT b FROM t WHERE a > 96").compute()
+                stored = c.metrics.counter("serving.materialize.stored")
+                suspended = c.metrics.counter(
+                    "resilience.pressure.suspended")
+            with c.config.set({"serving.scheduler.device_budget_bytes":
+                               used * 20}):
+                assert c.pressure.band() == "green"
+                c.sql("SELECT k FROM t WHERE a > 96").compute()
+        out[engine] = (stored, suspended >= 1,
+                       c.metrics.counter("serving.materialize.stored"))
+    assert out["port"] == out["ref"] == (0, True, 1)
 
 
 def test_red_band_evaluate_reclaims_to_the_yellow_floor():

@@ -29,11 +29,6 @@ import bench
 
 IMPLS = {"port": port_serving, "ref": ref_serving}
 
-#: the reference's semantic reuse (ROADMAP.md Queue 1 item 8c) is off: it
-#: would answer some repeats before the port's next rung could
-REF_OPTIONS = {"serving.materialize.enabled": False,
-               "serving.reuse.subsumption": False,
-               "serving.reuse.incremental": False}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -48,10 +43,9 @@ def _one_thread():
 
 @pytest.fixture(autouse=True)
 def _ref_config():
-    """The reference's config is process-global: each test starts with
-    its semantic reuse off and gets back what it found."""
+    """The reference's config is process-global: each test gives back
+    what it found."""
     saved = ref_config.config.effective_items()
-    ref_config.config.update(REF_OPTIONS)
     yield
     ref_config.config.update(dict(saved))
 

@@ -34,10 +34,10 @@ def _rungs(before, after):
 def contexts():
     """(reference, port, EXPLAIN rows) over the same eight tables.  The
     rows, {(query, LINT | ESTIMATE): (port rows, reference rows)}, are
-    taken before either Context runs a query, the reference's stem
-    materialization off (`tests/test_torch_analysis.py` `REF_EXPLAIN`):
-    after it has run q6, the reference explains q6's scan with all its
-    rows, and a stem its EXPLAINs pinned would change the rungs of q6."""
+    taken before either Context runs a query, stem materialization off in
+    both (`tests/test_torch_analysis.py` `REF_EXPLAIN`): after it has run
+    q6, an engine explains q6's scan with all its rows, and a stem its
+    EXPLAINs pinned would change the rungs of q6."""
     from tests.test_torch_analysis import REF_EXPLAIN
 
     tables = generate(2000)
@@ -51,7 +51,7 @@ def contexts():
         for kind in ("LINT", "ESTIMATE"):
             sql = f"EXPLAIN {kind} {QUERIES[q]}"
             explains[q, kind] = (
-                list(pc.sql(sql).compute()[kind]),
+                list(pc.sql(sql, config_options=REF_EXPLAIN).compute()[kind]),
                 list(rc.sql(sql, return_futures=False,
                             config_options=REF_EXPLAIN)[kind]))
     return rc, pc, explains
