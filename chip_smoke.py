@@ -114,6 +114,16 @@ pin) and reclaims the cache and then the stem at RED.  The ``server``
 phase starts the Presto-wire server on the card (Q1 and eight members
 of its family over HTTP, a 429, a cancel, ``/v1/metrics``) and pipes a
 CREATE TABLE WITH (location = ...) and Q1 into the REPL on the card.
+The ``surface_rest`` phase drives Q1's frame through ``head(5)``,
+``len()`` (one transfer and one launch each), ``persist()`` and
+``explain_str()``, `Context.visualize` (a PNG, or its ``.txt`` without
+matplotlib), ``fqn``, `Context.run_server` on the card (one POST of Q1)
+and ``stop_server`` (its port closed), and the ``%%sql`` magic where
+IPython imports.  The ``chaos`` phase runs one seeded chaos campaign
+(``resilience/chaos.py``) on a card Context with the lock sanitizer armed:
+every invariant holds, the card's bytes among them, and the storm's kernel
+calls are held against the plain version.  The ``selflint`` phase runs
+``python -m dask_sql_tpu_torch.analysis --self`` (exit 0, no finding).
 Every phase but ``resilience`` and ``coldstart`` fails if a rung steps
 down, answers on the CPU or moves a breaker (``observability`` allows only
 its ``compile:always`` run's steps).
@@ -4013,6 +4023,264 @@ def server(df, want, card, segsum):
     return {"launches": family_launches}
 
 
+CHAOS_SEED = 16
+CHAOS_QUERIES = 96
+CHAOS_ROUNDS = 4
+CHAOS_WORKERS = 8
+
+
+def port_closed(port: int) -> bool:
+    """True when nothing answers on the port any more."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/info",
+                               timeout=10).close()
+    except urllib.error.HTTPError:
+        return False  # an answer, whatever its status
+    except (urllib.error.URLError, ConnectionError, OSError):
+        return True
+    return False
+
+
+def surface_rest(df, want, card, segsum, transfers):
+    """The `surface_rest` phase on Q1's 6,000,000 encoded rows (result
+    cache off): ``head(5)`` and ``len()`` each take Q1's one transfer and
+    one launch and equal the oracle, ``persist()`` executes once and a
+    later ``compute()`` adds neither, ``explain_str()`` is the plan
+    ``explain`` prints, `visualize` writes its PNG (or, without
+    matplotlib, its ``.txt``), `fqn`; `Context.run_server` on the card
+    answers one POST of Q1, and `stop_server` closes its port; the
+    ``%%sql`` magic answers Q1 where IPython imports (its absence is
+    printed: the magic is `Context.sql`, which this phase drives anyway).
+    Each path's kernel calls are held against the plain version."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    c, _, _ = load_tables({"lineitem": df})
+    launches, calls = {}, []
+
+    def run(label, fn, d2h=1):
+        reset_launches(segsum)
+        transfers["d2h"] = 0
+        t0 = time.perf_counter()
+        out = []
+        calls.extend(capture_calls(segsum, lambda: out.append(fn())))
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[f"surface_rest_{label}"] = segsum.LAUNCHES["segsum"]
+        if segsum.LAUNCHES["segsum"] != 1 or transfers["d2h"] != d2h:
+            fail(f"{label}: {dict(segsum.LAUNCHES)} launches, "
+                 f"{transfers['d2h']} transfers, expected 1 and {d2h}")
+        return out[0], ms
+
+    head, head_ms = run("head", lambda: c.sql(QUERY).head(5))
+    head_rel = check_q1(head, want.head(5), "head(5)")
+    n, len_ms = run("len", lambda: len(c.sql(QUERY)))
+    if n != len(want):
+        fail(f"len() of Q1 is {n}, the oracle has {len(want)} rows")
+    frame, persist_ms = run("persist", lambda: c.sql(QUERY).persist())
+    reset_launches(segsum)
+    transfers["d2h"] = 0
+    persist_rel = check_q1(frame.compute(), want, "persist().compute()")
+    if segsum.LAUNCHES["segsum"] or transfers["d2h"] > 1:
+        fail(f"compute() after persist() launched {dict(segsum.LAUNCHES)}, "
+             f"{transfers['d2h']} transfers")
+    plan_text = frame.explain_str()
+    if plan_text != c.explain(QUERY) or "Aggregate" not in plan_text:
+        fail(f"explain_str() of Q1: {plan_text[:200]!r}")
+    if c.fqn(["lineitem"]) != ("root", "lineitem") \
+            or c.fqn(["s", "t"]) != ("s", "t"):
+        fail(f"fqn: {c.fqn(['lineitem'])} {c.fqn(['s', 't'])}")
+    with tempfile.TemporaryDirectory() as d:
+        png = os.path.join(d, "q1.png")
+        t0 = time.perf_counter()
+        c.visualize(QUERY, filename=png)
+        vis_ms = (time.perf_counter() - t0) * 1e3
+        written = png if os.path.exists(png) else png + ".txt"
+        if not os.path.exists(written):
+            fail("visualize wrote neither the PNG nor the .txt")
+        with open(written, "rb") as f:
+            head_bytes = f.read(8)
+        vis_bytes = os.path.getsize(written)
+        if written == png and head_bytes != b"\x89PNG\r\n\x1a\n":
+            fail("visualize wrote a .png that is no PNG")
+    phase("surface_rest", part="frame", card=card, rows=N_ROWS,
+          head_ms=head_ms, len_ms=len_ms, persist_ms=persist_ms,
+          head_max_rel_err=head_rel, persist_max_rel_err=persist_rel,
+          d2h={"head": 1, "len": 1, "persist": 1}, launches=dict(launches),
+          explain_lines=len(plan_text.splitlines()),
+          visualize=os.path.basename(written), visualize_bytes=vis_bytes,
+          visualize_ms=vis_ms, fqn=list(c.fqn(["lineitem"])))
+
+    # the Presto server of this Context on the card, kept and stopped; its
+    # boot warms Q1's profiled family first (serving/warmup.py)
+    srv = c.run_server(host="127.0.0.1", port=0, blocking=False)
+    port = srv.port
+    try:
+        if c.server is not srv or str(srv.context.device) != "cuda:0":
+            fail(f"run_server kept {c.server} on {srv.context.device}")
+        if c.warmup is not None:
+            c.warmup.join(120)
+            phase("surface_rest", part="server_warmup", card=card,
+                  status=c.warmup.status())
+        payload, post_ms = run("server", lambda: synced_ms(
+            lambda: http_follow(http_post(port, QUERY)[1])))[0]
+        if payload["stats"]["state"] != "FINISHED":
+            fail(f"Q1 over HTTP: {payload.get('error')}")
+        server_rel = check_q1(wire_frame(payload), want, "Q1 over HTTP")
+    finally:
+        c.stop_server()
+    if c.server is not None or not port_closed(port):
+        fail(f"stop_server left port {port} open")
+    phase("surface_rest", part="server", card=card, device="cuda:0",
+          port_closed=True, ms=post_ms, max_rel_err=server_rel,
+          launches=launches["surface_rest_server"])
+
+    # the %%sql magic, where IPython imports
+    try:
+        from IPython.core.interactiveshell import InteractiveShell
+    except ImportError:
+        phase("surface_rest", part="sql_magic", card=card,
+              ipython="not installed: the magic was not driven (it is "
+                      "Context.sql, driven above)")
+    else:
+        shell = InteractiveShell.instance()
+        shell.user_ns["_ctx"] = c
+        if not shell.run_cell("_ctx.ipython_magic()").success:
+            fail("ipython_magic() failed to register %%sql")
+
+        def magic():
+            out = shell.run_cell("%%sql\n" + QUERY)
+            if not out.success:
+                fail(f"%%sql Q1: {out.error_in_exec}")
+            return out.result
+
+        got, magic_ms = run("sql_magic", magic)
+        magic_rel = check_q1(got, want, "%%sql Q1")
+        shell.user_ns.pop("_ctx", None)
+        phase("surface_rest", part="sql_magic", card=card, ms=magic_ms,
+              max_rel_err=magic_rel,
+              launches=launches["surface_rest_sql_magic"])
+        del shell, got
+    check_not_degraded(c, "surface_rest")
+    err = check_calls(segsum, calls, "surface_rest")
+    phase("surface_rest", part="seconds", card=card,
+          seconds=time.perf_counter() - t_phase)
+    del c, frame, head, calls, srv
+    return {"launches": launches, "max_abs_err": err}
+
+
+def chaos(card, segsum):
+    """The `chaos` phase: one seeded campaign
+    (`resilience/chaos.py` `run_campaign`, CHAOS_QUERIES queries over
+    CHAOS_ROUNDS rounds on CHAOS_WORKERS workers, checkpoint writes in a
+    temporary directory, the lock sanitizer armed) on a card Context.  Its
+    report must hold every invariant, the card's bytes back within
+    FREED_SLACK once its Context is gone among them; the armed sites, the
+    outcomes and the wall time are printed, and the kernel's calls of the
+    storm (the grouped sums of ``t_small`` on the fused aggregate and of
+    ``t_big`` on the streamed one), copied to the host as they are made,
+    are held against the plain version after it."""
+    import tempfile
+
+    from dask_sql_tpu_torch.resilience import chaos as chaos_mod
+
+    host_calls, host_stacked = [], []
+    typed, stacked = segsum.segsum_typed, segsum.segsum_stacked
+    lock = threading.Lock()
+
+    def to_host(columns):
+        return [(d.cpu(), None if m is None else m.cpu()) for d, m in columns]
+
+    def to_card(columns):
+        return [(d.cuda(), None if m is None else m.cuda())
+                for d, m in columns]
+
+    # host copies of the storm's calls: the campaign's card-bytes
+    # invariant must not see tensors kept for the check
+    def capture(gid, columns, domain):
+        with lock:
+            host_calls.append((gid.cpu(), to_host(columns), domain))
+        return typed(gid, columns, domain)
+
+    def capture_stacked(gid, members, domain):
+        with lock:
+            host_stacked.append((gid.cpu(), [to_host(m) for m in members],
+                                 domain))
+        return stacked(gid, members, domain)
+
+    reset_launches(segsum)
+    segsum.segsum_typed, segsum.segsum_stacked = capture, capture_stacked
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            report = chaos_mod.run_campaign(
+                seed=CHAOS_SEED, queries=CHAOS_QUERIES, rounds=CHAOS_ROUNDS,
+                workers=CHAOS_WORKERS, state_dir=os.path.join(d, "state"),
+                config_options={"analysis.lock_sanitizer": True})
+    finally:
+        segsum.segsum_typed, segsum.segsum_stacked = typed, stacked
+    wall_s = time.perf_counter() - t0
+    launches = dict(segsum.LAUNCHES)
+    if not report.ok:
+        fail("chaos invariant violations: " + "; ".join(report.violations))
+    if not report.device.startswith("cuda") or report.card_before is None:
+        fail(f"the campaign ran on {report.device}")
+    if not launches["segsum"] + launches["segsum_stacked"] \
+            or len(host_calls) + len(host_stacked) == 0:
+        fail(f"the storm launched the kernel {launches}, "
+             f"{len(host_calls)} + {len(host_stacked)} calls seen")
+    calls = [(g.cuda(), to_card(cols), dom) for g, cols, dom in host_calls]
+    err = check_calls(segsum, calls, "chaos") if calls else 0.0
+    for i, (g, members, dom) in enumerate(host_stacked):
+        g, members = g.cuda(), [to_card(m) for m in members]
+        got = segsum.segsum_stacked(g, members, dom)
+        ref = segsum.segsum_stacked_plain(g, members, dom)
+        for j, (a, b) in enumerate(zip(got, ref)):
+            e = (a - b).abs()
+            rel = float((e / b.abs().clamp_min(1e-30)).max()) \
+                if e.numel() else 0.0
+            if not rel <= REL_BOUND:
+                fail(f"chaos stacked call {i} member {j}: relative error "
+                     f"{rel} > {REL_BOUND}")
+            err = max(err, float(e.max()) if e.numel() else 0.0)
+    phase("chaos", card=card, seed=report.seed, ok=report.ok,
+          summary=report.summary(), armed=report.armed,
+          outcomes={"submitted": report.submitted,
+                    "completed": report.completed, "failed": report.failed,
+                    "cancelled": report.cancelled, "shed": report.shed},
+          card_before=report.card_before, card_after=report.card_after,
+          launches=launches, calls_checked=len(calls),
+          stacked_calls_checked=len(host_stacked), max_abs_err=err,
+          wall_s=wall_s)
+    del calls, host_calls, host_stacked
+    return {"launches": {"chaos_storm": launches["segsum"],
+                         "chaos_storm_stacked": launches["segsum_stacked"]},
+            "max_abs_err": err}
+
+
+def selflint(card):
+    """The `selflint` phase: ``python -m dask_sql_tpu_torch.analysis --self
+    --format json`` in a subprocess exits 0 with no finding; the file
+    count and the wall time are printed."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "dask_sql_tpu_torch.analysis", "--self",
+         "--format", "json"], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    seconds = time.perf_counter() - t0
+    try:
+        payload = json.loads(out.stdout)
+    except ValueError:
+        payload = {}
+    if out.returncode != 0 or payload.get("findings") != []:
+        fail(f"the self-lint exited {out.returncode}: "
+             f"{out.stdout[-2000:]!r} {out.stderr[-2000:]!r}")
+    phase("selflint", card=card, exit_code=out.returncode,
+          files=payload["files"], findings=0, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
@@ -4328,6 +4596,16 @@ def main() -> int:
     mem0 = card_allocated()
     server_out = server(df, want, card, segsum)
     check_card_freed(mem0, "server")
+    # 8i. the `surface_rest`, `chaos` and `selflint` phases: the frame and
+    # Context methods on Q1's rows, a chaos campaign on the card, and the
+    # port's self-lint
+    mem0 = card_allocated()
+    surface_rest_out = surface_rest(df, want, card, segsum, TRANSFER_STATS)
+    check_card_freed(mem0, "surface_rest")
+    mem0 = card_allocated()
+    chaos_out = chaos(card, segsum)
+    check_card_freed(mem0, "chaos")
+    selflint(card)
     t0 = time.perf_counter() - gen3_s
     tables = {n: all_tables[n] for n in ("customer", "orders", "lineitem")}
     mem0 = card_allocated()
@@ -4572,7 +4850,9 @@ def main() -> int:
                              **coldstart_out["launches"],
                              **reuse_out["launches"],
                              "server_q1_family":
-                                 server_out["launches"]["segsum"]},
+                                 server_out["launches"]["segsum"],
+                             **surface_rest_out["launches"],
+                             **chaos_out["launches"]},
         "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"],
                            tpcds_launches["max_abs_err"],
                            surface_q1_launches["max_abs_err"],
@@ -4582,7 +4862,9 @@ def main() -> int:
                            resilience_out["max_abs_err"],
                            observability_out["max_abs_err"],
                            streamed_out["max_abs_err"],
-                           reuse_out["max_abs_err"]),
+                           reuse_out["max_abs_err"],
+                           surface_rest_out["max_abs_err"],
+                           chaos_out["max_abs_err"]),
         "ms": t_ms,
         "plain_ms": t_plain_ms,
         "bound_ms": t_bound_ms,

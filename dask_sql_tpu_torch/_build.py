@@ -122,6 +122,9 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            # the single flight of a library's build: concurrent first
+            # callers wait for the one nvcc run instead of racing it
+            # dsql: allow-blocking-under-lock — deliberate, once a library
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             for fn, argtypes in KERNELS[name][1].items():

@@ -14,11 +14,14 @@ Counterpart of `dask_sql_tpu/analysis/__init__.py`:
   interpreter of cardinality and byte intervals per node, with a provable
   lower bound and a conservative upper bound on peak device bytes.
   ``EXPLAIN ESTIMATE`` shows it; budget proofs pre-skip compiled rungs.
-
-The reference's engine self-lint (`selflint.py`, `concurrency.py`,
-`dataflow.py`, `effects.py`, `configkeys.py`, `__main__.py`) waits for
-ROADMAP.md Queue 1 item 8: its DSQL401/501 rules read the serving-metric
-and flight-event registries.
+- **Engine self-lint** (`selflint.py`, `concurrency.py`, `dataflow.py`,
+  `effects.py`, `configkeys.py`): an AST analyzer over the port's own
+  source (``python -m dask_sql_tpu_torch.analysis --self``) with the
+  reference's rules DSQL101-703: broad exception handlers, lock coverage,
+  host syncs on a compiled pipeline's run path, metric, flight-event and
+  config-key registry drift, lock-order cycles, blocking calls under a
+  lock, the ``_locked`` suffix, paired effects released on every path and
+  bare exceptions escaping a serving boundary.
 """
 from .estimator import (
     Interval,
@@ -27,6 +30,7 @@ from .estimator import (
     estimate_plan,
 )
 from .findings import Finding, SEV_ERROR, SEV_INFO, SEV_WARN
+from .selflint import LintFinding, RULES, lint_paths, self_lint
 from .verifier import (
     PlanVerdict,
     RADIX_DOMAIN_LIMIT,
@@ -38,15 +42,19 @@ from .verifier import (
 __all__ = [
     "Finding",
     "Interval",
+    "LintFinding",
     "PlanEstimate",
     "PlanVerdict",
     "RADIX_DOMAIN_LIMIT",
+    "RULES",
     "SEV_ERROR",
     "SEV_INFO",
     "SEV_WARN",
     "check_plan",
     "estimate_and_apply",
     "estimate_plan",
+    "lint_paths",
+    "self_lint",
     "verify_and_apply",
     "verify_plan",
 ]

@@ -131,7 +131,8 @@ def _dtype_width(t: SqlType) -> int:
     the host dictionary is not device memory and is not counted)."""
     try:
         return int(sql_to_np(t).itemsize)
-    except Exception:  # an exotic type: the widest claim
+    except Exception:  # dsql: allow-broad-except — an exotic type: the widest
+        # claim
         return 8
 
 
@@ -487,7 +488,8 @@ class _Estimator:
         from . import fused
         from ..physical.compiled_select import _extract
 
-        if not self._compiles("sql.compile"):
+        if not (self._compiles("sql.compile")
+                and self._compiles("sql.compile.select")):
             return None
         got = _extract(root)
         if got is None:

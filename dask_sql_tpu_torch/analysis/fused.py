@@ -65,7 +65,8 @@ def _width(t: SqlType) -> int:
         return 1
     try:
         return int(sql_to_np(t).itemsize)
-    except Exception:  # an exotic type: the widest claim
+    except Exception:  # dsql: allow-broad-except — an exotic type: the widest
+        # claim
         return 8
 
 

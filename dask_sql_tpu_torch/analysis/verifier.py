@@ -135,7 +135,8 @@ def _known_ops() -> Optional[frozenset]:
         from ..physical.rex.operations import CORE_OPS, OPERATION_MAPPING
 
         return frozenset(OPERATION_MAPPING) | CORE_OPS
-    except Exception:  # the op table is optional here
+    except Exception:  # dsql: allow-broad-except — the op table is optional
+        # here
         return None
 
 
@@ -239,8 +240,9 @@ class _Verifier:
         child_rows = [self._walk(c) for c in node.inputs()]
         try:
             return self._check(node, child_rows)
-        except Exception:  # a verifier bug must never block planning: the
-            # subtree goes unverified, counted in analysis.verifier_internal
+        except Exception:  # dsql: allow-broad-except — a verifier bug must
+            # never block planning: the subtree goes unverified, counted in
+            # analysis.verifier_internal
             self.internal_errors += 1
             logger.debug("plan verifier failed on %s; subtree unverified",
                          node.node_type, exc_info=True)
@@ -622,7 +624,7 @@ class _Verifier:
 
         try:
             return resolve_type(rule, arg_types)
-        except Exception:  # no claim on failure
+        except Exception:  # dsql: allow-broad-except — no claim on failure
             return None
 
     def _promote_all(self, types) -> Optional[SqlType]:
@@ -635,7 +637,7 @@ class _Verifier:
         try:
             for u in known[1:]:
                 t = promote(t, u)
-        except Exception:  # no claim on failure
+        except Exception:  # dsql: allow-broad-except — no claim on failure
             return None
         return t
 

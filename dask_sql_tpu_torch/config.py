@@ -3,13 +3,17 @@
 Counterpart of `dask_sql_tpu/config.py`, with only the keys this port reads
 and the reference's defaults.  Each `Context` owns one `Config`; `set()`
 pushes a scoped overlay (per-query options of `Context.sql`).
+`DOCUMENTED_KEYS` is the registry the self-lint's DSQL703 checks every
+literal ``config.get`` against (analysis/configkeys.py); under
+``analysis.strict_config`` a dynamic read of an unregistered key warns once
+per key.
 """
 from __future__ import annotations
 
 import contextlib
 import logging
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 DEFAULTS: Dict[str, Any] = {
     "sql.identifier.case_sensitive": True,
@@ -26,6 +30,7 @@ DEFAULTS: Dict[str, Any] = {
     "sql.sort.topk-nelem-limit": 1000000,
     "sql.compile": True,  # the fused aggregate and join->aggregate pipelines
     "sql.compile.join_pipeline": True,  # the scan->joins->aggregate pipeline
+    "sql.compile.select": True,  # one-kernel root select chains
     # segment-sum mode: auto | scatter | matmul | pallas (the last two pick
     # the hand-written kernel, ops/segsum.py choose_segsum_impl)
     "sql.compile.segsum": "auto",
@@ -195,7 +200,76 @@ DEFAULTS: Dict[str, Any] = {
     "columnar.encoding.for": True,
     "columnar.encoding.rle": True,
     "columnar.encoding.dict_max_card": 1 << 15,
+    # the runtime lock sanitizer (runtime/locks.py): rank and order-graph
+    # checks on every blocking acquire of a NamedLock.  Off by default
+    # (bookkeeping on hot locks); a Context whose config turns it on arms
+    # the process-wide sanitizer (it never disarms it)
+    "analysis.lock_sanitizer": False,
+    # warn (once per key) when config.get reads a key absent from
+    # DOCUMENTED_KEYS; read by Config._note_unregistered in THIS module,
+    # which the dead-key scan excludes
+    "analysis.strict_config": False,  # dsql: allow-config-key — read here
 }
+
+
+class KeySpec(NamedTuple):
+    """Registry row of one documented config key: its default and the
+    value types a reader may hand to it (copied from
+    `dask_sql_tpu/config.py`).  DSQL703 (analysis/configkeys.py) checks
+    every literal ``config.get`` site against the registry: a typo'd key
+    silently reads its fallback default forever."""
+    default: Any
+    types: Tuple[type, ...]
+
+
+#: value types of keys whose default is None (the default alone cannot
+#: imply them); byte budgets accept strings ("64MB") via parse_byte_budget
+_NULLABLE_KEY_TYPES: Dict[str, Tuple[type, ...]] = {
+    "analysis.estimate.device_budget_bytes": (int, str),
+    "serving.batch.max_running": (int,),
+    "serving.deadline_s": (float, int),
+    "serving.admission.max_estimated_bytes": (int, str),
+    "serving.stream.chunk_rows": (int,),
+    "serving.stream.launch_timeout_ms": (float, int),
+    "serving.compile_cache.path": (str,),
+    "serving.scheduler.device_budget_bytes": (int, str),
+    "serving.tenant.rate_qps": (float, int),
+    "observability.slow_query_ms": (float, int),
+    "observability.slow_query_path": (str,),
+    "observability.flight.dump_path": (str,),
+    "resilience.compile_timeout_ms": (float, int),
+    "resilience.inject": (str,),
+}
+
+
+def _types_of(key: str, default: Any) -> Tuple[type, ...]:
+    if default is None:
+        return _NULLABLE_KEY_TYPES.get(key, (object,))
+    if isinstance(default, bool):
+        return (bool,)
+    if isinstance(default, int):
+        return (int,)
+    if isinstance(default, float):
+        return (float, int)
+    return (type(default),)
+
+
+#: every key a ``config.get("<literal>")`` site may read, built from
+#: DEFAULTS so the comments above stay the one source of truth
+DOCUMENTED_KEYS: Dict[str, KeySpec] = {
+    key: KeySpec(default, _types_of(key, default))
+    for key, default in DEFAULTS.items()
+}
+
+
+def is_documented_key(key: str) -> bool:
+    return key in DOCUMENTED_KEYS
+
+
+#: keys already warned about under analysis.strict_config: once per key
+#: per process; a plain set on purpose (a racing double add only repeats
+#: one log line)
+_warned_unregistered: set = set()
 
 
 class Config:
@@ -206,10 +280,27 @@ class Config:
         self._local = threading.local()
 
     def get(self, key: str, default: Any = None) -> Any:
+        if key not in DOCUMENTED_KEYS:
+            self._note_unregistered(key)
         for frame in reversed(getattr(self._local, "stack", None) or ()):
             if key in frame:
                 return frame[key]
         return self._values.get(key, default)
+
+    def _note_unregistered(self, key: str) -> None:
+        """The runtime twin of DSQL703 for keys the static pass cannot see
+        (computed names): under ``analysis.strict_config``, warn once per
+        key.  The strict key itself is documented, so the ``get`` below
+        ends after one level."""
+        if key in _warned_unregistered:
+            return
+        if not self.get("analysis.strict_config", False):
+            return
+        _warned_unregistered.add(key)
+        logging.getLogger(__name__).warning(
+            "config.get(%r): key is not in config.DOCUMENTED_KEYS; "
+            "register it with a default and type (analysis.strict_config)",
+            key)
 
     def update(self, options: Optional[Dict[str, Any]]) -> None:
         self._values.update(options or {})

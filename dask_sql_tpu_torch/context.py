@@ -182,14 +182,11 @@ class TorchFrame:
                         live_qid = live_qid or uuid.uuid4().hex[:16]
                         live_ticket = QueryTicket(live_qid)
                         stack.enter_context(ticket_scope(live_ticket))
+                    # dsql: allow-unpaired-effect — _finish_live ExitStack
                     entry = ctx.live_queries.begin(
                         live_qid or live_ticket.qid, sql=sql_text,
                         ticket=live_ticket, trace=tr,
                         priority_class=live_ticket.priority_class)
-                ctx.live_queries.start(entry.qid)
-                entry.family = family_fp
-                entry.fingerprint = fp
-                stack.enter_context(observability.live.activate(entry))
 
                 def _finish_live(exc_type, exc, tb):
                     if exc is None:
@@ -211,9 +208,14 @@ class TorchFrame:
                             entry.qid, code, ctx.config, ctx.metrics)
                     return False
 
-                # pushed after the trace hook so it runs first on unwind:
-                # the entry is terminal before the slow-query check
+                # pushed after the trace hook so it runs first on unwind
+                # (the entry is terminal before the slow-query check), and
+                # right after the begin, so no exception leaves the row open
                 stack.push(_finish_live)
+                ctx.live_queries.start(entry.qid)
+                entry.family = family_fp
+                entry.fingerprint = fp
+                stack.enter_context(observability.live.activate(entry))
                 with observability.stage("cache_lookup"):
                     key = ctx._result_cache_key(self._plan,
                                                 self._config_options)
@@ -358,20 +360,53 @@ class TorchFrame:
                 out.append(n)
         return out
 
+    def persist(self) -> "TorchFrame":
+        """Execute now and keep the result Table (on the context's device
+        for a card query); later calls reuse it."""
+        self.execute()
+        return self
+
+    def head(self, n: int = 5):
+        """The first ``n`` rows as pandas (the whole result is computed)."""
+        return self.compute().head(n)
+
+    def __len__(self) -> int:
+        """The result's row count, read off the executed Table: no pull
+        beyond the execution's own."""
+        return self.execute().num_rows
+
+    def explain_str(self) -> str:
+        """The optimized plan this frame executes, as text."""
+        return self._plan.explain()
+
 
 class Context:
     DEFAULT_SCHEMA_NAME = "root"
     _PLAN_CACHE_CAP = 128
 
-    def __init__(self, device=None):
+    def __init__(self, device=None,
+                 config_options: Optional[Dict[str, Any]] = None):
+        """A Context on ``device`` (the CUDA card when None).
+        ``config_options`` are base values of its `config`, set before any
+        of them is read (the reference's Context reads the process-wide
+        config at this point)."""
         self.device = resolve_device(device)
         self.schema_name = self.DEFAULT_SCHEMA_NAME
         self.schema: Dict[str, SchemaContainer] = {
             self.DEFAULT_SCHEMA_NAME: SchemaContainer(self.DEFAULT_SCHEMA_NAME)
         }
         self.config = Config()
+        self.config.update(config_options)
+        #: the Presto server `run_server` started, which `stop_server` stops
+        self.server = None
         #: counters, gauges and histograms of this Context (SHOW METRICS)
         self.metrics = MetricsRegistry()
+        # arm the process-wide lock sanitizer when this Context's config
+        # asks for it (one way: a later default Context does not disarm
+        # it), and point its violation counters at this registry
+        if self.config.get("analysis.lock_sanitizer", False):
+            runtime_locks.set_enabled(True)
+        runtime_locks.attach_metrics(self.metrics)
         #: per-fingerprint rolling profiles (compile, exec, bytes) behind
         #: SHOW PROFILES
         self.profiles = observability.ProfileStore(
@@ -905,6 +940,71 @@ class Context:
             plan = plan.input
         return plan.explain()
 
+    def visualize(self, sql: str, filename: str = "mydask.png") -> None:
+        """Render the optimized plan tree of ``sql`` to a PNG (matplotlib);
+        without a renderer, write the plan as text to ``filename`` + ".txt"
+        (a name ending in ".txt" is kept).  Copied from the reference."""
+        statements = parse_sql(sql)
+        plan = self._get_ral(
+            statements[0], sql_text=sql if len(statements) == 1 else None)
+        if isinstance(plan, plan_nodes.Explain):
+            plan = plan.input
+        try:
+            self._render_plan_png(plan, filename)
+        except Exception:  # dsql: allow-broad-except — no matplotlib /
+            # headless issues: text fallback below renders instead
+            logger.warning("plan image rendering unavailable; writing text",
+                           exc_info=True)
+            path = filename if filename.endswith(".txt") else filename + ".txt"
+            with open(path, "w") as f:
+                f.write(plan.explain())
+
+    @staticmethod
+    def _render_plan_png(plan, filename: str) -> None:
+        """Lay the plan tree out top-down and draw labeled boxes and edges."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        # depth-first layout: x = leaf order, y = -depth
+        positions: Dict[int, Tuple[float, float]] = {}
+        labels: Dict[int, str] = {}
+        edges: List[Tuple[int, int]] = []
+        next_x = [0.0]
+
+        def walk(node, depth):
+            kids = node.inputs()
+            xs = []
+            for kid in kids:
+                walk(kid, depth + 1)
+                edges.append((id(node), id(kid)))
+                xs.append(positions[id(kid)][0])
+            x = sum(xs) / len(xs) if xs else next_x[0]
+            if not xs:
+                next_x[0] += 1.0
+            positions[id(node)] = (x, -float(depth))
+            label = node._label()
+            labels[id(node)] = label if len(label) <= 42 else label[:39] + "..."
+
+        walk(plan, 0)
+        depth = -min(y for _, y in positions.values()) + 1
+        width = max(x for x, _ in positions.values()) + 1
+        fig, ax = plt.subplots(
+            figsize=(max(6, 3.2 * width), max(3, 1.1 * depth)))
+        for a, b in edges:
+            (x1, y1), (x2, y2) = positions[a], positions[b]
+            ax.plot([x1, x2], [y1, y2], "-", color="#888888", zorder=1)
+        for nid, (x, y) in positions.items():
+            ax.text(x, y, labels[nid], ha="center", va="center", fontsize=8,
+                    zorder=2, bbox=dict(boxstyle="round,pad=0.35",
+                                        facecolor="#eef3fb",
+                                        edgecolor="#4a6fa5"))
+        ax.set_axis_off()
+        fig.tight_layout()
+        fig.savefig(filename, dpi=120)
+        plt.close(fig)
+
     def cost_hint(self, sql: str, config_options=None):
         """The packing scheduler's `QueryCost` of a statement already in the
         plan cache: its estimate's provable floor ``peak_bytes.lo``, the
@@ -991,22 +1091,6 @@ class Context:
             with observability.activate(trace):
                 return self.sql(sql, config_options=config_options).compute()
 
-        live = self.live_queries.begin(
-            qid, sql=sql, trace=trace, tenant=tenant,
-            priority_class=priority_class if priority_class in CLASSES
-            else "interactive")
-        try:
-            _, fut, ticket = runtime.submit(
-                run, qid=qid, priority_class=priority_class,
-                deadline_s=deadline_s, cost=cost)
-        except BaseException:
-            # never admitted: a shed query leaves no row behind
-            self.live_queries.discard(qid)
-            raise
-        live.ticket = ticket
-        if trace is not None:
-            self.traces.put(qid, trace)
-
         def finish(f):
             # the terminal outcome, after any retries of the worker
             state, code = "done", None
@@ -1023,8 +1107,57 @@ class Context:
             if trace is not None:
                 trace.finish(self.config, self.metrics)
 
+        # discarded if never admitted, else finished by the future's done
+        # dsql: allow-unpaired-effect — callback `finish`
+        live = self.live_queries.begin(
+            qid, sql=sql, trace=trace, tenant=tenant,
+            priority_class=priority_class if priority_class in CLASSES
+            else "interactive")
+        try:
+            _, fut, ticket = runtime.submit(
+                run, qid=qid, priority_class=priority_class,
+                deadline_s=deadline_s, cost=cost)
+        except BaseException:
+            # never admitted: a shed query leaves no row behind
+            self.live_queries.discard(qid)
+            raise
+        # the callback first: no later step can leave the row open
         fut.add_done_callback(finish)
+        live.ticket = ticket
+        if trace is not None:
+            self.traces.put(qid, trace)
         return qid, fut
+
+    # ------------------------------------------------------------ front ends
+    def run_server(self, **kwargs):
+        """Serve this Context over the Presto wire protocol
+        (`server/app.py` `run_server`, the same arguments; blocking unless
+        ``blocking=False``).  The server is kept as `server`, so
+        `stop_server` stops it; the reference never keeps it, so its
+        `stop_server` stops nothing."""
+        from .server.app import run_server as _run
+
+        return _run(context=self, on_start=self._keep_server, **kwargs)
+
+    def _keep_server(self, server) -> None:
+        self.server = server
+
+    def stop_server(self) -> None:
+        """Shut down the server `run_server` started and close its port."""
+        if self.server is not None:
+            self.server.shutdown()
+        self.server = None
+
+    def ipython_magic(self, auto_include: bool = False) -> None:
+        """Register the ``%%sql`` line and cell magic bound to this Context
+        (`integrations/ipython.py`)."""
+        from .integrations.ipython import ipython_integration
+
+        ipython_integration(self, auto_include=auto_include)
+
+    def fqn(self, parts) -> Tuple[str, str]:
+        """The fully-qualified (schema, table) of a name's parts."""
+        return self._table_schema_name(list(parts))
 
     def cancel_query(self, qid: str) -> bool:
         """Cooperatively cancel an in-flight query by qid: the engine behind
@@ -1180,7 +1313,8 @@ class Context:
                                            self.config, self.metrics)
             plan._dsql_estimate = out
             return out
-        except Exception:  # advisory: the static estimate stays in force
+        except Exception:  # dsql: allow-broad-except — advisory: the static
+            # estimate stays in force
             self.metrics.inc("analysis.estimate.internal_error")
             logger.debug("estimate feedback failed; static estimate kept",
                          exc_info=True)
@@ -1391,7 +1525,8 @@ class Context:
                     self._family_estimates.clear()
                 self._family_estimates[key] = est
             return self._feedback_estimate(plan, est, fam)
-        except Exception:  # advisory: the query runs unestimated
+        except Exception:  # dsql: allow-broad-except — advisory: the query
+            # runs unestimated
             self.metrics.inc("analysis.estimate.internal_error")
             logger.debug("plan estimation failed; query runs ungated",
                          exc_info=True)

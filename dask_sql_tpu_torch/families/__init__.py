@@ -74,7 +74,8 @@ def family_of(plan, config, metrics=None) -> Optional[FamilyInfo]:
         info = compute_family(plan)
         plan._dsql_family = info
         return info
-    except Exception:
+    except Exception:  # dsql: allow-broad-except — advisory analysis: an
+        # unparameterizable plan simply keeps its literal-baked identity
         if metrics is not None:
             metrics.inc("families.internal_error")
         logger.debug("family parameterization failed; using literal plan "

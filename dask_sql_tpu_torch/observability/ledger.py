@@ -118,7 +118,7 @@ class DeviceLedger:
             return 0
         try:
             return int(manager.pinned_bytes())
-        except Exception:  # advisory accounting
+        except Exception:  # dsql: allow-broad-except — advisory accounting
             logger.debug("ledger materialized accounting failed",
                          exc_info=True)
             return 0

@@ -228,6 +228,7 @@ def fetch_packed(packed: torch.Tensor, domain: int) -> Tuple[np.ndarray, np.ndar
 
     if domain <= HOST_PULL_DOMAIN:
         count_d2h()
+        # dsql: allow-host-sync — the packed transfer, the run's one pull
         host = packed.cpu().numpy()
         present = np.nonzero(host[0] != 0.0)[0]
         return host[:, present], present
@@ -237,6 +238,7 @@ def fetch_packed(packed: torch.Tensor, domain: int) -> Tuple[np.ndarray, np.ndar
     both = torch.cat([packed[:, present_dev],
                       present_dev.to(torch.float64)[None, :]])
     count_d2h()
+    # dsql: allow-host-sync — the packed transfer, the run's one pull
     host = both.cpu().numpy()
     return host[:-1], host[-1].astype(np.int64)
 
@@ -674,6 +676,7 @@ class _TraceEval:
         if isinstance(expr, ParamRef):
             # a runtime parameter of the family: the host value moves to
             # the device as the literal it stands for would
+            # dsql: allow-host-sync — a host parameter value, no tensor
             v = np.array(slots[PARAMS_SLOT][expr.index])  # 0-dim, owned
             return torch.from_numpy(v).to(self.device), None
         if isinstance(expr, InParamExpr):
@@ -808,6 +811,7 @@ class _TraceEval:
             cmp_dt = numpy_dtype(torch.promote_types(
                 torch_dtype(c.enc_values.dtype), lit_dt))
             try:
+                # dsql: allow-host-sync — a host literal, no tensor
                 lit = np.asarray(value,
                                  dtype=numpy_dtype(lit_dt)).astype(cmp_dt)
             except (OverflowError, ValueError):
@@ -849,6 +853,7 @@ class _TraceEval:
                 code_list.append(i)
         codes, valid = slots[arg.index]
         if code_list:
+            # dsql: allow-host-sync — a host list of codes, no tensor
             hit = sorted_membership(codes, np.asarray(code_list,
                                                       dtype=np.int32))
         else:
@@ -872,6 +877,7 @@ class _TraceEval:
         if (values.dtype.kind in "iuf" if isinstance(values, np.ndarray)
                 else all(_is_number(v) for v in values)):
             # exact for int columns against float items
+            # dsql: allow-host-sync — the host IN list, no tensor
             return sorted_membership(ad, np.asarray(values)), valid
         hit = torch.zeros(ad.shape, dtype=torch.bool, device=ad.device)
         for v in values:
@@ -897,7 +903,8 @@ class _TraceEval:
             if expr.value is None:
                 return (zero, torch.zeros((), dtype=torch.bool,
                                           device=self.device),
-                        np.array([""], dtype=object), ("null",))
+                        _or_empty(None), ("null",))
+            # dsql: allow-host-sync — a literal's host dictionary
             return (zero, None, np.array([str(expr.value)], dtype=object),
                     ("lit", str(expr.value)))
         if isinstance(expr, Cast) and expr.sql_type in STRING_TYPES:
@@ -943,8 +950,8 @@ class _TraceEval:
         key = tag + (skey,)
         got = self._luts.get(key)
         if got is None:
-            d = dictionary if dictionary is not None and len(dictionary) \
-                else np.array([""], dtype=object)
+            d = _or_empty(dictionary)
+            # dsql: allow-host-sync — the host dictionary (eager only)
             mapped = np.array([fn(str(x)) for x in d], dtype=object)
             uniq, inverse = np.unique(mapped.astype(str), return_inverse=True)
             lut = torch.from_numpy(inverse.astype(np.int32)).to(self.device)
@@ -980,8 +987,7 @@ class _TraceEval:
         from ..utils import count_d2h
 
         (ca, va, da, ka), (cb, vb, db, kb) = a, b
-        da = da if da is not None and len(da) else np.array([""], dtype=object)
-        db = db if db is not None and len(db) else np.array([""], dtype=object)
+        da, db = _or_empty(da), _or_empty(db)
         ca, cb = torch.broadcast_tensors(
             torch.clamp(ca, 0, len(da) - 1).to(torch.int64),
             torch.clamp(cb, 0, len(db) - 1).to(torch.int64))
@@ -989,7 +995,11 @@ class _TraceEval:
                                       return_inverse=True)
         if pairs.device.type != "cpu":
             count_d2h()
+        # the eager evaluator's only (string_operand declines under the
+        # fused pipelines): the distinct pairs in one counted transfer
+        # dsql: allow-host-sync — eager only, counted above
         host = pairs.cpu().numpy()
+        # dsql: allow-host-sync — host strings, no tensor
         joined = np.array([str(da[x // len(db)]) + str(db[x % len(db)])
                            for x in host], dtype=object).astype(str)
         uniq, lut = np.unique(joined, return_inverse=True)
@@ -1079,14 +1089,17 @@ class _TraceEval:
         lut = self._luts.get(key)
         if lut is not None:
             return lut
-        d = dictionary if dictionary is not None \
-            else np.array([""], dtype=object)
+        d = dictionary
+        if d is None:
+            # dsql: allow-host-sync — a host array, no tensor
+            d = np.array([""], dtype=object)
         if op in ("eq", "ne"):
             hits = d.astype(str) == pattern
         else:
             rx = (str_ops.similar_to_regex(pattern, esc) if op == "similar"
                   else str_ops.like_to_regex(pattern, esc))
             match = re.compile(rx, re.IGNORECASE if op == "ilike" else 0).match
+            # dsql: allow-host-sync — the host dictionary, no tensor
             hits = np.array([match(str(x)) is not None for x in d], dtype=bool)
         if not len(hits):
             hits = np.zeros(1, dtype=bool)
@@ -1094,6 +1107,7 @@ class _TraceEval:
         return lut
 
     def _in_array(self, expr: InArrayExpr, slots):
+        # dsql: allow-host-sync — the plan's host IN array, no tensor
         hit, valid = self._membership(expr.arg, np.asarray(expr.values), slots)
         return (~hit if expr.negated else hit, valid)
 
@@ -1101,6 +1115,7 @@ class _TraceEval:
         """IN against a family's parameter vector (sorted, padded to its
         pow2 bucket by repeating the maximum): the same membership as the
         literal list, so lists of one bucket share a pipeline."""
+        # dsql: allow-host-sync — the host parameter vector, no tensor
         values = np.asarray(slots[PARAMS_SLOT][expr.index])
         hit, valid = self._membership(expr.arg, values, slots)
         return (~hit if expr.negated else hit, valid)
@@ -1245,6 +1260,15 @@ class _TraceEval:
 _STRING_MAPS = {"upper": str.upper}
 
 
+def _or_empty(dictionary) -> np.ndarray:
+    """A string operand's host dictionary, or one empty string when it has
+    none (a NULL literal, an empty column)."""
+    if dictionary is not None and len(dictionary):
+        return dictionary
+    # dsql: allow-host-sync — a host array, no tensor
+    return np.array([""], dtype=object)
+
+
 def _merged(operands):
     """String operands' codes in one merged dictionary:
     (dictionary, [codes, ...])."""
@@ -1262,6 +1286,7 @@ def _scalar_operand(expr: Expr, slots):
     if isinstance(expr, Literal):
         return expr.value if _is_number(expr.value) else None
     if isinstance(expr, ParamRef) and PARAMS_SLOT in slots:
+        # dsql: allow-host-sync — a host parameter value, no tensor
         v = np.asarray(slots[PARAMS_SLOT][expr.index])
         return v[()] if v.ndim == 0 and v.dtype.kind in "iuf" else None
     return None
@@ -1533,6 +1558,7 @@ class CompiledAggregate:
                               for (hit_h, plans), reducer
                               in zip(members, reducers)])
         count_d2h()
+        # dsql: allow-host-sync — the stacked packed transfer, one pull
         host_all = packed.cpu().numpy()  # (members, rows, domain)
         out = []
         for host in host_all:
@@ -1589,7 +1615,7 @@ def singleflight_get_or_build(cache: "OrderedDict", key: Tuple, build,
                 return compiled, False
             pending = _building.get(key)
             if pending is None:
-                pending = _building[key] = threading.Event()
+                pending = singleflight_begin(key)
                 break
         if not pending.wait(_BUILD_WAIT_S):
             break  # the other query's build stalled: build here
@@ -1601,10 +1627,24 @@ def singleflight_get_or_build(cache: "OrderedDict", key: Tuple, build,
                 cache.popitem(last=False)
         return compiled, True
     finally:
-        with _cache_lock:
-            if _building.get(key) is pending:
-                del _building[key]
-        pending.set()
+        singleflight_done(key, pending)
+
+
+def singleflight_begin(key: Tuple) -> threading.Event:
+    """Claim the build of ``key`` (the caller holds ``_cache_lock``): the
+    same key's other queries wait on the returned event until the builder
+    calls `singleflight_done` (the self-lint's DSQL701 pair)."""
+    pending = _building[key] = threading.Event()
+    return pending
+
+
+def singleflight_done(key: Tuple, pending: threading.Event) -> None:
+    """Settle a claimed build, built or failed: drop its entry and wake
+    its waiters, who find the pipeline or build under their own claim."""
+    with _cache_lock:
+        if _building.get(key) is pending:
+            del _building[key]
+    pending.set()
 
 
 #: owner token source of `pipeline_owner`

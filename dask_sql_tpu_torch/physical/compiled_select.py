@@ -259,6 +259,7 @@ class CompiledSelect:
                                   params, tags)
             clock.lap("gather")
             count_d2h()
+            # dsql: allow-host-sync — the packed survivors, the second pull
             host = packed.cpu().numpy()
             clock.lap("d2h")
         cols, valid_arrs = self._decode_packed(host, count, tags)
@@ -337,6 +338,7 @@ class _PhaseClock:
 
     def _sync(self):
         if self.device.type == "cuda":
+            # dsql: allow-host-sync — only when the caller asks for times
             torch.cuda.synchronize(self.device)
 
     def lap(self, name: str) -> None:
@@ -388,7 +390,8 @@ def try_compiled_select(root, executor) -> Optional[Table]:
     counts its code-space predicates in
     ``metrics.counter("columnar.encoding.codespace_pred")``; a run over encoded
     columns counts its result rows in ``columnar.encoding.late_rows``."""
-    if not executor.config.get("sql.compile", True):
+    mode = executor.config.get("sql.compile.select", True)
+    if not mode or not executor.config.get("sql.compile", True):
         return None
     got = _extract(root)
     if got is None:

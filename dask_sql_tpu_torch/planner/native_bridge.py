@@ -48,6 +48,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
                 ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
             ]
             lib.dsql_tokenizer_abi_version.restype = ctypes.c_int32
+            # once a process, at load: the ABI probe returns a constant
+            # dsql: allow-blocking-under-lock — a one-time probe
             if lib.dsql_tokenizer_abi_version() != 1:
                 return None
             _lib = lib

@@ -143,7 +143,8 @@ def cost_skip(executor, rung: str, rel) -> bool:
         factor = float(
             config.get("resilience.ladder.cost.amortize_factor", 4.0))
         return compile_pred > factor * hits * max(observed, 1e-3)
-    except Exception:  # an advisory choice: a bug means no skip
+    except Exception:  # dsql: allow-broad-except — an advisory choice: a bug
+        # means no skip
         logger.debug("cost-based rung selection failed open", exc_info=True)
         return False
 
@@ -183,6 +184,7 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
         key = (_fingerprint_of(executor, rel), rung)
         # a declined rung leaves a half-open trial pending; the cooldown
         # re-arms it (retry.py)
+        # dsql: allow-unpaired-effect — cooldown re-arms a pending trial
         if not breaker.allow(key):
             metrics.inc("resilience.breaker.skip")
             metrics.inc(f"resilience.breaker.skip.{rung}")
@@ -209,7 +211,8 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
             break
         except (KeyboardInterrupt, SystemExit):
             raise
-        except BaseException as exc:  # degradable failures are the ladder's
+        except BaseException as exc:  # dsql: allow-broad-except — degradable
+            # failures are the ladder's
             err = classify(exc)
             if not err.degradable:
                 raise
@@ -284,7 +287,8 @@ def execute_interpreted(executor, rel):
         return executor.execute(rel)
     except (KeyboardInterrupt, SystemExit):
         raise
-    except BaseException as exc:  # only degradable failures go on below
+    except BaseException as exc:  # dsql: allow-broad-except — only degradable
+        # failures go on below
         err = classify(exc)
         if not err.degradable:
             raise
@@ -305,7 +309,8 @@ def execute_interpreted(executor, rel):
             out = executor.execute(rel)
         except (KeyboardInterrupt, SystemExit):
             raise
-        except BaseException as exc2:  # re-classified below
+        except BaseException as exc2:  # dsql: allow-broad-except —
+            # re-classified below
             err = classify(exc2)
             if not err.degradable or not cpu_rung:
                 raise

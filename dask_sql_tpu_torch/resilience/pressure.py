@@ -118,7 +118,7 @@ class PressureController:
             return "green"
         try:
             headroom, budget = self.headroom_bytes(snap)
-        except Exception:  # advisory sensing
+        except Exception:  # dsql: allow-broad-except — advisory sensing
             logger.debug("pressure band read failed", exc_info=True)
             return "green"
         if headroom is None:
@@ -218,13 +218,13 @@ class PressureController:
         if cache is not None and _need_more():
             try:
                 freed["cache"] = int(cache.reclaim_bytes(_remaining()))
-            except Exception:  # advisory reclaim
+            except Exception:  # dsql: allow-broad-except — advisory reclaim
                 logger.debug("cache reclaim failed", exc_info=True)
         manager = getattr(ctx, "materialize", None)
         if manager is not None and _need_more():
             try:
                 freed["stems"] = int(manager.reclaim_bytes(_remaining()))
-            except Exception:  # advisory reclaim
+            except Exception:  # dsql: allow-broad-except — advisory reclaim
                 logger.debug("stem reclaim failed", exc_info=True)
         # the model tier (inference/) is not in the port yet: it holds no
         # bytes to reclaim
@@ -255,7 +255,7 @@ class PressureController:
         headroom, budget = None, None
         try:
             headroom, budget = self.headroom_bytes()
-        except Exception:  # advisory readout
+        except Exception:  # dsql: allow-broad-except — advisory readout
             logger.debug("pressure snapshot read failed", exc_info=True)
         with self._lock:
             band = self._band
@@ -276,6 +276,6 @@ def reclaim_for_oom(context, config=None) -> int:
         return 0
     try:
         return pressure.reclaim(None, reason="oom")
-    except Exception:  # advisory reclaim
+    except Exception:  # dsql: allow-broad-except — advisory reclaim
         logger.debug("oom reclaim failed", exc_info=True)
         return 0

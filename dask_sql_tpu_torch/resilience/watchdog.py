@@ -125,7 +125,8 @@ def watched_call(label: str, fn: Callable, args=(), kwargs=None, *,
                 hang.wait(hang_s)
             with scope():
                 box.append((True, ctx.run(fn, *args, **(kwargs or {}))))
-        except BaseException as exc:  # re-raised on the caller's thread
+        except BaseException as exc:  # dsql: allow-broad-except — re-raised on
+            # the caller's thread
             box.append((False, exc))
         finally:
             done.set()

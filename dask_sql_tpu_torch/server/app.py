@@ -712,11 +712,14 @@ class PrestoServer:
 
 def run_server(context=None, host: str = "0.0.0.0", port: int = 8080,
                startup: bool = False, log_level=None, blocking: bool = True,
-               jdbc_metadata: bool = False):
+               jdbc_metadata: bool = False, on_start=None):
     """Serve the Presto wire protocol for ``context`` (a new Context on
     the CUDA card when None); blocking, or started on a background thread
-    and returned (``blocking=False``)."""
+    and returned (``blocking=False``).  ``on_start(server)`` is called
+    with the server before it serves (`Context.run_server` keeps it)."""
     server = PrestoServer(context, host=host, port=port, jdbc_metadata=jdbc_metadata)
+    if on_start is not None:
+        on_start(server)
     if blocking:  # pragma: no cover - blocking entrypoint
         import signal
 

@@ -114,8 +114,9 @@ class BackgroundCompiler:
             t0 = time.perf_counter()
             try:
                 task()
-            except Exception:  # a failed task must not kill the worker;
-                # its family is un-marked by the task's own cleanup
+            except Exception:  # dsql: allow-broad-except — a failed task must
+                # not kill the worker; its family is un-marked by the task's
+                # own cleanup
                 if self.metrics is not None:
                     self.metrics.inc("serving.bg_compile.failed")
                 logger.warning("background compile failed", exc_info=True)

@@ -105,9 +105,11 @@ def _count(kind: str) -> None:
     with _lock:
         _counters[kind] += 1
         listeners = list(_listeners) if kind != "torn" else []
-    name = {"hits": "hit", "misses": "miss"}.get(kind)
     for metrics in listeners:
-        metrics.inc(f"resilience.compile_cache.{name}")
+        if kind == "hits":
+            metrics.inc("resilience.compile_cache.hit")
+        else:
+            metrics.inc("resilience.compile_cache.miss")
 
 
 def intact(path: Path) -> bool:

@@ -56,6 +56,15 @@ DOCUMENTED_METRICS = frozenset({
     "inference.model.swap",
     "inference.predict.compiled",
     "inference.predict.host",
+    # context.py — the planner that made each plan (native or Python)
+    "planner.native.plan",
+    "planner.native.bind",
+    "planner.python.bind",
+    # physical/compiled.py, compiled_join.py — the port's fused pipelines:
+    # runs of the join pipeline and chains each pipeline declined
+    "compiled_aggregate.declined",
+    "compiled_join.run",
+    "compiled_join.declined",
     # families/ — parameterized plan families + inter-query batching
     "families.parameterized",
     "families.hit",

@@ -452,7 +452,8 @@ class ServingRuntime:
                 return
         try:
             worker.cancel()
-        except Exception:  # a worker's teardown bug must not propagate
+        except Exception:  # dsql: allow-broad-except — a worker's teardown bug
+            # must not propagate
             logger.warning("background worker cancel failed", exc_info=True)
 
     def shutdown(self, wait: bool = False, timeout: float = 5.0) -> None:
@@ -491,7 +492,8 @@ class ServingRuntime:
         for worker in background:
             try:
                 worker.cancel()
-            except Exception:  # one worker's teardown bug must not block
+            except Exception:  # dsql: allow-broad-except — one worker's
+                # teardown bug must not block
                 logger.warning("background worker cancel failed",
                                exc_info=True)
         if wait:

@@ -107,7 +107,8 @@ class WarmupManager:
             from ..planner.parser import parse_sql
 
             return len(parse_sql(sql)) == 1
-        except Exception:  # an unparseable profile is not warmable
+        except Exception:  # dsql: allow-broad-except — an unparseable profile
+            # is not warmable
             return False
 
     def _candidates(self) -> List[Tuple[str, str]]:
@@ -176,8 +177,9 @@ class WarmupManager:
                 ctx.metrics.inc("serving.warmup.warmed")
                 ctx.metrics.observe("serving.warmup.ms",
                                     (time.perf_counter() - t0) * 1000.0)
-            except Exception:  # best-effort: one unreplayable profile
-                # must not block readiness or later entries
+            except Exception:  # dsql: allow-broad-except — best-effort: one
+                # unreplayable profile must not block readiness or later
+                # entries
                 if self._cancel.is_set():
                     continue  # cancelled mid-statement, not a failure
                 with self._lock:

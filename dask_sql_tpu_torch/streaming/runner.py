@@ -130,7 +130,8 @@ def drive_partitions(executor, decision, launch: Callable[[int, int], None],
                 retry_call(attempt, policy, ticket=ticket, metrics=metrics)
         except (KeyboardInterrupt, SystemExit):
             raise
-        except BaseException as exc:  # classified: only a degradable OOM
+        except BaseException as exc:  # dsql: allow-broad-except — classified:
+            # only a degradable OOM
             err = classify(exc)
             if not (err.degradable
                     and isinstance(err, ResourceExhaustedError)):
