@@ -124,6 +124,19 @@ IPython imports.  The ``chaos`` phase runs one seeded chaos campaign
 every invariant holds, the card's bytes among them, and the storm's kernel
 calls are held against the plain version.  The ``selflint`` phase runs
 ``python -m dask_sql_tpu_torch.analysis --self`` (exit 0, no finding).
+The ``ml`` phase (before ``selflint``) trains the engine's own models
+(LinearRegression, LogisticRegression, KMeans) by CREATE MODEL over all
+6,000,000 rows of Q1's table on the card, runs each one's PREDICT over a
+filtered select on the fused ``compiled_predict`` rung (two transfers,
+no step down; the rows against pandas, the predictions within 5e-6 of a
+float64 oracle of the fitted weights, labels and cluster ids exact but
+on float32 boundary rows, counted), a second literal and a same-shape
+retrain with no pipeline build, the host tier, the ledger's model bytes
+and SHOW MODELS, a RED reclaim, the ``predict:once`` step down and DROP
+MODEL, then applies two drawn 100-tree ensembles (GBDT- and
+forest-shaped) to the 6,000,000 x 3 feature matrix, held against the
+same program on the CPU and a numpy walk on a sample of the rows, with
+the card's peak rise beside the port's charge.
 Every phase but ``resilience`` and ``coldstart`` fails if a rung steps
 down, answers on the CPU or moves a breaker (``observability`` allows only
 its ``compile:always`` run's steps).
@@ -1424,8 +1437,14 @@ def card_holders(limit: int = 8, budget: int = 500_000) -> list:
 
 
 def card_allocated() -> int:
+    """The card's allocated bytes once the collector has run, less the
+    cuBLAS workspaces (one a thread that ran a matmul, kept by PyTorch's
+    allocator for the process: the library's, not a Context's)."""
     gc.collect()
     torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
     return torch.cuda.memory_allocated()
 
 
@@ -4281,6 +4300,551 @@ def selflint(card):
           files=payload["files"], findings=0, seconds=seconds)
 
 
+#: the `ml` phase: the engine's own models trained over Q1's table, their
+#: PREDICT on the fused rung, and tree programs drawn at full width
+ML_MODELS = {
+    # name: (model_class, target expression or None, features, options)
+    "revenue": ("LinearRegression", "l_extendedprice",
+                ("l_quantity", "l_discount", "l_tax"), ""),
+    "returned": ("LogisticRegression",
+                 "CASE WHEN l_returnflag = 'R' THEN 1 ELSE 0 END",
+                 ("l_quantity", "l_discount", "l_tax"), ""),
+    "segments": ("KMeans", None,
+                 ("l_quantity", "l_extendedprice", "l_discount"),
+                 ", n_clusters = 8"),
+}
+ML_DISCOUNT = 0.02
+ML_VARIANT_DISCOUNT = 0.03
+ML_REL = 5e-6  # predictions against the float64 oracle
+ML_RETRAIN_L2 = 1000.0
+#: the drawn ensembles: sklearn's GradientBoostingRegressor defaults (100
+#: trees of depth 3, learning rate 0.1) and a 100-tree forest of depth 10
+#: over 3 classes (its node bucket 2,048)
+ML_ENSEMBLES = {"gbdt": (100, 3), "forest": (100, 10)}
+ML_GBDT_LR = 0.1
+ML_GBDT_BASELINE = 0.5
+ML_CLASSES = 3
+#: the rows of the card's tree results held against the CPU run of the
+#: same program and the numpy walk (a seeded sample: the CPU walk of all
+#: 6,000,000 rows would take minutes)
+ML_TREE_SAMPLE = 262_144
+ML_TREE_RUNS = 3
+
+
+def ml_predict_sql(name: str, discount: float = ML_DISCOUNT) -> str:
+    return (f"SELECT * FROM PREDICT(MODEL {name}, SELECT "
+            f"{', '.join(ML_MODELS[name][2])} FROM lineitem "
+            f"WHERE l_discount > {discount})")
+
+
+def ml_create_sql(name: str, extra: str = "") -> str:
+    model_class, target, features, options = ML_MODELS[name]
+    cols = ", ".join(features)
+    if target is None:
+        return (f"CREATE OR REPLACE MODEL {name} WITH (model_class = "
+                f"'{model_class}'{options}{extra}) AS (SELECT {cols} "
+                f"FROM lineitem)")
+    return (f"CREATE OR REPLACE MODEL {name} WITH (model_class = "
+            f"'{model_class}', target_column = 'target'{options}{extra}) AS "
+            f"(SELECT {cols}, {target} AS target FROM lineitem)")
+
+
+def ml_survivors(df, discount: float):
+    """The rows the PREDICT input keeps, as pandas keeps them (the float32
+    column against the literal rounded to float32)."""
+    return df[df.l_discount.to_numpy() > np.float32(discount)]
+
+
+#: the share of a score's magnitude that float32 rounding may move it by
+#: (the features rounded to float32, a 3-term product, the bias: each a
+#: few ulps of 6e-8), within which a label or cluster id may flip
+ML_BOUNDARY = 1e-6
+
+
+def ml_oracle(model, X64: np.ndarray):
+    """(float64 oracle predictions, boolean boundary rows or None for a
+    regression) of a fitted engine model from its own weights: the
+    boundary rows are those whose label or cluster id a float32 rounding
+    of the scores could flip."""
+    if getattr(model, "cluster_centers_", None) is not None:
+        c = model.cluster_centers_.double().cpu().numpy()
+        d = (c * c).sum(1)[None, :] - 2.0 * (X64 @ c.T)
+        part = np.partition(d, 1, axis=1)
+        scale = (c * c).sum(1).max() \
+            + 2.0 * (np.abs(X64) @ np.abs(c).T).max(1)
+        return d.argmin(1).astype(np.float64), \
+            part[:, 1] - part[:, 0] <= ML_BOUNDARY * scale
+    w = model._w.double().cpu().numpy()
+    raw = X64 @ w[:-1] + w[-1]
+    if getattr(model, "classes_", None) is None:
+        return raw, None
+    classes = np.asarray(model.classes_, dtype=np.float64)
+    scale = np.abs(X64) @ np.abs(w[:-1]) + abs(w[-1])
+    return classes[(raw > 0).astype(np.int64)], \
+        np.abs(raw) <= ML_BOUNDARY * scale
+
+
+def ml_check(name, model, got, sub, label) -> dict:
+    """The PREDICT's rows against the pandas-filtered rows, and its
+    predictions against the float64 oracle of the model's weights: within
+    ML_REL relative for a regression, labels and cluster ids exact but on
+    boundary rows, whose count is returned."""
+    features = list(ML_MODELS[name][2])
+    if list(got.columns) != features + ["target"] or len(got) != len(sub):
+        fail(f"{label}: {got.shape} / {list(got.columns)}, expected "
+             f"{len(sub)} rows")
+    for col in features:
+        if not np.array_equal(got[col].to_numpy(np.float64),
+                              sub[col].to_numpy(np.float64)):
+            fail(f"{label}: column {col} differs from the pandas rows")
+    X64 = sub[features].to_numpy(np.float64)
+    want, boundary = ml_oracle(model, X64)
+    pred = got["target"].to_numpy(np.float64)
+    if not np.all(np.isfinite(pred)):
+        fail(f"{label}: a prediction is not finite")
+    if boundary is None:
+        rel = float(np.max(np.abs(pred - want) / np.abs(want))) \
+            if len(want) else 0.0
+        if not rel <= ML_REL:
+            fail(f"{label}: relative error {rel} > {ML_REL}")
+        return {"max_rel_err": rel, "boundary_rows": 0, "mismatches": 0}
+    wrong = pred != want
+    if (wrong & ~boundary).any():
+        fail(f"{label}: {int((wrong & ~boundary).sum())} labels differ "
+             f"off the boundary")
+    return {"boundary_rows": int(boundary.sum()),
+            "mismatches": int(wrong.sum())}
+
+
+def ml_sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ml_builds(c) -> int:
+    return c.metrics.snapshot()["histograms"].get(
+        "resilience.compile_ms.compiled_predict", {}).get("count", 0)
+
+
+def draw_ensemble(kind: str, n_trees: int, X: np.ndarray, seed: int,
+                  depth: int):
+    """`n_trees` trees as records with sklearn ``Tree``'s attributes
+    (``node_count``, ``children_left``, ``children_right``, ``feature``,
+    ``threshold``, ``value``, ``max_depth``), drawn from `seed`: splits on
+    a random feature at a random quantile of a sample of `X`.  ``gbdt``
+    trees are full (regression leaves); ``forest`` trees stop a branch
+    with probability 0.15 a level (class-count leaves over ML_CLASSES)."""
+    import types
+
+    rng = np.random.default_rng(seed)
+    sample = np.sort(X[rng.choice(len(X), min(len(X), 4096),
+                                  replace=False)], axis=0)
+    out = []
+    for _ in range(n_trees):
+        left, right, feat, thr, val = [], [], [], [], []
+
+        def grow(level):
+            i = len(left)
+            for lst, v in ((left, -1), (right, -1), (feat, -2),
+                           (thr, -2.0)):
+                lst.append(v)
+            if kind == "gbdt":
+                val.append([[rng.standard_normal()]])
+            else:
+                val.append([list(rng.integers(1, 50, ML_CLASSES)
+                                 .astype(np.float64))])
+            stop = level == depth or (kind == "forest" and level > 1
+                                      and rng.random() < 0.15)
+            if stop:
+                return i, level
+            f = int(rng.integers(0, X.shape[1]))
+            feat[i] = f
+            thr[i] = float(sample[int(rng.uniform(0.05, 0.95)
+                                      * len(sample)), f])
+            left[i], dl = grow(level + 1)
+            right[i], dr = grow(level + 1)
+            return i, max(dl, dr)
+
+        _, max_depth = grow(0)
+        out.append(types.SimpleNamespace(
+            node_count=len(left),
+            children_left=np.asarray(left, dtype=np.int64),
+            children_right=np.asarray(right, dtype=np.int64),
+            feature=np.asarray(feat, dtype=np.int64),
+            threshold=np.asarray(thr, dtype=np.float64),
+            value=np.asarray(val, dtype=np.float64), max_depth=max_depth))
+    return out
+
+
+def lower_ensemble(kind: str, trees, n_features: int):
+    """The drawn trees through the port's own lowering helpers: a GBDT
+    regressor (learning rate folded into the weights, a constant
+    baseline) or a forest classifier; the depth hint is the drawing's."""
+    from dask_sql_tpu_torch.inference import programs
+
+    depth = max(int(t.max_depth) for t in trees)
+    if kind == "gbdt":
+        return programs._lower_tree_regression(
+            trees, np.full(len(trees), ML_GBDT_LR), ML_GBDT_BASELINE,
+            n_features, "gbdt_regressor", depth)
+    return programs._lower_tree_classifier(
+        trees, np.arange(ML_CLASSES, dtype=np.float64), n_features,
+        "forest_classifier", ML_ENSEMBLES["forest"][1])
+
+
+def numpy_tree_walk(kind: str, trees, X: np.ndarray, program) -> np.ndarray:
+    """The ensemble's predictions by a plain numpy walk of the records,
+    one tree at a time (splits on float32-rounded features, as sklearn):
+    the GBDT's baseline plus its learning-rate-weighted leaves, or the
+    forest's class of the highest mean leaf probability."""
+    Xd = X.astype(np.float32).astype(np.float64)
+    rows = np.arange(len(X))
+    total = np.zeros(len(X)) if kind == "gbdt" \
+        else np.zeros((len(X), ML_CLASSES))
+    for t in trees:
+        node = np.zeros(len(X), dtype=np.int64)
+        for _ in range(int(t.max_depth)):
+            inner = t.children_left[node] >= 0
+            go = Xd[rows, np.maximum(t.feature[node], 0)] \
+                <= t.threshold[node]
+            nxt = np.where(go, t.children_left[node],
+                           t.children_right[node])
+            node = np.where(inner, nxt, node)
+        if kind == "gbdt":
+            total += ML_GBDT_LR * t.value[node, 0, 0]
+        else:
+            counts = t.value[node, 0, :]
+            total += counts / counts.sum(axis=1, keepdims=True)
+    if kind == "gbdt":
+        return total + ML_GBDT_BASELINE
+    return np.asarray(program.params[-1])[np.argmax(total / len(trees),
+                                                    axis=1)]
+
+
+def ml_programs(lowered, X_host: np.ndarray, card, device) -> None:
+    """The trained models' programs alone over the whole feature matrix
+    on the card (the linear, logistic and kmeans programs, committed
+    params): the median ms of ML_TREE_RUNS runs, the card synchronized
+    around each.  (The segments model reads its own three features, here
+    the matrix's columns stand in: the program's work is the same.)"""
+    X = torch.as_tensor(X_host, device=device)
+    out = {}
+    for name, program in lowered.items():
+        params = tuple(torch.as_tensor(p, device=device)
+                       for p in program.params)
+        program.apply(params, X)
+        runs = []
+        for _ in range(ML_TREE_RUNS):
+            ml_sync(device)
+            t0 = time.perf_counter()
+            program.apply(params, X)
+            ml_sync(device)
+            runs.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"kind": program.kind, "ms": float(np.median(runs)),
+                     "runs_ms": runs}
+    phase("ml", part="programs", card=card, rows=len(X_host),
+          features=X_host.shape[1], programs=out)
+    del X
+
+
+def ml_trees(X_host: np.ndarray, card, device) -> dict:
+    """Step 6 of the `ml` phase: both drawn ensembles applied to the
+    feature matrix on the card, against the same program on the CPU and
+    the numpy walk on a seeded sample of the rows (sums within 1e-12,
+    labels exact); the ms and the card's peak rise beside the port's
+    charge, `predict_scratch_bytes` times the row bucket."""
+    from dask_sql_tpu_torch.inference import predict_scratch_bytes
+
+    out = {}
+    n = len(X_host)
+    bucket = 1 << (n - 1).bit_length()
+    rng = np.random.default_rng(17)
+    idx = np.sort(rng.choice(n, min(n, ML_TREE_SAMPLE), replace=False))
+    X = torch.as_tensor(X_host, device=device)
+    for seed, (kind, (n_trees, depth)) in enumerate(ML_ENSEMBLES.items()):
+        t0 = time.perf_counter()
+        trees = draw_ensemble(kind, n_trees, X_host, seed=seed, depth=depth)
+        program = lower_ensemble(kind, trees, X_host.shape[1])
+        lower_s = time.perf_counter() - t0
+        if program is None:
+            fail(f"ml trees: the {kind} ensemble declined to lower")
+        params = tuple(torch.as_tensor(p, device=device)
+                       for p in program.params)
+        ml_sync(device)
+        if torch.device(device).type == "cuda":
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = program.apply(params, X)
+        ml_sync(device)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        rise = None
+        if torch.device(device).type == "cuda":
+            rise = torch.cuda.max_memory_allocated() - before
+        charge = predict_scratch_bytes(program, X_host.shape[1]) * bucket
+        if rise is not None and rise > charge:
+            fail(f"ml trees {kind}: the card's peak rise {rise} exceeds the "
+                 f"port's charge {charge}")
+        runs = []
+        for _ in range(ML_TREE_RUNS):
+            ml_sync(device)
+            t0 = time.perf_counter()
+            again = program.apply(params, X)
+            ml_sync(device)
+            runs.append((time.perf_counter() - t0) * 1e3)
+            del again
+        # the card's result on the host, for the checks
+        got = got.cpu().numpy()
+        Xs = X_host[idx]
+        cpu = program.apply(tuple(torch.as_tensor(p) for p in
+                                  program.params),
+                            torch.as_tensor(Xs)).numpy()
+        walk = numpy_tree_walk(kind, trees, Xs, program)
+        if kind == "gbdt":
+            err_cpu = float(np.max(np.abs(got[idx] - cpu)))
+            err_walk = float(np.max(np.abs(got[idx] - walk)))
+            if not max(err_cpu, err_walk) <= 1e-12:
+                fail(f"ml trees gbdt: card vs CPU {err_cpu}, vs the numpy "
+                     f"walk {err_walk}")
+            agree = {"max_abs_err_cpu": err_cpu,
+                     "max_abs_err_walk": err_walk}
+        else:
+            diff_cpu = int((got[idx] != cpu).sum())
+            diff_walk = int((got[idx] != walk).sum())
+            if diff_cpu or diff_walk:
+                fail(f"ml trees forest: {diff_cpu} labels differ from the "
+                     f"CPU run, {diff_walk} from the numpy walk")
+            agree = {"labels_differ_cpu": 0, "labels_differ_walk": 0,
+                     "classes_seen": sorted(set(got[idx].tolist()))}
+        out[kind] = {"ms": float(np.median(runs)), "first_ms": first_ms}
+        phase("ml", part=f"trees_{kind}", card=card, rows=n, trees=n_trees,
+              depth=program.meta["depth"], node_bucket=program.meta["nodes"],
+              param_bytes=program.param_bytes, lower_s=lower_s,
+              first_ms=first_ms, ms=float(np.median(runs)), runs_ms=runs,
+              rows_per_s=n / (float(np.median(runs)) / 1e3),
+              peak_rise_bytes=rise,
+              scratch_bytes_per_row=predict_scratch_bytes(
+                  program, X_host.shape[1]),
+              charge_bytes=charge, bucket=bucket,
+              checked_rows=len(idx), **agree)
+        del got, params
+    del X
+    return out
+
+
+def ml_phase(df, card, segsum, transfers, device="cuda"):
+    """The `ml` phase (ROADMAP.md Queue 1 item 9) on Q1's table, loaded as
+    the reference loads it: the three engine models of ML_MODELS trained
+    over every row on the card; each one's PREDICT on the
+    ``compiled_predict`` rung (two transfers, no step down) against the
+    pandas rows and the float64 oracle of its weights, first and warm;
+    a second literal and a same-shape retrain with no pipeline build; the
+    host tier; the model tier of the ledger, SHOW MODELS, a RED reclaim,
+    DROP MODEL and the ``predict:once`` step down; the drawn tree
+    ensembles at full width (`ml_trees`)."""
+    from dask_sql_tpu_torch.inference import programs
+
+    c = measuring_context(device)
+    c.create_table("lineitem", df)
+    reset_launches(segsum)
+    fits = {}
+    for name in ML_MODELS:
+        ml_sync(device)
+        t0 = time.perf_counter()
+        c.sql(ml_create_sql(name))
+        ml_sync(device)
+        fits[name] = (time.perf_counter() - t0) * 1e3
+        model, _ = c.get_model("root", name)
+        if model._device != c.device:
+            fail(f"ml: {name} fit on {model._device}")
+    phase("ml", part="fit", card=card, rows=len(df), fit_ms=fits,
+          models={n: ML_MODELS[n][0] for n in ML_MODELS})
+
+    sub = ml_survivors(df, ML_DISCOUNT)
+    results, timings = {}, {}
+    for name in ML_MODELS:
+        sql = ml_predict_sql(name)
+        model, _ = c.get_model("root", name)
+        compiled_before = c.metrics.counter("inference.predict.compiled")
+        est = c.sql(sql)._plan._dsql_estimate
+        transfers["d2h"] = 0
+        ml_sync(device)
+        before = rise = None
+        if torch.device(device).type == "cuda":
+            before = card_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = c.sql(sql).compute()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        lo, hi = est.peak_bytes.lo, est.peak_bytes.hi
+        if before is not None:
+            rise = torch.cuda.max_memory_allocated() - before
+            peak = resident_bytes(c) + rise
+            if hi is None or not lo <= peak <= hi:
+                fail(f"ml {name}: resident + the card's peak rise {peak} "
+                     f"bytes outside the estimate [{lo}, {hi}]")
+        if transfers["d2h"] != 2:
+            fail(f"ml {name}: {transfers['d2h']} transfers, expected 2")
+        if c.metrics.counter("inference.predict.compiled") \
+                != compiled_before + 1:
+            fail(f"ml {name}: PREDICT did not answer on compiled_predict")
+        check_not_degraded(c, f"ml {name}")
+        results[name] = ml_check(name, model, got, sub, f"ml {name}")
+        runs = []
+        for _ in range(WARM_RUNS):
+            transfers["d2h"] = 0
+            t0 = time.perf_counter()
+            again = c.sql(sql).compute()
+            runs.append((time.perf_counter() - t0) * 1e3)
+            if transfers["d2h"] != 2:
+                fail(f"ml {name}: a warm run made {transfers['d2h']} "
+                     f"transfers")
+        ml_check(name, model, again, sub, f"ml {name} warm")
+        program, _ = programs.try_lower(model)
+        timings[name] = float(np.median(runs))
+        phase("ml", part="predict", card=card, model=name,
+              kind=program.kind, rows=len(df), survivors=len(sub),
+              bucket=1 << (len(sub) - 1).bit_length(), first_ms=first_ms,
+              ms=timings[name], runs_ms=runs, d2h=2,
+              param_bytes=program.param_bytes, peak_bytes=[lo, hi],
+              card_peak_rise=rise, **results[name])
+    check_not_degraded(c, "ml predict")
+    builds = ml_builds(c)
+    # where a warm PREDICT's time goes: the pipeline's phases, the card
+    # synchronized between them (revenue's pipeline on the same table)
+    from dask_sql_tpu_torch import families, inference
+    from dask_sql_tpu_torch.physical import compiled_predict
+
+    got_pred = compiled_predict._extract_predict(
+        c.sql(ml_predict_sql("revenue"))._plan)
+    scan, upper, proj = got_pred[2][:3]
+    pz = families.pipeline_parameterizer(c.config)
+    for e in list(upper) + list(scan.filters) + list(proj.exprs):
+        pz.rewrite(e)
+    model = c.get_model("root", "revenue")[0]
+    program, _ = inference.program_for(c, "root", "revenue", model,
+                                       commit=True)
+    pipe = next(v for k, v in reversed(compiled_predict._cache.items())
+                if k[5] == "revenue")
+    table = c.schema["root"].tables["lineitem"].table
+    laps = []
+    for _ in range(WARM_RUNS):
+        times = {}
+        pipe.run(table.select(pipe.scan_names),
+                 tuple(pz.params) + tuple(program.params), times)
+        laps.append(times)
+    phase("ml", part="predict_phases", card=card, model="revenue",
+          phases_ms={k: float(np.median([t[k] for t in laps]))
+                     for k in laps[0]},
+          packed_rows=2 * (len(ML_MODELS["revenue"][2]) + 1),
+          packed_bytes=2 * (len(ML_MODELS["revenue"][2]) + 1) * 8
+          * (1 << (len(sub) - 1).bit_length()))
+    del pipe, table, program, model
+
+    # 3. reuse of the pipeline: a second literal, then a same-shape retrain
+    hits = c.metrics.counter("families.hit")
+    variant = c.sql(ml_predict_sql("revenue", ML_VARIANT_DISCOUNT)).compute()
+    ml_check("revenue", c.get_model("root", "revenue")[0], variant,
+             ml_survivors(df, ML_VARIANT_DISCOUNT), "ml variant")
+    if c.metrics.counter("families.hit") != hits + 1 \
+            or ml_builds(c) != builds:
+        fail(f"ml variant: families.hit {c.metrics.counter('families.hit')}"
+             f" (was {hits}), builds {ml_builds(c)} (was {builds})")
+    swaps = c.metrics.counter("inference.model.swap")
+    old_w = c.get_model("root", "revenue")[0]._w.cpu().numpy()
+    t0 = time.perf_counter()
+    c.sql(ml_create_sql("revenue", f", l2 = {ML_RETRAIN_L2}"))
+    retrain_ms = (time.perf_counter() - t0) * 1e3
+    retrained = c.get_model("root", "revenue")[0]
+    got = c.sql(ml_predict_sql("revenue")).compute()
+    swapped = ml_check("revenue", retrained, got, sub, "ml swap")
+    if c.metrics.counter("inference.model.swap") != swaps + 1 \
+            or ml_builds(c) != builds:
+        fail(f"ml swap: inference.model.swap "
+             f"{c.metrics.counter('inference.model.swap')} (was {swaps}), "
+             f"builds {ml_builds(c)} (was {builds})")
+    if np.array_equal(retrained._w.cpu().numpy(), old_w):
+        fail("ml swap: the retrain left the weights as they were")
+    phase("ml", part="reuse", card=card, variant_rows=len(variant),
+          families_hit=1, swaps=1, builds=builds, retrain_ms=retrain_ms,
+          swapped=swapped)
+
+    # 4. the host tier: the same rows, within ML_REL of the fused answer
+    fused = c.sql(ml_predict_sql("revenue")).compute()
+    host_before = c.metrics.counter("inference.predict.host")
+    host_runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        host = c.sql(ml_predict_sql("revenue"),
+                     config_options={"sql.compile.predict": False}).compute()
+        host_runs.append((time.perf_counter() - t0) * 1e3)
+    if c.metrics.counter("inference.predict.host") != host_before + 3:
+        fail("ml host tier: inference.predict.host did not count")
+    host_check = ml_check("revenue", retrained, host, sub, "ml host")
+    rel = float(np.max(np.abs(host["target"].to_numpy()
+                              - fused["target"].to_numpy())
+                       / np.abs(fused["target"].to_numpy())))
+    if not rel <= ML_REL:
+        fail(f"ml host tier: {rel} relative to the fused rung")
+    phase("ml", part="host_tier", card=card, ms=float(np.median(host_runs)),
+          runs_ms=host_runs, fused_ms=timings["revenue"],
+          rel_to_fused=rel, **host_check)
+
+    # 5. the model tier: the ledger, SHOW MODELS, a RED reclaim, the fault
+    # site, DROP MODEL
+    committed = {n: programs.try_lower(c.get_model("root", n)[0])[0]
+                 .param_bytes for n in ML_MODELS}
+    snap = c.ledger.snapshot()
+    shown = c.sql("SHOW MODELS").compute()
+    shown_bytes = dict(zip(shown["Model"], shown["ParamBytes"].astype(int)))
+    if snap["modelBytes"] != sum(committed.values()) \
+            or shown_bytes != committed:
+        fail(f"ml ledger: modelBytes {snap['modelBytes']}, SHOW MODELS "
+             f"{shown_bytes}, committed {committed}")
+    used = (snap["reservedBytes"] + snap["resultCacheBytes"]
+            + snap["tableBytes"] + snap["modelBytes"])
+    with c.config.set({"serving.scheduler.device_budget_bytes": used,
+                       "resilience.pressure.model_idle_s": 0.0}):
+        band = c.pressure.band()
+        c.pressure.evaluate()
+    reclaimed = c.ledger.snapshot()["modelBytes"]
+    if band not in ("red", "critical") or reclaimed != 0:
+        fail(f"ml RED reclaim: band {band}, modelBytes {reclaimed} after")
+    degraded = c.metrics.counter("resilience.degraded.compiled_predict")
+    host_before = c.metrics.counter("inference.predict.host")
+    stepped = c.sql(ml_predict_sql("revenue"),
+                    config_options={"resilience.inject": "predict:once"}
+                    ).compute()
+    if c.metrics.counter("resilience.degraded.compiled_predict") \
+            != degraded + 1 \
+            or c.metrics.counter("inference.predict.host") != host_before + 1:
+        fail("ml predict:once: no step down to the host tier")
+    ml_check("revenue", retrained, stepped, sub, "ml predict:once")
+    c.sql(ml_predict_sql("revenue")).compute()  # commits again
+    recommitted = c.ledger.snapshot()["modelBytes"]
+    lowered = {n: programs.try_lower(c.get_model("root", n)[0])[0]
+               for n in ML_MODELS}
+    for name in ML_MODELS:
+        c.sql(f"DROP MODEL {name}")
+    dropped = c.ledger.snapshot()["modelBytes"]
+    if recommitted != committed["revenue"] or dropped != 0:
+        fail(f"ml DROP: modelBytes {recommitted} recommitted, {dropped} "
+             f"after the drops")
+    phase("ml", part="model_tier", card=card, model_bytes=snap["modelBytes"],
+          show_models=committed, red_band=band, after_reclaim=reclaimed,
+          predict_once_degraded=1, recommitted=recommitted,
+          after_drop=dropped)
+
+    # 6. the drawn ensembles on the card over the 6M x 3 feature matrix
+    X_host = np.array(df[list(ML_MODELS["revenue"][2])].to_numpy(np.float64))
+    del c, got, again, variant, fused, host, stepped
+    ml_programs(lowered, X_host, card, device)
+    trees = ml_trees(X_host, card, device)
+    launches = dict(segsum.LAUNCHES)
+    return {"launches": {"ml": launches["segsum"]},
+            "fit_ms": fits, "predict_ms": timings, "trees": trees}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
@@ -4605,6 +5169,17 @@ def main() -> int:
     mem0 = card_allocated()
     chaos_out = chaos(card, segsum)
     check_card_freed(mem0, "chaos")
+    # 8j. the `ml` phase: CREATE MODEL over Q1's rows, PREDICT on the
+    # fused rung, the host tier, the model tier, the drawn ensembles
+    mem0 = card_allocated()
+    t0 = time.perf_counter()
+    ml_out = ml_phase(df, card, segsum, TRANSFER_STATS)
+    ml_s = time.perf_counter() - t0
+    ml_after = card_allocated()
+    phase("ml", part="card_memory", card=card, seconds=ml_s,
+          allocated_before=mem0, allocated_after=ml_after,
+          equal=ml_after == mem0)
+    check_card_freed(mem0, "ml")
     selflint(card)
     t0 = time.perf_counter() - gen3_s
     tables = {n: all_tables[n] for n in ("customer", "orders", "lineitem")}
@@ -4852,7 +5427,8 @@ def main() -> int:
                              "server_q1_family":
                                  server_out["launches"]["segsum"],
                              **surface_rest_out["launches"],
-                             **chaos_out["launches"]},
+                             **chaos_out["launches"],
+                             **ml_out["launches"]},
         "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"],
                            tpcds_launches["max_abs_err"],
                            surface_q1_launches["max_abs_err"],

@@ -42,11 +42,16 @@ admission byte gate, result-cache admission and partitioned streaming
 (streaming/plan.py, on ``scan_bytes_lo``) read the verdict, and the
 profile store's feedback (`apply_feedback`) tightens its upper bounds from
 a family's observed history, above the fused programs' charge.  The port
-runs on one device, so the reference's sharded-scan bounds (mesh width, exchange buffers; item 10) are left out, and a PREDICT
-node's transients are unbounded above until the inference port (item 9).
+runs on one device, so the reference's sharded-scan bounds (mesh width,
+exchange buffers; item 10) are left out.  A PREDICT node charges the
+model's params and the larger of the reference's per-row charge and the
+port's eager tree walk at its peak (`inference.predict_scratch_bytes`),
+plus, on the fused rung, its input chain's compiled select (`fused.py`),
+and renders a ``model:`` row.
 """
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -63,6 +68,8 @@ from ..planner.expressions import (
 )
 from ..ops.grouping import RADIX_DOMAIN_LIMIT
 from .verifier import _pow2_bucket, _Verifier
+
+logger = logging.getLogger(__name__)
 
 #: compiled rungs a too-big aggregate intermediate buffer dooms (the same
 #: pair the radix-domain proof skips — both planners share the packed
@@ -196,6 +203,11 @@ class PlanEstimate:
     #: `fused.py`) summed, or None when one is unbounded: the floor
     #: feedback never lowers ``peak_bytes.hi`` below, over ``lo``
     scratch_hi: Optional[int] = 0
+    #: one ``model: ...`` line per PREDICT node (inference/): serving tier,
+    #: device-resident param bytes, feature width and per-row floor —
+    #: rendered by EXPLAIN ESTIMATE so admission decisions over inference
+    #: plans are explainable
+    model_rows: List[str] = None
 
     def format_rows(self) -> List[str]:
         rows = [
@@ -221,6 +233,7 @@ class PlanEstimate:
                 scratch = ""
             rows.append(f"node {n.label}: rows={n.rows.fmt()} "
                         f"bytes={n.out_bytes.fmt()}{scratch}")
+        rows.extend(self.model_rows or [])
         for node, rungs, lo in self.rung_proofs:
             rows.append(
                 f"proof {node._label()}: compiled intermediate >= {lo} "
@@ -246,6 +259,7 @@ class _Estimator:
         #: id(TableScan) -> exact resident bytes when the scanned table is
         #: registered with compressed encodings (columnar/encodings.py)
         self._scan_actual: Dict[int, int] = {}
+        self.model_rows: List[str] = []
 
     # ------------------------------------------------------------- walking
     def estimate(self, node: p.LogicalPlan) -> Tuple[Interval, Interval]:
@@ -283,7 +297,7 @@ class _Estimator:
             if fused is not None and scratch_hi is not None:
                 scratch_hi = max(scratch_hi, fused)
         elif isinstance(node, p.PredictModelNode):
-            scratch_hi = None  # the inference port (item 9) bounds it
+            scratch_hi = self._predict_scratch(node, rows)
         elif isinstance(node, (p.Sort, p.Distinct, p.Window)):
             # sort-based paths keep permutation indices + a key copy: bound
             # by 2x the input's padded bytes
@@ -482,6 +496,74 @@ class _Estimator:
                                       ext.scan.table_name),
             build_rows, domain, self.context)
 
+    def _predict_scratch(self, node: p.PredictModelNode,
+                         rows: Interval) -> Optional[int]:
+        """Transient device bytes of one PREDICT node, and (side effect)
+        the ``model:`` EXPLAIN ESTIMATE row.
+
+        The fused rung (physical/compiled_predict.py) materializes the
+        feature matrix and, for tree programs, (rows, trees)-shaped
+        navigation buffers over the survivor bucket, inside its input
+        chain's compiled select; the host tier materializes the feature
+        matrix host-side but the estimate charges it identically
+        (conservative).  Model params feed the UPPER bound only: they are
+        device-resident only IF the fused rung serves this plan, which
+        per-plan eligibility (lazy or view scans, nullable or string
+        features) can deny — so charging them to the provable floor could
+        shed a host-served plan.  Actual committed bytes are the ledger's
+        job (``serving.ledger.model_bytes``)."""
+        program = None
+        param_bytes = 0
+        tier = "host"
+        label = "?"
+        n_features = max(len(node.schema) - 1, 1)
+        # the fused rung is what makes params device-resident: with it
+        # disabled every PREDICT serves host-side
+        fused_on = self._compiles("sql.compile.predict") \
+            and self._compiles("sql.compile")
+        try:
+            ctx = self.context
+            if ctx is not None:
+                schema_name, name = ctx._table_schema_name(node.model_name)
+                label = name
+                model, cols = ctx.get_model(schema_name, name)
+                n_features = max(len(cols), 1)
+                from ..inference import program_for
+
+                program, _reason = program_for(ctx, schema_name, name,
+                                               model)
+                if program is not None and fused_on:
+                    param_bytes = program.param_bytes
+                    tier = "compiled"
+        except Exception:  # dsql: allow-broad-except — estimation is
+            # advisory; an unresolvable model keeps the host-tier claim
+            logger.debug("predict estimate model lookup failed",
+                         exc_info=True)
+        from ..inference import predict_scratch_bytes
+
+        per_row = predict_scratch_bytes(program, n_features)
+        self.model_rows.append(
+            f"model: name={label} tier={tier} param_bytes={param_bytes} "
+            f"features={n_features} row_floor={per_row}")
+        if rows.hi is None:
+            return None
+        scratch = param_bytes + (_pow2_bucket(rows.hi) or 0) * per_row
+        if tier == "compiled":
+            # the input chain's two programs run on the fused rung too
+            from . import fused
+            from ..physical.compiled_select import _extract
+
+            got = _extract(node.input)
+            if got is not None:
+                chain = fused.select_scratch(
+                    node.input, self._v._table_rows(got[0].schema_name,
+                                                    got[0].table_name),
+                    self.context)
+                if chain is None:
+                    return None
+                scratch += chain
+        return scratch
+
     def fused_select_scratch(self, root: p.LogicalPlan) -> Optional[int]:
         """The port's compiled root select at its peak (`fused.py`), when
         the config lets it run; None when the root is no such chain."""
@@ -533,6 +615,7 @@ class _Estimator:
             rung_proofs=[],
             scan_bytes_lo=sum(self._scan_lo.values()),
             scratch_hi=scratch,
+            model_rows=list(self.model_rows),
         )
 
 

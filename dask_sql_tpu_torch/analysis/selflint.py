@@ -37,9 +37,11 @@ DSQL301  host-sync
     card waits for the device there: one undocumented pull per call.
     The port traces nothing, so its "traced" scope is (a) the run path
     of the compiled pipelines — every function of `physical/compiled.py`,
-    `compiled_join.py`, `compiled_select.py` or `physical/streaming.py`
-    reachable from a ``run`` / ``run_batched`` method through calls by
-    name within the module — and (b) functions handed to or decorated
+    `compiled_join.py`, `compiled_select.py`, `compiled_predict.py`,
+    `physical/streaming.py` or `inference/programs.py` reachable from a
+    ``run`` / ``run_batched`` method, the predict seam
+    ``_extra_pack_outputs`` or a model program's ``apply`` through calls
+    by name within the module — and (b) functions handed to or decorated
     with a capturing entry point (``torch.compile``, ``torch.jit.script``
     / ``trace``, ``torch.cuda.make_graphed_callables``), where a host sync
     breaks the graph or the capture.  Suppress a deliberate pull (the
@@ -162,9 +164,11 @@ _RUN_PATH_SUFFIXES = (
     os.path.join("physical", "compiled.py"),
     os.path.join("physical", "compiled_join.py"),
     os.path.join("physical", "compiled_select.py"),
+    os.path.join("physical", "compiled_predict.py"),
     os.path.join("physical", "streaming.py"),
+    os.path.join("inference", "programs.py"),
 )
-_RUN_ROOTS = {"run", "run_batched"}
+_RUN_ROOTS = {"run", "run_batched", "_extra_pack_outputs", "apply"}
 #: entry points that capture a function for the device (graph capture or
 #: compilation): a host sync inside one breaks the graph or the capture
 _CAPTURE_CALLS = {"torch.compile", "torch.jit.script", "torch.jit.trace",

@@ -20,31 +20,44 @@ Context, and one the port saves loads into the reference's.
   input, serving/warmup.py) and the breaker's open verdicts (restored
   within ``resilience.breaker.persist_ttl_s``) ride along.
 
+- Registered models ride along, each pickled with its training columns
+  (a port model's fitted tensors on the host, so a snapshot taken on the
+  card loads on a CPU Context); the load registers them again on the
+  loading Context's device.  A reference snapshot's models are not loaded
+  (unpickling them imports the JAX package): the load warns and skips
+  them.
+
 Not captured, listed in the manifest's ``not_restored`` (re-issue their
-DDL after a load): views and registered functions, as in the reference,
-and, in the port, models, which come with the inference port (ROADMAP.md
-Queue 1 item 9); a reference snapshot's models are not loaded either.
+DDL after a load): views and registered functions, as in the reference.
 
 Layout under ``location/``:
     CURRENT                              name of the live snapshot dir
     snap-NNNNNN/manifest.json            inventories and column specs
     snap-NNNNNN/tables/<schema>/<table>.parquet
+    snap-NNNNNN/models/<schema>/<model>.pkl
 """
 from __future__ import annotations
 
 import json
 import logging
 import os
+import pickle
 import shutil
 from typing import TYPE_CHECKING
 from urllib.parse import quote
 
 import numpy as np
 
+from .ml import torch_models
+
 if TYPE_CHECKING:  # pragma: no cover
     from .context import Context
 
 logger = logging.getLogger(__name__)
+
+#: the ``engine`` tag of a model entry the port saved (its pickle imports
+#: only the port, torch and the model's own library)
+_ENGINE = "torch"
 
 
 def _q(name: str) -> str:
@@ -156,6 +169,8 @@ def save_state(context: "Context", location: str) -> dict:
     for schema_name, container in context.schema.items():
         os.makedirs(os.path.join(snap_dir, "tables", _q(schema_name)),
                     exist_ok=True)
+        os.makedirs(os.path.join(snap_dir, "models", _q(schema_name)),
+                    exist_ok=True)
         entry = {"tables": {}, "models": [], "statistics": {}}
         for tname, dc in container.tables.items():
             if isinstance(dc, LazyParquetContainer):
@@ -168,6 +183,13 @@ def save_state(context: "Context", location: str) -> dict:
             entry["tables"][tname] = {"kind": "materialized", "file": rel,
                                       "columns": specs,
                                       "num_rows": dc.table.num_rows}
+        for mname, (model, train_cols) in container.models.items():
+            rel = os.path.join("models", _q(schema_name), _q(mname) + ".pkl")
+            with open(os.path.join(snap_dir, rel), "wb") as f:
+                pickle.dump((model, train_cols), f)
+            # the engine tag tells the port's load its own pickles apart
+            entry["models"].append({"name": mname, "file": rel,
+                                    "engine": _ENGINE})
         for tname, stats in container.statistics.items():
             if stats is not None and stats.row_count is not None:
                 entry["statistics"][tname] = float(stats.row_count)
@@ -175,6 +197,8 @@ def save_state(context: "Context", location: str) -> dict:
         dropped = {}
         if container.function_lists:
             dropped["functions"] = sorted(container.function_lists)
+        if container.experiments:
+            dropped["experiments"] = sorted(container.experiments)
         views = context._views.get(schema_name)
         if views:
             dropped["views"] = sorted(views)
@@ -247,11 +271,22 @@ def load_state(context: "Context", location: str) -> dict:
             container.tables[tname] = DataContainer(table)
             context._views.get(schema_name, {}).pop(tname, None)
             changed.add((schema_name, tname))
-        if entry.get("models"):
+        foreign = [m["name"] for m in entry.get("models", [])
+                   if m.get("engine") != _ENGINE]
+        if foreign:
             logger.warning(
-                "load_state: schema %r has models (%s); the port has no "
-                "model registry yet, so they are not loaded", schema_name,
-                ", ".join(m["name"] for m in entry["models"]))
+                "load_state: schema %r has models another engine saved "
+                "(%s); unpickling them would import that engine, so they "
+                "are not loaded", schema_name, ", ".join(foreign))
+        for m in entry.get("models", []):
+            if m.get("engine") != _ENGINE:
+                continue
+            with open(os.path.join(snap_dir, m["file"]), "rb") as f:
+                model, train_cols = pickle.load(f)
+            if isinstance(model, torch_models._TorchEstimator):
+                model.to(context.device)
+            context.register_model(m["name"], model, train_cols,
+                                   schema_name=schema_name)
         for tname, rows in entry.get("statistics", {}).items():
             container.statistics[tname] = Statistics(rows)
     context.schema_name = manifest.get("current_schema", context.schema_name)

@@ -31,6 +31,11 @@ DEFAULTS: Dict[str, Any] = {
     "sql.compile": True,  # the fused aggregate and join->aggregate pipelines
     "sql.compile.join_pipeline": True,  # the scan->joins->aggregate pipeline
     "sql.compile.select": True,  # one-kernel root select chains
+    # fused PREDICT (inference/, physical/compiled_predict.py): a registered
+    # model's tensor program inside the compiled select's gather program
+    # (the compiled_predict ladder rung).  Off = every PREDICT takes the
+    # host tier (pull to pandas, model.predict on numpy, upload again).
+    "sql.compile.predict": True,
     # segment-sum mode: auto | scatter | matmul | pallas (the last two pick
     # the hand-written kernel, ops/segsum.py choose_segsum_impl)
     "sql.compile.segsum": "auto",
@@ -90,7 +95,7 @@ DEFAULTS: Dict[str, Any] = {
     "resilience.pressure.yellow_frac": 0.25,  # headroom <= frac*budget enters YELLOW
     "resilience.pressure.red_frac": 0.10,  # headroom <= frac*budget enters RED
     "resilience.pressure.critical_frac": 0.05,  # headroom <= frac*budget enters CRITICAL
-    "resilience.pressure.model_idle_s": 120.0,  # idle model params reclaimable (no model tier yet)
+    "resilience.pressure.model_idle_s": 120.0,  # idle model params reclaimable
     # fault injection (resilience/faults.py), e.g. "compile:0.5,oom:once"
     "resilience.inject": None,
     "resilience.inject.seed": 0,  # PRNG seed of the probabilistic modes

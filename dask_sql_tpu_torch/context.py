@@ -809,6 +809,30 @@ class Context:
         self._catalog_serial += 1
         self._on_catalog_change()
 
+    def register_model(self, model_name: str, model: Any,
+                       training_columns: List[str],
+                       schema_name: Optional[str] = None) -> None:
+        """Register a fitted model under ``model_name`` with the columns it
+        was trained on (as the reference's `register_model`)."""
+        schema_name = schema_name or self.schema_name
+        self.schema[schema_name].models[model_name] = (
+            model, list(training_columns))
+        self.metrics.inc("inference.model.registered")
+        # the lowered-program cache is NOT invalidated here: it detects the
+        # replaced object lazily (identity mismatch -> re-lower), and the
+        # stale entry is what lets inference/registry.py recognize a
+        # same-shape retrain as a model.swap
+        self._catalog_serial += 1
+        self._on_catalog_change()
+
+    def get_model(self, schema_name: str, model_name: str):
+        """``(model, training_columns)`` of a registered model."""
+        models = self.schema[schema_name].models
+        if model_name not in models:
+            raise KeyError(
+                f"A model with the name {model_name} is not present.")
+        return models[model_name]
+
     def lookup_function(self, name: str, arg_types: Optional[List[SqlType]] = None
                         ) -> Optional[FunctionDescription]:
         """The registered function of `name` in the current schema.  With
@@ -914,8 +938,10 @@ class Context:
 
     def _run_plan(self, plan, config_options=None) -> Optional[TorchFrame]:
         """A query's lazy frame; a statement runs now, and its frame holds
-        its result (None when it has none)."""
-        if isinstance(plan, plan_nodes.CustomNode):
+        its result (None when it has none).  PREDICT is a query: it runs
+        through `Executor.execute_root` and the fused rung."""
+        if isinstance(plan, plan_nodes.CustomNode) and not isinstance(
+                plan, plan_nodes.PredictModelNode):
             from .physical.executor import Executor
 
             with self.config.set(config_options):

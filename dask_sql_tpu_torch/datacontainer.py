@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from .columnar.table import Table
 from .planner.catalog import FunctionDescription, Statistics
@@ -82,4 +82,6 @@ class SchemaContainer:
     functions: Dict[str, FunctionDescription] = field(default_factory=dict)
     function_lists: Dict[str, List[FunctionDescription]] = field(
         default_factory=dict)
+    models: Dict[str, Tuple[object, List[str]]] = field(default_factory=dict)
+    experiments: Dict[str, object] = field(default_factory=dict)
     filepaths: Dict[str, str] = field(default_factory=dict)

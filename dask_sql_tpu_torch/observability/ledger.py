@@ -18,9 +18,8 @@ Accounting identities (all bytes):
     inflight_measured = measured footprints live queries reported so far
     result_cache      = resident bytes of cached result Tables
     tables            = at-rest bytes of registered (non-lazy) tables
-    models            = the model tier's device-resident weights: 0 until
-                        the inference tier is ported (ROADMAP.md Queue 1
-                        item 9)
+    models            = the model tier's device-resident weights
+                        (inference/registry.py `context_model_bytes`)
     materialized      = pinned sub-plan stems (materialize/manager.py
                         `pinned_bytes`)
     headroom          = budget - reserved - result_cache - tables - models
@@ -105,10 +104,17 @@ class DeviceLedger:
         return total
 
     def model_bytes(self) -> int:
-        """Device-resident bytes of lowered model weights: the inference
-        tier (``context_model_bytes``) is ROADMAP.md Queue 1 item 9, so
-        none are resident yet."""
-        return 0
+        """Device-resident bytes of lowered model params (the
+        compiled-PREDICT tier's weights, committed to the device on first
+        fused use — inference/registry.py), read without a device-to-host
+        copy."""
+        try:
+            from ..inference import context_model_bytes
+
+            return int(context_model_bytes(self.context))
+        except Exception:  # dsql: allow-broad-except — advisory accounting
+            logger.debug("ledger model accounting failed", exc_info=True)
+            return 0
 
     def materialized_bytes(self) -> int:
         """Device-resident bytes of pinned sub-plan stems (the semantic

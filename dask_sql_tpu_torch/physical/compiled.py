@@ -1669,13 +1669,14 @@ def pipeline_owner(context) -> int:
 
 def evict_owner(token: int) -> None:
     """Drop every cached pipeline of the Context whose token this is."""
-    from . import compiled_join, compiled_select
+    from . import compiled_join, compiled_predict, compiled_select
     from ..streaming import aggregate as streamed_agg
     from ..streaming import select as streamed_sel
 
     with _cache_lock:
         for cache in (_cache, compiled_join._cache, compiled_select._cache,
-                      streamed_agg._cache, streamed_sel._cache):
+                      compiled_predict._cache, streamed_agg._cache,
+                      streamed_sel._cache):
             for key in [k for k in cache if k[0] == token]:
                 del cache[key]
 

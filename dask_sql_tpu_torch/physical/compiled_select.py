@@ -21,9 +21,10 @@ PyTorch runs eagerly: the two programs are torch ops, and a pipeline is
 checked at construction by running both over one row, so an expression the
 evaluator does not take declines before the pipeline is cached.  Filter
 and projection literals lift into the family's parameters (`families/`),
-so one pipeline serves every literal of a family.  Left out of the
-reference's version: the family batcher, the lazy parquet and sharded
-scans, and the fused PREDICT seam.
+so one pipeline serves every literal of a family.  The fused PREDICT rung
+(`compiled_predict.py`) appends its model's output to the gather program
+through `CompiledSelect._extra_pack_outputs`.  Left out of the reference's
+version: the family batcher and the lazy parquet and sharded scans.
 """
 from __future__ import annotations
 
@@ -231,7 +232,22 @@ class CompiledSelect:
                 v = v.expand(bucket)
             flat.append(d)
             flat.append(ones if v is None else v)
+        # the fused PREDICT rung (compiled_predict.py) appends its model's
+        # output here, over the same survivors, into the same packed pull
+        for d, v in self._extra_pack_outputs(ev, slots, bucket):
+            if d.dim() == 0:
+                d = d.expand(bucket).contiguous()
+            flat.append(d)
+            flat.append(ones if v is None else v)
         return pack_flat(flat, tags)
+
+    def _extra_pack_outputs(self, ev, slots, bucket: int):
+        """Extra (data, validity or None) pairs appended to the packed
+        gather output: the seam `CompiledPredict` overrides to run its
+        model program over the gathered survivors.  ``slots`` holds the
+        gathered per-column (data, validity) pairs and the runtime
+        parameters under PARAMS_SLOT."""
+        return ()
 
     # -- one query ----------------------------------------------------------
     def run(self, table: Table, params: Tuple = (),

@@ -1,13 +1,14 @@
 """Physical executor: walks the logical plan and produces Tables.
 
 Counterpart of `dask_sql_tpu/physical/executor.py` on one device: the plan
-root runs under the degradation ladder (`resilience/ladder.py`): the
+root runs under the degradation ladder (`resilience/ladder.py`): the fused
+PREDICT of a root PREDICT over a select chain (`compiled_predict.py`), the
 streamed root select of a plan the admission gate routed to partitions
 (`streaming/select.py`, `stream_decisions`), the compiled root select
 (`compiled_select.py`), then the interpreted
 walk, where each plan node goes to the plugin registered for its node
 type: the relational operators (`rel/logical/`) and the statements
-(`rel/custom/ddl.py`).  With ``trace`` on, each plan node runs under the
+(`rel/custom/ddl.py`, `rel/custom/ml.py`).  With ``trace`` on, each plan node runs under the
 per-node `Tracer` (tracing.py): EXPLAIN ANALYZE and
 ``serving.metrics.node_traces``.  The query's serving ticket is checked
 before the one-kernel fast path and before every plan node (a cancel or a
@@ -51,14 +52,18 @@ class Executor:
 
     def execute_root(self, rel: LogicalPlan) -> Table:
         """Entry for the plan ROOT, whose result goes straight to the host.
-        The ``execute`` fault site arms first.  A root select chain runs as
-        the compiled select (two programs, two transfers), the
-        `compiled_select` rung of the ladder (``compile`` site at its
-        entry); anything else, or a degradable failure there, takes the
-        interpreted walk, with the CPU rung under it on a CPU Context.
-        With the ladder off the sites still arm, and a failure
-        propagates."""
+        The ``execute`` fault site arms first.  A root PREDICT over a
+        select chain runs model inference inside the compiled select's
+        programs, the `compiled_predict` rung (``predict`` site at its
+        entry), stepping down to the host tier (the PredictModelPlugin of
+        the interpreted walk).  A root select chain runs as the compiled
+        select (two programs, two transfers), the `compiled_select` rung of
+        the ladder (``compile`` site at its entry); anything else, or a
+        degradable failure there, takes the interpreted walk, with the CPU
+        rung under it on a CPU Context.  With the ladder off the sites
+        still arm, and a failure propagates."""
         from ..resilience import faults, ladder
+        from .compiled_predict import root_has_predict, try_compiled_predict
         from .compiled_select import try_compiled_select
 
         ticket = current_ticket()
@@ -67,7 +72,16 @@ class Executor:
         faults.maybe_inject("execute", self.config)
         # a root select the admission gate routed to partitions (streaming/)
         streamed = id(rel) in self.stream_decisions
+        # fused PREDICT: its own (family, compiled_predict) breaker entity,
+        # stepping down to the host tier below
+        predict_root = root_has_predict(rel)
         if self.config.get("resilience.ladder.enabled", True):
+            if predict_root:
+                out = ladder.attempt(self, "compiled_predict",
+                                     lambda: try_compiled_predict(rel, self),
+                                     rel=rel, inject_site="predict")
+                if out is not None:
+                    return out
             if streamed:
                 from ..streaming import try_streamed_select
 
@@ -82,6 +96,11 @@ class Executor:
             if out is not None:
                 return out
             return ladder.execute_interpreted(self, rel)
+        if predict_root:
+            faults.maybe_inject("predict", self.config)
+            out = try_compiled_predict(rel, self)
+            if out is not None:
+                return out
         if streamed:
             from ..streaming import try_streamed_select
 
@@ -136,5 +155,5 @@ class Executor:
 
 
 # the plugin modules register themselves with Executor on import
-from .rel.custom import ddl  # noqa: E402,F401
+from .rel.custom import ddl, ml  # noqa: E402,F401
 from .rel.logical import aggregate, basic, join, window  # noqa: E402,F401

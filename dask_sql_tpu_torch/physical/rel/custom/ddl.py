@@ -15,11 +15,12 @@ SHOW METRICS reads the Context's metrics registry (`serving/metrics.py`)
 and SHOW PROFILES its profile store (`observability/profiles.py`).
 
 SHOW MATERIALIZED reads the semantic-reuse state (`Context.materialize`,
-materialize/).
+materialize/), and SHOW MODELS the model registry with each model's
+lowering verdict (inference/).
 
-The statements whose subsystem the port does not have yet raise
-`NotImplementedError`, naming it and its item in ROADMAP.md's Queue 1:
-SHOW MODELS (item 9) and SHOW REPLICAS (item 10).
+SHOW REPLICAS, whose subsystem the port does not have yet, raises
+`NotImplementedError`, naming it and its item in ROADMAP.md's Queue 1
+(item 10).
 """
 from __future__ import annotations
 
@@ -430,11 +431,31 @@ class ShowMaterializedPlugin(BaseRelPlugin):
                               "Epoch": [str(r[6]) for r in rows]})
 
 
-for _node, _statement, _needs in (
-        ("ShowModelsNode", "SHOW MODELS",
-         "the model registry (ml/, ROADMAP.md Queue 1 item 9)"),
-        ("ShowReplicasNode", "SHOW REPLICAS",
-         "the fleet router (fleet/, ROADMAP.md Queue 1 item 10)")):
-    Executor.add_plugin_class(type(
-        _node.replace("Node", "Plugin"), (BaseRelPlugin,),
-        {"class_name": _node, "convert": _not_ported(_statement, _needs)}))
+@Executor.add_plugin_class
+class ShowModelsPlugin(BaseRelPlugin):
+    class_name = "ShowModelsNode"
+
+    def convert(self, rel: p.ShowModelsNode, executor) -> Table:
+        from ....inference import lowering_verdict
+
+        ctx = executor.context
+        schema = rel.schema_name or ctx.schema_name
+        names = list(ctx.schema[schema].models.keys())
+        # the lowering verdict per model (inference/): which models serve
+        # on the fused compiled_predict tier and which on the host tier,
+        # their device param bytes, and the program shape
+        verdicts = [lowering_verdict(ctx, schema, n) for n in names]
+        return _string_table({
+            "Model": names,
+            "Tier": [v["tier"] for v in verdicts],
+            "ParamBytes": [v["param_bytes"] for v in verdicts],
+            "Shape": [v["shape"] for v in verdicts],
+        })
+
+
+@Executor.add_plugin_class
+class ShowReplicasPlugin(BaseRelPlugin):
+    class_name = "ShowReplicasNode"
+    convert = _not_ported(
+        "SHOW REPLICAS",
+        "the fleet router (fleet/, ROADMAP.md Queue 1 item 10)")

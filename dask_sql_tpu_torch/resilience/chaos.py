@@ -14,8 +14,8 @@ the admission queue backs up.  This module is the composition proof: a
 deterministic (seeded) campaign arms rotating subsets of every fault-
 injection site (resilience/faults.py) as probability specs, drives a
 concurrent mixed workload — interactive aggregates, batch scans, streamed
-partitioned queries, exact-repeat cache hits, random mid-flight cancels,
-checkpoint writes — through a real `ServingRuntime`, and then asserts
+partitioned queries, PREDICT inference, exact-repeat cache hits, random
+mid-flight cancels, checkpoint writes — through a real `ServingRuntime`, and then asserts
 GLOBAL invariants that must hold after drain no matter which faults fired
 in which order:
 
@@ -41,9 +41,8 @@ failure, shed, cancel are all acceptable under chaos; what is NOT
 acceptable is corrupted engine state after the storm passes.  A query that
 fails on the card is such an outcome: nothing re-runs it on the host.
 
-Not yet in the port: the PREDICT traffic (the model, its input table and
-template; the ``predict`` site) waits for ROADMAP.md Queue 1 item 9, and
-the ``spmd`` site and the replica-kill fleet campaigns for item 10.
+Not yet in the port: the ``spmd`` site and the replica-kill fleet
+campaigns (ROADMAP.md Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -69,7 +68,7 @@ _campaign_nonce = itertools.count()
 #: every error-raising inject site of the port plus the hang site — the
 #: campaign rotates probability-armed subsets of this list
 ALL_SITES = ("compile", "oom", "exec_oom", "execute", "checkpoint",
-             "partition", "d2h", "compile_hang")
+             "predict", "partition", "d2h", "compile_hang")
 
 #: base config for a campaign: fast backoff, short breaker cooldown, a
 #: short injected hang with a compile deadline it trips, a flight ring
@@ -127,8 +126,9 @@ class ChaosReport:
 def _build_context(rng: random.Random, device=None,
                    config_options: Optional[Dict[str, Any]] = None):
     """A fresh Context with the chaos fixture data: a small table (fast
-    interactive aggregates + cache hits) and a bigger table sized to force
-    streamed routing under the per-query byte gate."""
+    interactive aggregates + cache hits), a bigger table sized to force
+    streamed routing under the per-query byte gate, and a trained model
+    for PREDICT traffic."""
     import numpy as np
     import pandas as pd
 
@@ -145,6 +145,16 @@ def _build_context(rng: random.Random, device=None,
         "k": np.arange(n_big) % 13,
         "v": rng.random() + np.arange(n_big, dtype=np.float64),
     }))
+    df = pd.DataFrame({
+        "x": np.linspace(0.0, 1.0, n_small),
+        "y": np.linspace(1.0, 0.0, n_small),
+    })
+    df["target"] = (df.x * 2 + df.y > 1.2).astype(np.int64)
+    c.create_table("train", df)
+    c.sql("""CREATE MODEL chaos_model WITH (
+                 model_class = 'LinearRegression',
+                 target_column = 'target'
+             ) AS (SELECT x, y, target FROM train)""")
     return c
 
 
@@ -164,6 +174,8 @@ def _query_mix(stream_budget: int) -> List[Tuple[str, str, Dict]]:
          "interactive", stream_opts),
         ("SELECT k, SUM(v) AS s FROM t_big GROUP BY k",
          "batch", stream_opts),
+        ("SELECT * FROM PREDICT(MODEL chaos_model, "
+         "SELECT x, y FROM t_small_pred)", "interactive", {}),
         ("SELECT a, b FROM t_small WHERE a > 50", "interactive", {}),
     ]
 
@@ -174,6 +186,13 @@ def _card_allocated(device) -> Optional[int]:
     if device.type != "cuda":
         return None
     torch.cuda.synchronize(device)
+    # cuBLAS keeps a workspace a thread's handle in PyTorch's caching
+    # allocator, left by the first matmul on each thread (a model fit, a
+    # worker's PREDICT program): the library's, not the Context's, so it
+    # is dropped before each count
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
     return int(torch.cuda.memory_allocated(device))
 
 
@@ -237,6 +256,10 @@ def _storm(report: ChaosReport, seed: int, queries: int, rounds: int,
     # per-query gate a third of the big table: full scans exceed it,
     # chunks fit — the streamed templates route instead of shedding
     stream_budget = max(4096, big_bytes // 3)
+    # the PREDICT input table (left out of _build_context so its name
+    # telegraphs its purpose in SHOW QUERIES output)
+    context.sql("CREATE TABLE t_small_pred AS "
+                "(SELECT a / 200.0 AS x, b / 7.0 AS y FROM t_small)")
     # device budget for the pressure bands: roomy enough to sit GREEN at
     # idle, tight enough that concurrent reservations + cache growth can
     # push it into YELLOW/RED during a storm

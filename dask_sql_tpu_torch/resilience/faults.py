@@ -21,6 +21,10 @@ refused:
 
     compile     entry of each compiled rung: compiled_select,
                 compiled_join_aggregate, compiled_aggregate (CompileError)
+    predict     entry of the fused-inference rung only (compiled_predict,
+                physical/compiled_predict.py): proves the fused -> host
+                predict step down without touching the select rungs
+                (ResourceExhaustedError)
     oom         inside a compiled rung, just before its device execution
                 (physical/compiled.py, compiled_join.py, compiled_select.py;
                 ResourceExhaustedError)
@@ -39,8 +43,8 @@ refused:
                 partition launch sleeps ``resilience.inject.hang_s`` inside
                 the watchdog's helper thread (`hang_duration`)
 
-The reference's ``predict`` (ROADMAP.md Queue 1 item 9) and ``spmd``
-(item 10) sites come with their code.
+The reference's ``spmd`` site (ROADMAP.md Queue 1 item 10) comes with
+its code.
 
 The injector is rebuilt whenever the spec string changes, so tests can flip
 faults on and off through plain config scopes.  When the key is unset the
@@ -87,6 +91,7 @@ class InjectedWriteError(InjectedFault, ExecutionError):
 #: site -> error class raised when the site arms
 SITE_ERRORS = {
     "compile": InjectedCompileError,
+    "predict": InjectedOomError,
     "oom": InjectedOomError,
     "exec_oom": InjectedOomError,
     "execute": InjectedTransientError,

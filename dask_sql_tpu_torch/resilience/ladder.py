@@ -39,15 +39,17 @@ by a lower rung.  The rung that answers is counted in
   same rung once (``resilience.pressure.rung_retry``/``_ok``); with
   nothing to free it steps down as before.
 
-Rungs in the port: ``streamed_select`` and ``streamed_aggregate``
+Rungs in the port: ``compiled_predict`` (physical/compiled_predict.py,
+only for a root PREDICT, stepping down to the host tier),
+``streamed_select`` and ``streamed_aggregate``
 (streaming/, only for plans the admission gate routed there),
 ``compiled_select`` (physical/compiled_select.py),
 ``compiled_join_aggregate`` (physical/compiled_join.py),
 ``compiled_aggregate`` (physical/compiled.py), ``interpreted`` (the eager
 plugins) and ``cpu`` (on a CPU Context).  Left out until the modules they
-need are ported (ROADMAP.md Queue 1): the predict, SPMD and distributed
-rungs (items 9-10), with the ``rung:<rung>`` event the reference records
-for an SPMD rung.  Each skip and step down is an event on the query's
+need are ported (ROADMAP.md Queue 1): the SPMD and distributed rungs
+(item 10), with the ``rung:<rung>`` event the reference records for an
+SPMD rung.  Each skip and step down is an event on the query's
 lifecycle trace (`observability/spans.py`), and a step down a marker in
 EXPLAIN ANALYZE's node tree; a rung that answers records its wall time on
 the fingerprint's profile (SHOW PROFILES), the evidence `cost_skip`

@@ -14,8 +14,9 @@ card's bytes:
 - **RED** (`evaluate`): cross-tier reclaim in priority order until
   headroom is back at the YELLOW floor: the result cache's cold entries
   (`serving/cache.py` `reclaim_bytes`), then the pinned stems
-  (`materialize/manager.py` `reclaim_bytes`); the model tier reads 0
-  until the inference port (ROADMAP.md Queue 1 item 9) brings it.
+  (`materialize/manager.py` `reclaim_bytes`), then the idle committed
+  model params (`inference/registry.py` `reclaim_idle_models`, idle for
+  ``resilience.pressure.model_idle_s``).
 - **CRITICAL**: serving/admission.py routes new admissions to the streamed
   rungs where the plan allows and sheds the rest with a drain-predicted
   `PressureShedError`.
@@ -226,8 +227,15 @@ class PressureController:
                 freed["stems"] = int(manager.reclaim_bytes(_remaining()))
             except Exception:  # dsql: allow-broad-except — advisory reclaim
                 logger.debug("stem reclaim failed", exc_info=True)
-        # the model tier (inference/) is not in the port yet: it holds no
-        # bytes to reclaim
+        if _need_more():
+            try:
+                from ..inference.registry import reclaim_idle_models
+
+                idle_s = float(ctx.config.get(MODEL_IDLE_KEY, 120.0))
+                freed["models"] = int(reclaim_idle_models(
+                    ctx, idle_s=idle_s, bytes_needed=_remaining()))
+            except Exception:  # dsql: allow-broad-except — advisory reclaim
+                logger.debug("model reclaim failed", exc_info=True)
         total = sum(freed.values())
         metrics = getattr(ctx, "metrics", None)
         if metrics is not None:

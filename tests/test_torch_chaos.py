@@ -5,8 +5,8 @@ chaos.py`, `tests/unit/test_chaos.py`).
 Short seeded campaigns (8 queries, 2 rounds, 2 workers, the base config's
 short cooldowns and hangs) hold every invariant of `_check_invariants`;
 the armed plan repeats for a seed; the sites and templates are the
-reference's but for the ones that wait for ROADMAP.md Queue 1 items 9 and
-10; ``analysis.lock_sanitizer`` on a Context arms the lock sanitizer and
+reference's, PREDICT's among them, but for the one that waits for
+ROADMAP.md Queue 1 item 10; ``analysis.lock_sanitizer`` on a Context arms the lock sanitizer and
 points it at the Context's metrics; and the zombie-thread invariant holds
 the campaign to the threads it could have started.
 """
@@ -85,14 +85,15 @@ def test_campaign_is_seed_deterministic_in_armed_plan():
 
 
 def test_sites_and_templates_are_the_references_but_items_9_and_10():
-    assert set(chaos.ALL_SITES) == set(ref_chaos.ALL_SITES) - {
-        "predict", "spmd"}
+    """The reference's sites and templates but item 10's ``spmd`` site;
+    item 9's ``predict`` site and PREDICT template are in."""
+    assert set(chaos.ALL_SITES) == set(ref_chaos.ALL_SITES) - {"spmd"}
+    assert "predict" in chaos.ALL_SITES
     assert set(chaos.ALL_SITES) == set(faults.SITE_ERRORS) | set(
         faults.HANG_SITES)
     budget = 12345
-    ref = [t for t in ref_chaos._query_mix(budget)
-           if "PREDICT" not in t[0]]
-    assert chaos._query_mix(budget) == ref
+    assert chaos._query_mix(budget) == ref_chaos._query_mix(budget)
+    assert any("PREDICT" in t[0] for t in chaos._query_mix(budget))
     assert chaos._BASE_CONFIG == ref_chaos._BASE_CONFIG
 
 

@@ -9,6 +9,8 @@ to the port and the port to the reference; the loaded Context answers the
 same SQL as the one that saved, with exact keys, counts, NULLs and types.
 The port reloads a table onto its own device with its encodings chosen
 again, so its resident bytes after a load equal those before the save.
+Models ride a port snapshot (pickled with their tensors on the host); a
+reference snapshot's models are not loaded.
 """
 import json
 import os
@@ -242,6 +244,67 @@ def test_views_and_functions_reported_not_restored(tmp_path):
     assert m["not_restored"]["root"]["views"] == ["v"]
     assert m["not_restored"]["root"]["functions"] == ["inc"]
     assert m["schemas"]["root"]["models"] == []
+
+
+def _model_frame():
+    rng = np.random.RandomState(0)
+    df = pd.DataFrame({"x": rng.rand(64), "y": rng.rand(64)})
+    df["target"] = (df.x + df.y > 1).astype(np.int64)
+    return df
+
+
+def test_models_ride_the_snapshot(tmp_path):
+    """A port snapshot carries its models (an engine model and a sklearn
+    one) with their training columns; the load registers them on the
+    loading Context's device, and a model saved from the card (its
+    tensors pickled on the host) loads on a CPU Context.  Experiments are
+    reported not restored, as in the reference."""
+    c = _new("port")
+    df = _model_frame()
+    c.create_table("t", df)
+    c.sql("""CREATE MODEL lin WITH (model_class = 'LinearRegression',
+             target_column = 'target') AS (SELECT x, y, target FROM t)""")
+    c.sql("""CREATE EXPERIMENT grid WITH (
+             model_class = 'sklearn.linear_model.LogisticRegression',
+             tune_parameters = (C = (0.1, 1.0)), target_column = 'target')
+             AS (SELECT x, y, target FROM t)""")
+    # as a card Context's model pickles: its device the card's
+    c.get_model("root", "lin")[0]._device = torch.device("cuda")
+    manifest = _save(c, str(tmp_path / "s"))
+    entries = manifest["schemas"]["root"]["models"]
+    assert sorted(m["name"] for m in entries) == ["grid", "lin"]
+    assert {m["engine"] for m in entries} == {"torch"}
+    assert manifest["not_restored"]["root"]["experiments"] == ["grid"]
+    c.get_model("root", "lin")[0]._device = c.device
+    c2 = _new("port")
+    _load(c2, str(tmp_path / "s"))
+    X = df[["x", "y"]].to_numpy()
+    for name in ("lin", "grid"):
+        model, cols = c2.get_model("root", name)
+        assert cols == ["x", "y"]
+        np.testing.assert_array_equal(model.predict(X),
+                                      c.get_model("root", name)[0].predict(X))
+    loaded = c2.get_model("root", "lin")[0]
+    assert loaded._device == c2.device and loaded._w.device == c2.device
+    got = _sql(c2, "SELECT * FROM PREDICT(MODEL lin, SELECT x, y FROM t)")
+    np.testing.assert_allclose(got["target"], loaded.predict(X), rtol=5e-6)
+    assert c2.metrics.counter("inference.predict.compiled") == 1
+
+
+def test_reference_snapshot_models_are_not_loaded(tmp_path, caplog):
+    """Unpickling a reference model imports the JAX package: the port's
+    load skips it with a warning, and loads the tables."""
+    r = _new("ref")
+    r.create_table("t", _model_frame())
+    r.sql("""CREATE MODEL lin WITH (model_class = 'LinearRegression',
+             target_column = 'target') AS (SELECT x, y, target FROM t)""")
+    _save(r, str(tmp_path / "s"))
+    c = _new("port")
+    with caplog.at_level("WARNING"):
+        _load(c, str(tmp_path / "s"))
+    assert "lin" not in c.schema["root"].models
+    assert "another engine saved" in caplog.text
+    assert len(_sql(c, "SELECT * FROM t")) == 64
 
 
 def test_lazy_parquet_tables_reregister_by_path(tmp_path):

@@ -6,7 +6,7 @@ The statements and expectations of the reference's `tests/integration/
 test_ddl.py` are copied here (the file-backed CREATE TABLE WITH (location
 = ...) is in `tests/test_torch_files.py`); the statements whose subsystem
 is a later item of ROADMAP.md's Queue 1 raise `NotImplementedError`
-naming it.  INSERT INTO appends to
+naming it, and SHOW MODELS lists what the reference lists.  INSERT INTO appends to
 PLAIN, DICT, FOR and RLE columns, with a new dictionary value and a new
 group.  One short script (CREATE TABLE AS, INSERT INTO, an aggregate with
 a registered function) runs through the port and the reference `Context`
@@ -198,12 +198,35 @@ def test_views_describe_and_drop_view(c, df):
 @pytest.mark.parametrize("sql, needs", [
     ("CREATE TABLE f WITH (location = '/nowhere.csv', format = 'csv', "
      "distributed = True)", "multi-device storage"),
-    ("SHOW MODELS", "model registry"),
     ("SHOW REPLICAS", "fleet router"),
 ])
 def test_statements_of_later_items_raise(c, sql, needs):
     with pytest.raises(NotImplementedError, match=needs):
         c.sql(sql, return_futures=False)
+
+
+def test_show_models_matches_reference(df):
+    """SHOW MODELS (its stub replaced by the model registry): the
+    reference's columns Model, Tier, ParamBytes and Shape, empty and with
+    models of both tiers."""
+    got = {}
+    for engine in ("port", "ref"):
+        c = Context(device="cpu") if engine == "port" \
+            else dask_sql_tpu.Context()
+        c.create_table("df", df)
+        empty = c.sql("SHOW MODELS", return_futures=False)
+        c.sql("""CREATE MODEL lin WITH (model_class = 'LinearRegression',
+                 target_column = 'b') AS (SELECT a, b FROM df)""")
+        c.sql("""CREATE MODEL wrapped WITH (
+                 model_class = 'sklearn.linear_model.LinearRegression',
+                 wrap_predict = True, target_column = 'b')
+                 AS (SELECT a, b FROM df)""")
+        got[engine] = (list(empty.columns), len(empty),
+                       c.sql("SHOW MODELS", return_futures=False))
+    assert got["port"][:2] == got["ref"][:2] == (
+        ["Model", "Tier", "ParamBytes", "Shape"], 0)
+    pd.testing.assert_frame_equal(got["port"][2], got["ref"][2])
+    assert list(got["port"][2]["Tier"]) == ["compiled", "host"]
 
 
 @pytest.mark.parametrize("statement", ["SHOW METRICS", "SHOW PROFILES",

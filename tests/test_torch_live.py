@@ -285,6 +285,18 @@ def test_prometheus_golden_ledger_gauges():
         "dsql_serving_ledger_reserved_bytes 0\n"
         "# TYPE dsql_serving_ledger_table_bytes gauge\n"
         f"dsql_serving_ledger_table_bytes {t_bytes}\n")
+    # a model committed by its first fused PREDICT: its params are the
+    # model gauge, out of the headroom (a float32 weight and bias)
+    c.sql("""CREATE MODEL lm WITH (model_class = 'LinearRegression',
+             target_column = 'b') AS (SELECT a, b FROM ldg)""")
+    c.sql("SELECT * FROM PREDICT(MODEL lm, SELECT a FROM ldg)").compute()
+    reg = MetricsRegistry()
+    c.ledger.publish(reg)
+    text = render_prometheus(reg.snapshot())
+    assert "dsql_serving_ledger_model_bytes 8\n" in text
+    cached = c.ledger.snapshot()["resultCacheBytes"]
+    assert "dsql_serving_ledger_headroom_bytes " \
+        f"{(1 << 20) - t_bytes - cached - 8}\n" in text
 
 
 # ------------------------------------------------- cross-query causality

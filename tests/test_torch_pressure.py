@@ -6,7 +6,7 @@ CRITICAL admission route run through a port Context and a reference
 Context on one seeded frame, under scoped config (the reference's config
 is process-wide), and must give the same bands, counters and flight
 events.  The reclaim walks the result cache, then the pinned stems
-(`materialize/`); the model tier reads 0 until the inference port.
+(`materialize/`), then the idle committed model params (`inference/`).
 """
 import time
 
@@ -195,17 +195,26 @@ def test_yellow_pauses_warmup_and_resumes():
 # ------------------------------------------------------- RED-band reclaim
 def test_red_reclaim_walks_tiers_in_priority_order():
     """A small target comes from the cold result cache alone, the pinned
-    stem untouched; an OOM reclaim drains the cache, then the stem tier
-    (materialize/).  The same tiers, bytes freed in order and counters in
-    both engines; the model tier holds none."""
+    stem and the committed model untouched; an OOM reclaim drains the
+    cache, then the stem tier (materialize/), then the model tier
+    (inference/: the params of a model idle for
+    ``resilience.pressure.model_idle_s``).  The same tiers, bytes freed in
+    order and counters in both engines."""
     out = {}
     for engine in ENGINES:
         c = _ctx(engine, _df(4000, seed=3))
         rec = _flight(engine).RECORDER
+        c.sql("""CREATE MODEL lm WITH (model_class = 'LinearRegression',
+                 target_column = 'b') AS (SELECT a, b FROM t)""")
+        # the fused PREDICT commits the params; uncached, so no result or
+        # stem of it joins the tiers below
+        _sql(c, "SELECT * FROM PREDICT(MODEL lm, SELECT a FROM t)",
+             **{"serving.cache.enabled": False})
         with c.config.set({"serving.materialize.min_bytes": 1}):
             c.sql("SELECT a FROM t WHERE a > 3").compute()
             c.sql("SELECT b FROM t WHERE a > 3").compute()
             snap = c.ledger.snapshot()
+            assert snap["modelBytes"] > 0
             assert snap["resultCacheBytes"] > 0
             assert snap["materializedBytes"] > 0
             assert snap["materializedBytes"] == c.materialize.pinned_bytes()
@@ -218,21 +227,27 @@ def test_red_reclaim_walks_tiers_in_priority_order():
             ev = rec.events(name="pressure.reclaim")[-1]
             assert ev["cache_bytes"] == freed
             assert ev["stem_bytes"] == 0 and ev["model_bytes"] == 0
+            assert after["modelBytes"] == snap["modelBytes"]
+        with c.config.set({"resilience.pressure.model_idle_s": 0.0}):
             c.pressure.reclaim(None, reason="oom")
-            drained = c.ledger.snapshot()
-            assert drained["resultCacheBytes"] == 0
-            assert drained["materializedBytes"] == 0
-            ev2 = rec.events(name="pressure.reclaim")[-1]
-            assert ev2["reason"] == "oom"
-            assert ev2["stem_bytes"] == snap["materializedBytes"]
-            assert rec.events(name="materialize.evict")
+        drained = c.ledger.snapshot()
+        assert drained["resultCacheBytes"] == 0
+        assert drained["materializedBytes"] == 0
+        assert drained["modelBytes"] == 0
+        ev2 = rec.events(name="pressure.reclaim")[-1]
+        assert ev2["reason"] == "oom"
+        assert ev2["stem_bytes"] == snap["materializedBytes"]
+        assert ev2["model_bytes"] == snap["modelBytes"]
+        assert rec.events(name="materialize.evict")
         assert c.metrics.counter("resilience.pressure.reclaims") == 2
         assert c.metrics.counter("resilience.pressure.reclaimed_bytes") \
-            == snap["resultCacheBytes"] + snap["materializedBytes"]
+            == snap["resultCacheBytes"] + snap["materializedBytes"] \
+            + snap["modelBytes"]
         out[engine] = (ev2["model_bytes"], c.metrics.counter(
             "serving.materialize.evicted"), c.metrics.counter(
             "serving.materialize.stored"))
-    assert out["port"] == out["ref"] == (0, 1, 1)
+    # the model's param bytes: a float32 weight and bias
+    assert out["port"] == out["ref"] == (8, 1, 1)
 
 
 def test_yellow_suspends_then_resumes_materialization():
