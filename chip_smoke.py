@@ -137,6 +137,26 @@ MODEL, then applies two drawn 100-tree ensembles (GBDT- and
 forest-shaped) to the 6,000,000 x 3 feature matrix, held against the
 same program on the CPU and a numpy walk on a sample of the rows, with
 the card's peak rise beside the port's charge.
+The ``spmd`` phase (after ``ml``) shards tables on the card: a sharded
+table's mesh is a list of shards, several of which may name one device,
+so ``make_mesh(4, devices=["cuda:0"])`` rehearses a four-card mesh on the
+one card (everything but the copies between cards; a multi-card run
+waits for a machine with more than one card).  It registers Q1's rows
+with ``create_table(..., distributed=True)`` on the card's default mesh
+(one shard a card: the sharded rungs decline, Q1 answers on the fused
+aggregate), then on four shards: Q1 on ``spmd_aggregate`` (one kernel
+launch a shard, each held against the plain version; the float64 oracle;
+the same bits in 3 runs; a second date literal with no build; warm ms
+beside the unsharded Q1's; the card bytes of the sharded table equal to
+the unsharded one's), ``bench.py``'s root select without its ORDER BY and
+LIMIT on ``spmd_select`` (rows and order the unsharded port's) and with
+them (the walk's top-k), ``spmd:once`` (Q1 steps down to the fused
+aggregate, the breaker charged on its sharded rung only), then Q3 with
+``lineitem`` sharded on ``spmd_join_aggregate`` and the collectives
+engine (a GROUP BY on a computed float key, a hash-shuffle join with
+``sql.join.broadcast = False``, an ORDER BY ... LIMIT through the range-
+partition sort) over the TPC-H frames, each against the port on the CPU
+over four CPU shards, counters included.
 Every phase but ``resilience`` and ``coldstart`` fails if a rung steps
 down, answers on the CPU or moves a breaker (``observability`` allows only
 its ``compile:always`` run's steps).
@@ -559,18 +579,23 @@ def measuring_context(device: str = "cuda"):
     return c
 
 
-def load_tables(frames, options=None):
-    """(Context on the card with `frames` registered, card memory the
-    tables took in bytes, seconds)."""
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
+def load_tables(frames, options=None, distributed=(), device="cuda"):
+    """(Context on `device` with `frames` registered, the tables named in
+    `distributed` sharded over the default mesh, card memory the tables
+    took in bytes (0 on the CPU), seconds)."""
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated() if on_card else 0
     t0 = time.perf_counter()
-    c = measuring_context()
+    c = measuring_context(device)
     c.config.update(options or {})
     for name, frame in frames.items():
-        c.create_table(name, frame)
-    torch.cuda.synchronize()
-    return c, torch.cuda.memory_allocated() - before, time.perf_counter() - t0
+        c.create_table(name, frame, distributed=name in distributed)
+    if on_card:
+        torch.cuda.synchronize()
+    took = (torch.cuda.memory_allocated() if on_card else 0) - before
+    return c, took, time.perf_counter() - t0
 
 
 def check_encodings(c, frames, label, hbm_bytes, plain_hbm_bytes=None):
@@ -4845,6 +4870,296 @@ def ml_phase(df, card, segsum, transfers, device="cuda"):
             "fit_ms": fits, "predict_ms": timings, "trees": trees}
 
 
+#: the `spmd` phase: shards of the rehearsal mesh on the one card, the
+#: second literal of Q1's family, and the collectives engine's queries
+#: over TPC-H lineitem (sharded) with orders, each with the counters the
+#: reference's engine moves for its shape
+SPMD_SHARDS = 4
+SPMD_DATE = "1997-06-30"
+SPMD_RUNS = 3  # runs of Q1 on the shards that must give the same bits
+SPMD_ENGINE = {
+    "dist_aggregate": (
+        "SELECT l_discount * 100 AS d, COUNT(*) AS n, SUM(l_quantity) AS q "
+        "FROM lineitem GROUP BY l_discount * 100", {},
+        {"parallel.dist.agg_kernel": 1, "resilience.rung.dist_aggregate": 1}),
+    "shuffle_join": (
+        "SELECT l_orderkey, l_quantity, o_orderdate FROM lineitem JOIN "
+        "orders ON l_orderkey = o_orderkey WHERE l_quantity < 5",
+        {"sql.join.broadcast": False}, {"parallel.dist.join_kernel": 1}),
+    "dist_sort": (
+        "SELECT * FROM (SELECT l_orderkey, l_extendedprice FROM lineitem "
+        "ORDER BY l_extendedprice DESC, l_orderkey) t LIMIT 20", {},
+        {"parallel.dist.sort_kernel": 1, "resilience.rung.dist_sort": 1}),
+}
+
+
+def rung_moves(c, run):
+    """(result of `run()`, the ``resilience.``/``parallel.`` counters it
+    moved on `c`, the pressure controller's aside)."""
+    keep = ("resilience.", "parallel.")
+    before = {k: v for k, v in c.metrics.snapshot()["counters"].items()
+              if k.startswith(keep)}
+    out = run()
+    after = {k: v for k, v in c.metrics.snapshot()["counters"].items()
+             if k.startswith(keep) and "pressure" not in k}
+    return out, moved(before, after)
+
+
+def frames_same_bits(a, b) -> bool:
+    return list(a.columns) == list(b.columns) and len(a) == len(b) and all(
+        np.array_equal(a[n].to_numpy(), b[n].to_numpy()) for n in a.columns)
+
+
+def spmd_phase(df, want, all_tables, card, segsum, transfers,
+               device="cuda"):
+    """The `spmd` phase: sharded tables on the card.  The card's own mesh
+    (one shard a card: the sharded rungs decline below two shards, as the
+    reference's do, and Q1 answers on the fused aggregate); Q1's
+    6,000,000 rows on a mesh of SPMD_SHARDS shards on the card (the
+    ``spmd_aggregate`` rung, one kernel launch a shard, each held against
+    the plain version; the float64 oracle; the same bits in SPMD_RUNS
+    runs; a second literal with no build; warm ms beside the unsharded
+    Q1's; the card bytes of the sharded table equal to the unsharded
+    one's), `bench.py`'s root select without its ORDER BY and LIMIT on
+    ``spmd_select`` (rows and order equal to the unsharded port's, two
+    transfers) and with them (the rung declines ORDER BY: the walk's
+    top-k over the global rows), ``spmd:once`` stepping Q1 down to the
+    fused aggregate with the breaker charged on (family, spmd_aggregate)
+    only, Q3 with ``lineitem`` sharded on ``spmd_join_aggregate`` against
+    its oracle, and the collectives engine (SPMD_ENGINE) against the port
+    on the CPU over a mesh of as many CPU shards, counters included.
+    ``device="cpu"`` rehearses the phase on the host (no launches)."""
+    from dask_sql_tpu_torch.parallel import mesh as pm
+    from dask_sql_tpu_torch.parallel.dist_plan import table_is_sharded
+    from tests.tpch import QUERIES
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}, "max_abs_err": 0.0}
+    # (a) the card's own mesh: one shard a card
+    on_card = device == "cuda"
+    pm.reset_default_mesh(device)
+    own = pm.default_mesh(device)
+    if own.size != (torch.cuda.device_count() if on_card else 1):
+        fail(f"the default mesh {own!r} is not one shard a card")
+    c1, _, _ = load_tables({"lineitem": df}, distributed=("lineitem",),
+                           device=device)
+    t1 = c1.schema["root"].tables["lineitem"].table
+    if t1.sharding is None or table_is_sharded(t1):
+        fail("a one-shard mesh's table must be sharded and not count as such")
+    got, mv = rung_moves(c1, lambda: c1.sql(QUERY).compute())
+    check_q1(got, want, "Q1 on the card's own mesh")
+    if mv != {"resilience.rung.compiled_aggregate": 1}:
+        fail(f"Q1 on the card's own mesh moved {mv}")
+    phase("spmd", part="own_mesh", card=card, mesh=repr(own),
+          shards=own.size, rungs=mv)
+    del c1, t1, got
+    gc.collect()  # its pipelines go with it, before the next loads count
+
+    # (b) Q1 on SPMD_SHARDS shards of the card, beside the unsharded table
+    mesh = pm.make_mesh(SPMD_SHARDS, devices=[
+        torch.device("cuda", 0) if on_card else torch.device("cpu")])
+    pm.set_default_mesh(mesh)
+    try:
+        c4, hbm4, _ = load_tables({"lineitem": df},
+                                  distributed=("lineitem",), device=device)
+        gc.collect()
+        cu, hbm1, _ = load_tables({"lineitem": df}, device=device)
+        t4 = c4.schema["root"].tables["lineitem"].table
+        if t4.sharding.mesh != mesh:
+            fail(f"the sharded table is on {t4.sharding.mesh!r}")
+        # the blocks are views of the loaded columns, so the sharded table
+        # holds the unsharded one's bytes (the loads' allocation deltas,
+        # printed beside them, move by a few hundred KB between loads of
+        # the same frame either way)
+        views = all(
+            b.columns[n].data.data_ptr() == col.data.data_ptr()
+            + t4.sharding.offsets[i] * col.data.element_size()
+            for n, col in t4.columns.items()
+            for i, b in enumerate(t4.sharding.blocks(t4)))
+        bytes4 = table_bytes(c4, "lineitem")
+        bytes1 = table_bytes(cu, "lineitem")
+        if not views or bytes4 != bytes1:
+            fail(f"the sharded table holds {bytes4} card bytes, the "
+                 f"unsharded {bytes1} (blocks are views: {views})")
+        reset_launches(segsum)
+        transfers["d2h"] = 0
+        res = []
+        calls = capture_calls(segsum, lambda: res.append(rung_moves(
+            c4, lambda: c4.sql(QUERY).compute())))
+        launches = dict(segsum.LAUNCHES)
+        d2h = transfers["d2h"]
+        got, mv = res[0]
+        if mv != {"resilience.rung.spmd_aggregate": 1,
+                  "parallel.spmd.launches": 1,
+                  "parallel.spmd.rows": N_ROWS}:
+            fail(f"Q1 on {SPMD_SHARDS} shards moved {mv}")
+        if launches["segsum"] != (SPMD_SHARDS if on_card else 0) \
+                or len(calls) != SPMD_SHARDS:
+            fail(f"Q1 on {SPMD_SHARDS} shards: {launches} launches, "
+                 f"{len(calls)} calls")
+        if d2h != 1:
+            fail(f"Q1 on {SPMD_SHARDS} shards made {d2h} transfers")
+        rows = sorted(int(g_.shape[0]) for g_, _, _ in calls)
+        if rows != sorted(t4.sharding.sizes):
+            fail(f"the kernel's calls took {rows} rows, the blocks "
+                 f"{t4.sharding.sizes}")
+        err = check_calls(segsum, calls, "spmd_q1_shards") if on_card \
+            else 0.0
+        shard_times = {}
+        if on_card:
+            # one shard's call: timed alone, beside its plain version and
+            # its bound (the launches above are the query's)
+            g_, c_, d_ = calls[0]
+            shard_ms, shard_host_us = card_ms(
+                lambda: segsum.segsum_typed(g_, c_, d_), 20)
+            shard_bytes = typed_bytes(g_, c_, d_)
+            shard_times = {
+                "shard_call_ms": shard_ms, "shard_call_host_us": shard_host_us,
+                "shard_call_plain_ms": cuda_ms(
+                    lambda: segsum.segsum_typed_plain(g_, c_, d_), 5),
+                "shard_call_bound_ms": max(
+                    shard_bytes / memory_rate(torch.cuda.get_device_name(0)),
+                    typed_adds(g_, c_, d_) / FP64_RATE) * 1e3,
+                "shard_call_bytes": shard_bytes}
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["launches"]["spmd_q1_shards"] = launches["segsum"]
+        rel = check_q1(got, want, f"Q1 on {SPMD_SHARDS} shards")
+        for i in range(SPMD_RUNS - 1):
+            if not frames_same_bits(c4.sql(QUERY).compute(), got):
+                fail(f"Q1 on {SPMD_SHARDS} shards: run {i + 2} moved bits")
+        hist = "resilience.compile_ms.spmd_aggregate"
+
+        def builds():
+            return c4.metrics.snapshot()["histograms"].get(
+                hist, {}).get("count", 0)
+
+        b0, hits = builds(), c4.metrics.counter("families.hit")
+        sql2 = QUERY.replace("DATE '1998-09-02'", f"DATE '{SPMD_DATE}'")
+        rel2 = check_q1(c4.sql(sql2).compute(), q1_oracle(df, SPMD_DATE),
+                        f"Q1 on {SPMD_DATE}, {SPMD_SHARDS} shards")
+        if builds() != b0 or c4.metrics.counter("families.hit") != hits + 1:
+            fail(f"the second literal built {builds() - b0} pipelines")
+        check_q1(cu.sql(QUERY).compute(), want, "Q1 unsharded")  # warm it
+        sharded_ms, single_ms = [], []
+        for _ in range(WARM_RUNS):
+            for ctx, runs_ in ((c4, sharded_ms), (cu, single_ms)):
+                t0 = time.perf_counter()
+                ctx.sql(QUERY).compute()
+                runs_.append((time.perf_counter() - t0) * 1e3)
+        phase("spmd", part="q1_shards", card=card, mesh=repr(mesh),
+              rows=N_ROWS, blocks=t4.sharding.sizes, rungs=mv,
+              launches=launches, d2h=d2h, max_rel_err=max(rel, rel2),
+              kernel_max_abs_err=err, **shard_times,
+              same_bits_runs=SPMD_RUNS,
+              second_literal_builds=builds() - b0,
+              ms=float(np.median(sharded_ms)), runs_ms=sharded_ms,
+              unsharded_ms=float(np.median(single_ms)),
+              unsharded_runs_ms=single_ms, table_bytes=bytes4,
+              unsharded_table_bytes=bytes1, load_allocated=hbm4,
+              unsharded_load_allocated=hbm1, blocks_are_views=views)
+
+        # (c) bench.py's root select: without ORDER BY on spmd_select
+        # (rows and order the unsharded port's), with it on the walk's
+        # top-k over the global rows (the rung keeps ORDER BY off),
+        # against the oracle
+        transfers["d2h"] = 0
+        t0 = time.perf_counter()
+        got, mv = rung_moves(c4, lambda: c4.sql(STREAM_SELECT_QUERY)
+                             .compute())
+        ms = (time.perf_counter() - t0) * 1e3
+        sel_d2h = transfers["d2h"]
+        if not frames_same_bits(got, cu.sql(STREAM_SELECT_QUERY).compute()):
+            fail(f"the select on {SPMD_SHARDS} shards: rows or order differ "
+                 "from the unsharded port's")
+        if mv != {"resilience.rung.spmd_select": 1,
+                  "parallel.spmd.launches": 1, "parallel.spmd.rows": N_ROWS} \
+                or sel_d2h != 2:
+            fail(f"the select on {SPMD_SHARDS} shards moved {mv}, "
+                 f"{sel_d2h} transfers")
+        phase("spmd", part="select_no_order", card=card, rows=len(got),
+              rungs=mv, d2h=sel_d2h, cold_ms=ms)
+        flags_want, rev_want = select_oracle(df)
+        got, mv = rung_moves(c4, lambda: c4.sql(SELECT_QUERY).compute())
+        if got["l_returnflag"].tolist() != flags_want.tolist():
+            fail("the top-k select on the shards differs from the oracle")
+        top_rel = max_rel(got["rev"], rev_want)
+        if not top_rel <= REL_BOUND or "resilience.rung.spmd_select" in mv:
+            fail(f"the top-k select on the shards: {top_rel}, moved {mv}")
+        phase("spmd", part="select_topk", card=card, rows=len(got),
+              rungs=mv, max_rel_err=top_rel)
+        check_not_degraded(c4, "spmd")
+
+        # (d) spmd:once: Q1 steps down, the breaker charged on its rung
+        got, mv = rung_moves(c4, lambda: c4.sql(QUERY, config_options={
+            "resilience.inject": "spmd:once"}).compute())
+        check_q1(got, want, "Q1 under spmd:once")
+        if mv != {"resilience.degraded": 1,
+                  "resilience.degraded.spmd_aggregate": 1,
+                  "resilience.rung.compiled_aggregate": 1}:
+            fail(f"spmd:once moved {mv}")
+        charged = {k[1]: v[0] for k, v in c4.breaker._state.items()}
+        if charged != {"spmd_aggregate": 1}:
+            fail(f"spmd:once charged the breaker {charged}")
+        phase("spmd", part="spmd_once", card=card, rungs=mv,
+              breaker=charged)
+        del c4, cu, t4, got, calls, res
+
+        # (e) Q3 with lineitem sharded, and the collectives engine over
+        # the same frames against the port on the CPU's shards
+        tables = {n: all_tables[n] for n in ("customer", "orders",
+                                             "lineitem")}
+        ct, _, _ = load_tables(tables, distributed=("lineitem",),
+                               device=device)
+        reset_launches(segsum)
+        got, mv = rung_moves(ct, lambda: ct.sql(QUERIES[3]).compute())
+        q3_want = q3_oracle(tables)
+        if mv != {"resilience.rung.spmd_join_aggregate": 1,
+                  "parallel.spmd.launches": 1,
+                  "parallel.spmd.rows": len(tables["lineitem"])}:
+            fail(f"Q3 on {SPMD_SHARDS} shards moved {mv}")
+        for key in Q3_KEYS:
+            if got[key].tolist() != q3_want[key].tolist():
+                fail(f"Q3 on {SPMD_SHARDS} shards: {key} differs")
+        q3_rel = max_rel(got["revenue"], q3_want["revenue"])
+        if not q3_rel <= Q3_REL:
+            fail(f"Q3 on {SPMD_SHARDS} shards: relative error {q3_rel}")
+        out["launches"]["spmd_q3_shards"] = segsum.LAUNCHES["segsum"]
+        phase("spmd", part="q3_shards", card=card, rungs=mv,
+              launches=dict(segsum.LAUNCHES), max_rel_err=q3_rel)
+        pm.set_default_mesh(pm.make_mesh(SPMD_SHARDS, devices=["cpu"]))
+        cpu, _, _ = load_tables(tables, distributed=("lineitem",),
+                                device="cpu")
+        for label, (sql, options, expect) in SPMD_ENGINE.items():
+            t0 = time.perf_counter()
+            got, mv = rung_moves(ct, lambda: ct.sql(
+                sql, config_options=options).compute())
+            ms = (time.perf_counter() - t0) * 1e3
+            want_c, mv_c = rung_moves(cpu, lambda: cpu.sql(
+                sql, config_options=options).compute())
+            mv.pop("parallel.dist.gather", None)
+            mv_c.pop("parallel.dist.gather", None)
+            if mv != expect or mv_c != expect:
+                fail(f"{label}: the card moved {mv}, the CPU {mv_c}, "
+                     f"expected {expect}")
+            if "ORDER BY" not in sql:
+                got = got.sort_values(list(got.columns)).reset_index(
+                    drop=True)
+                want_c = want_c.sort_values(list(want_c.columns)) \
+                    .reset_index(drop=True)
+            rel = same_answer(got, want_c, f"{label} on {SPMD_SHARDS} shards")
+            phase("spmd", part=label, card=card, rows=len(got), rungs=mv,
+                  cold_ms=ms, max_rel_err=rel)
+        check_not_degraded(ct, "spmd_engine")
+        del ct, cpu, tables, got, want_c
+    finally:
+        pm.reset_default_mesh(device)
+        pm.reset_default_mesh("cpu")
+    gc.collect()
+    phase("spmd", part="done", card=card,
+          seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs on the card only")
@@ -5180,6 +5495,11 @@ def main() -> int:
           allocated_before=mem0, allocated_after=ml_after,
           equal=ml_after == mem0)
     check_card_freed(mem0, "ml")
+    # 8k. the `spmd` phase: sharded tables on shards of the card, the
+    # sharded rungs and the collectives engine
+    mem0 = card_allocated()
+    spmd_out = spmd_phase(df, want, all_tables, card, segsum, TRANSFER_STATS)
+    check_card_freed(mem0, "spmd")
     selflint(card)
     t0 = time.perf_counter() - gen3_s
     tables = {n: all_tables[n] for n in ("customer", "orders", "lineitem")}
@@ -5428,7 +5748,8 @@ def main() -> int:
                                  server_out["launches"]["segsum"],
                              **surface_rest_out["launches"],
                              **chaos_out["launches"],
-                             **ml_out["launches"]},
+                             **ml_out["launches"],
+                             **spmd_out["launches"]},
         "max_abs_err": max(typed_err, star_err, tpch_launches["max_abs_err"],
                            tpcds_launches["max_abs_err"],
                            surface_q1_launches["max_abs_err"],
@@ -5440,7 +5761,8 @@ def main() -> int:
                            streamed_out["max_abs_err"],
                            reuse_out["max_abs_err"],
                            surface_rest_out["max_abs_err"],
-                           chaos_out["max_abs_err"]),
+                           chaos_out["max_abs_err"],
+                           spmd_out["max_abs_err"]),
         "ms": t_ms,
         "plain_ms": t_plain_ms,
         "bound_ms": t_bound_ms,

@@ -41,9 +41,10 @@ rungs pre-skipped (``_dsql_skip_rungs``, ``analysis.rung_skip.*``).  The
 admission byte gate, result-cache admission and partitioned streaming
 (streaming/plan.py, on ``scan_bytes_lo``) read the verdict, and the
 profile store's feedback (`apply_feedback`) tightens its upper bounds from
-a family's observed history, above the fused programs' charge.  The port
-runs on one device, so the reference's sharded-scan bounds (mesh width,
-exchange buffers; item 10) are left out.  A PREDICT node charges the
+a family's observed history, above the fused programs' charge.  A scan
+of a sharded table budgets one shard's block as its lower bound (the
+``mesh:`` row) and a sharded aggregate charges its exchange buffers, as
+in the reference.  A PREDICT node charges the
 model's params and the larger of the reference's per-row charge and the
 port's eager tree walk at its peak (`inference.predict_scratch_bytes`),
 plus, on the fused rung, its input chain's compiled select (`fused.py`),
@@ -194,6 +195,11 @@ class PlanEstimate:
     #: the non-scan remainder (materialized root, per-device exchange) does
     #: not shrink with partitioning and must stay whole
     scan_bytes_lo: int = 0
+    #: the mesh width backing the estimate: above 1 when a scanned table
+    #: is sharded, and the resident-scan LOWER bounds are then per shard
+    #: (the admission gate budgets one shard's device), upper bounds stay
+    #: global
+    devices: int = 1
     #: True when profile feedback tightened the UPPER bounds
     #: (`apply_feedback`): they are then predictions from the family's
     #: observed history, and the lower bounds stay provable
@@ -219,6 +225,9 @@ class PlanEstimate:
                 else self.peak_bytes.hi),
             f"result: bytes={self.result_bytes.fmt()} (d2h transfer)",
         ]
+        if self.devices > 1:
+            rows.insert(1, f"mesh: devices={self.devices} "
+                           "(sharded scans budgeted per device)")
         if self.feedback:
             rows.insert(1, "feedback: upper bounds tightened from observed "
                            "family history (lower bounds stay provable)")
@@ -260,6 +269,8 @@ class _Estimator:
         #: registered with compressed encodings (columnar/encodings.py)
         self._scan_actual: Dict[int, int] = {}
         self.model_rows: List[str] = []
+        #: mesh width: the most shards any scanned sharded table spans
+        self.devices: int = 1
 
     # ------------------------------------------------------------- walking
     def estimate(self, node: p.LogicalPlan) -> Tuple[Interval, Interval]:
@@ -324,6 +335,13 @@ class _Estimator:
                 scan_lo = actual
             else:
                 scan_lo = int(n) * _row_bytes(list(node.schema))[0]
+            ndev = self._scan_mesh_devices(node)
+            if ndev > 1:
+                # a sharded table: each shard holds its block of the scan,
+                # so the per-shard provable floor (what admission sheds on)
+                # divides; upper bounds stay global (conservative)
+                scan_lo = -(-scan_lo // ndev)
+                self.devices = max(self.devices, ndev)
             self._scan_lo[key] = max(self._scan_lo.get(key, 0), scan_lo)
             rows = Interval.exact(int(n))
             if node.filters:
@@ -455,7 +473,51 @@ class _Estimator:
             else (_pow2_bucket(in_rows_hi) or 0) * 4
         if gid_hi is None:
             return None
-        return cap_hi + gid_hi
+        return cap_hi + gid_hi + self._exchange_scratch(node, domain,
+                                                        all_known)
+
+    def _scan_mesh_devices(self, node: p.TableScan) -> int:
+        """The width of the mesh the scanned table is sharded over, or 1
+        (one device, lazy, unknown): the rule the rungs share
+        (`spmd.core.resolve_sharded_scan`)."""
+        from ..spmd.core import resolve_sharded_scan
+
+        got = resolve_sharded_scan(self.context, node)
+        return int(got[1].size) if got is not None else 1
+
+    def _exchange_scratch(self, node: p.Aggregate, domain, all_known) -> int:
+        """A shard's exchange bytes on the sharded aggregation paths: the
+        send and receive blocks of the six-state layout, sized at the
+        capacity-ladder rung the group domain lands on
+        (`parallel/dist_plan.py`'s GROUP and PEER ladders).  Zero on a
+        one-device plan and for an aggregate whose own input is unsharded,
+        so their estimates are unchanged."""
+        ndev = self.devices
+        if ndev <= 1:
+            return 0
+        from ..parallel.dist_plan import (
+            GROUP_CAPACITY_LADDER,
+            N_FSTATE,
+            N_ISTATE,
+            PEER_CAPACITY_LADDER,
+            _ladder_at_least,
+            plan_has_sharded_scan,
+        )
+
+        inputs = node.inputs()
+        if self.context is None or not inputs or \
+                not plan_has_sharded_scan(inputs[0], self.context):
+            return 0
+        need = domain if (domain is not None and all_known) \
+            else RADIX_DOMAIN_LIMIT
+        cap = _ladder_at_least(GROUP_CAPACITY_LADDER,
+                               min(need, RADIX_DOMAIN_LIMIT))
+        cpeer = _ladder_at_least(PEER_CAPACITY_LADDER,
+                                 min(2 * cap // ndev + 256, cap))
+        nk = max(len(node.group_exprs), 1)
+        nv = max(len(node.agg_exprs), 1)
+        width = (nk + nv * (N_ISTATE + N_FSTATE) + 1) * 8
+        return 2 * ndev * cpeer * width
 
     def _compiles(self, key: str) -> bool:
         config = getattr(self.context, "config", None)
@@ -616,6 +678,7 @@ class _Estimator:
             scan_bytes_lo=sum(self._scan_lo.values()),
             scratch_hi=scratch,
             model_rows=list(self.model_rows),
+            devices=self.devices,
         )
 
 

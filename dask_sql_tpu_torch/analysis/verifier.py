@@ -32,9 +32,9 @@ Outcomes, in decreasing severity:
 Unlike the reference, nothing here reads a lazy parquet table's rows
 (`datacontainer.LazyParquetContainer.table` loads the whole location):
 its row count comes from the footers, and a string key over it has an
-unknown radix, the sound answer for a lower bound.  The reference's
-sharded-scan advisory (``spmd``) waits for the multi-device port
-(ROADMAP.md Queue 1 item 10); a single-device table has none there either.
+unknown radix, the sound answer for a lower bound.  A scan of a sharded
+table adds the ``spmd`` advisory (its mesh's width in shards, the bytes a
+shard holds, whether a sharded rung may run).
 """
 from __future__ import annotations
 
@@ -318,6 +318,7 @@ class _Verifier:
                      f"rows={rows} bucket={_pow2_bucket(rows)}")
         if self.collect_info:
             self._scan_encoding_info(node)
+            self._scan_spmd_info(node)
         if fields is None:
             return rows
         by_name = {f.name: f for f in fields}
@@ -370,6 +371,35 @@ class _Verifier:
         self.add("encoding", SEV_INFO, node,
                  " ".join(parts) + f"; encoded={enc_b}B decoded={dec_b}B "
                  f"ratio={ratio:.2f}")
+
+    def _scan_spmd_info(self, node: p.TableScan) -> None:
+        """The sharding advisory of a scan over a sharded table: its mesh's
+        width (shards), the resident bytes a shard holds, and whether a
+        sharded rung may run, or why not.  An unsharded table lints as
+        before."""
+        ctx = self.context
+        if ctx is None:
+            return
+        from ..columnar.encodings import Encoding, encoded_nbytes
+        from ..spmd.core import resolve_sharded_scan, spmd_enabled
+
+        got = resolve_sharded_scan(ctx, node)
+        if got is None:
+            return
+        table, mesh = got
+        ndev = int(mesh.size)
+        total = sum(encoded_nbytes(c) for c in table.columns.values())
+        per_dev = -(-total // ndev)
+        config = getattr(ctx, "config", None)
+        if config is not None and not spmd_enabled(config):
+            why = "spmd rungs disabled (parallel.spmd=off)"
+        elif any(c.encoding is Encoding.RLE for c in table.columns.values()):
+            why = "rle-encoded column blocks the compiled rungs"
+        else:
+            why = "spmd rungs eligible"
+        self.add("spmd", SEV_INFO, node,
+                 f"sharded devices={ndev} per_device_bytes={per_dev}; "
+                 f"{why}")
 
     def _check_projection(self, node: p.Projection) -> None:
         if len(node.exprs) != len(node.schema):

@@ -16,6 +16,8 @@ Context, and one the port saves loads into the reference's.
   the ``CURRENT`` file at it with an atomic rename; a crash mid-save (the
   ``checkpoint`` fault site, between the two) leaves the previous snapshot
   live.  Older snapshots are pruned after the repoint.
+- A sharded table writes its global rows and its mesh's width; the load
+  shards it again over the loading Context's default mesh.
 - The table delta epochs, the per-fingerprint profiles (the warm-up's
   input, serving/warmup.py) and the breaker's open verdicts (restored
   within ``resilience.breaker.persist_ttl_s``) ride along.
@@ -179,10 +181,14 @@ def save_state(context: "Context", location: str) -> dict:
                 continue
             rel = os.path.join("tables", _q(schema_name),
                                _q(tname) + ".parquet")
+            # a sharded table writes its global rows (its blocks hold no
+            # padding); the load shards them again
             specs = _write_table(dc.table, os.path.join(snap_dir, rel))
             entry["tables"][tname] = {"kind": "materialized", "file": rel,
                                       "columns": specs,
                                       "num_rows": dc.table.num_rows}
+            if dc.table.sharding is not None:
+                entry["tables"][tname]["shards"] = dc.table.sharding.mesh.size
         for mname, (model, train_cols) in container.models.items():
             rel = os.path.join("models", _q(schema_name), _q(mname) + ".pkl")
             with open(os.path.join(snap_dir, rel), "wb") as f:
@@ -268,6 +274,13 @@ def load_state(context: "Context", location: str) -> dict:
             table = _read_table(os.path.join(snap_dir, spec["file"]),
                                 spec["columns"], spec["num_rows"],
                                 context.device, context.config)
+            if spec.get("shards", 1) > 1:
+                # a table saved sharded shards over the loading Context's
+                # default mesh, as create_table(distributed=True) does
+                from .parallel.distribute import shard_table
+                from .parallel.mesh import default_mesh
+
+                table = shard_table(table, default_mesh(context.device.type))
             container.tables[tname] = DataContainer(table)
             context._views.get(schema_name, {}).pop(tname, None)
             changed.add((schema_name, tname))

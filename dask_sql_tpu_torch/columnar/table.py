@@ -1,6 +1,11 @@
 """Columnar table of the PyTorch port: named Columns on one explicit device.
 
-Counterpart of `dask_sql_tpu/columnar/table.py` for unpadded tables.
+Counterpart of `dask_sql_tpu/columnar/table.py` for unpadded tables.  A
+sharded table (`parallel/distribute.py`) is the same structure with a
+``sharding`` (`parallel.mesh.RowBlocks`): contiguous row blocks, one per
+shard of a mesh, each a view of the columns where the shard names the
+table's device.  Selecting columns, decoding and filtering keep the
+blocks; every other transformation returns the global rows unsharded.
 """
 from __future__ import annotations
 
@@ -22,11 +27,14 @@ def normalize_device(device) -> torch.device:
 
 
 class Table:
-    __slots__ = ("columns", "_num_rows", "device")
+    __slots__ = ("columns", "_num_rows", "device", "sharding")
 
     def __init__(self, columns: Dict[str, Column], num_rows: Optional[int] = None,
-                 device=None):
+                 device=None, sharding=None):
         self.columns: Dict[str, Column] = dict(columns)
+        #: the row blocks of a sharded table (`parallel.mesh.RowBlocks`),
+        #: None for a table on one device
+        self.sharding = sharding
         if num_rows is None:
             num_rows = len(next(iter(self.columns.values()))) if self.columns else 0
         self._num_rows = num_rows
@@ -97,7 +105,7 @@ class Table:
         if not self.has_encoded_columns():
             return self
         return Table({n: c.decode() for n, c in self.columns.items()},
-                     self._num_rows, self.device)
+                     self._num_rows, self.device, self.sharding)
 
     def has_encoded_columns(self) -> bool:
         from .encodings import Encoding
@@ -108,7 +116,7 @@ class Table:
     # -- transformations (all return new Tables) ----------------------------
     def select(self, names: Sequence[str]) -> "Table":
         return Table({n: self.columns[n] for n in names}, self._num_rows,
-                     self.device)
+                     self.device, self.sharding)
 
     def take(self, indices: torch.Tensor) -> "Table":
         indices = torch.as_tensor(indices, device=self.device)
@@ -130,8 +138,18 @@ class Table:
                      self._num_rows, device)
 
     def filter(self, mask: torch.Tensor) -> "Table":
-        # one nonzero for the whole table, then a gather per column
-        return self.take(torch.nonzero(mask).flatten())
+        # one nonzero for the whole table, then a gather per column; a
+        # sharded table keeps each block's survivors in that block
+        out = self.take(torch.nonzero(mask).flatten())
+        if self.sharding is not None:
+            out.sharding = self.sharding.after_mask(mask)
+        return out
+
+    def unsharded(self) -> "Table":
+        """The global rows without their blocks (identity when unsharded)."""
+        if self.sharding is None:
+            return self
+        return Table(self.columns, self._num_rows, self.device)
 
     @staticmethod
     def concat(tables: Sequence["Table"]) -> "Table":

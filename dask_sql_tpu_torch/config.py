@@ -43,6 +43,32 @@ DEFAULTS: Dict[str, Any] = {
     # (physical/streaming.py): batches of at most this many rows
     "sql.streaming.enabled": True,
     "sql.streaming.batch_rows": 2_000_000,
+    # a join with a sharded input (parallel/dist_plan.py): None = auto
+    # (broadcast a small side well under the big one), True = always
+    # broadcast, False = always hash-shuffle, a number = row threshold
+    "sql.join.broadcast": None,
+    # reserved, as in the reference: buckets of a shuffle (None = shards)
+    "sql.shuffle.num_buckets": None,  # dsql: allow-config-key — parity key, reserved
+    # the collectives engine over sharded inputs: auto | on | off
+    "sql.distributed.aggregate": "auto",
+    "sql.distributed.join": "auto",
+    "sql.distributed.sort": "auto",  # the range-partition sort
+    # sharded storage (spmd/storage.py): "on" shards every loaded
+    # registration of at least min_rows rows over the default mesh of its
+    # device kind when that mesh has two or more shards; an explicit
+    # create_table(distributed=False) opts a table out
+    "parallel.auto_shard": "off",
+    "parallel.auto_shard.min_rows": 32768,
+    # the sharded compiled rungs (spmd/): above their one-device
+    # counterparts whenever the scanned table is sharded; "off" keeps the
+    # one-device rungs and the collectives engine
+    "parallel.spmd": "auto",
+    "parallel.spmd.select": True,  # spmd_select, root select chains
+    "parallel.spmd.aggregate": True,  # spmd_aggregate, scan-chain aggregates
+    "parallel.spmd.join_aggregate": True,  # spmd_join_aggregate
+    # build sides up to this many rows broadcast to every shard; a larger
+    # one declines to the hash-shuffle engine
+    "parallel.spmd.broadcast_rows": 1 << 20,
     # plan families (families/): literals lift into runtime parameters and
     # the compiled pipelines' caches key on the parameterized expressions
     "families.enabled": True,
@@ -230,6 +256,8 @@ class KeySpec(NamedTuple):
 #: value types of keys whose default is None (the default alone cannot
 #: imply them); byte budgets accept strings ("64MB") via parse_byte_budget
 _NULLABLE_KEY_TYPES: Dict[str, Tuple[type, ...]] = {
+    "sql.join.broadcast": (bool, int, float),
+    "sql.shuffle.num_buckets": (int,),
     "analysis.estimate.device_budget_bytes": (int, str),
     "serving.batch.max_running": (int,),
     "serving.deadline_s": (float, int),

@@ -571,20 +571,35 @@ class Context:
         row count becomes the table's statistics unless ``statistics`` is
         given (an empty table carries none, as in the reference); the
         location is kept in the schema's ``filepaths``.  ``kwargs`` go to
-        the reader (``pandas.read_csv``'s options for a CSV)."""
-        from .datacontainer import LazyParquetContainer
-        from .input_utils import InputUtil
+        the reader (``pandas.read_csv``'s options for a CSV).
 
-        if _truthy(distributed):
-            raise NotImplementedError(
-                "create_table(distributed=True) needs the multi-device "
-                "storage (ROADMAP.md Queue 1 item 10), not in the port yet")
+        ``distributed=True`` (or a true SQL literal from ``CREATE TABLE
+        ... WITH (distributed = ...)``) shards the rows over the default
+        mesh of the Context's device kind (`parallel.mesh.default_mesh`;
+        a lazy parquet location loads first); an explicit False opts this
+        table out of the ``parallel.auto_shard`` policy, and None leaves
+        the policy in charge (`spmd/storage.py`)."""
+        from .datacontainer import DataContainer, LazyParquetContainer
+        from .input_utils import InputUtil
+        from .spmd.storage import maybe_auto_shard, truthy_option
+
         schema_name = schema_name or self.schema_name
         if schema_name not in self.schema:
             raise KeyError(f"Schema {schema_name} not found")
         dc = InputUtil.to_dc(input_table, table_name, self.device,
                              format=format, persist=_truthy(persist),
                              config=self.config, **kwargs)
+        if truthy_option(distributed):
+            from .parallel.distribute import shard_table
+            from .parallel.mesh import default_mesh
+
+            mesh = default_mesh(self.device.type)
+            if isinstance(dc, LazyParquetContainer):
+                dc = DataContainer(shard_table(dc.table, mesh))
+            else:
+                dc.table = shard_table(dc.table, mesh)
+        elif distributed is None:
+            dc = maybe_auto_shard(dc, self.config, self.metrics)
         container = self.schema[schema_name]
         container.tables[table_name] = dc
         # a lazy table answers from its footers: reading `dc.table` would
@@ -680,9 +695,15 @@ class Context:
         appended = int(delta.num_rows)
         self.metrics.inc("serving.reuse.append_rows", appended)
         tkey = (schema_name, table_name)
-        if isinstance(dc, LazyParquetContainer):
-            # a replace: a new uid, so every reuse tier fails closed
-            dc = DataContainer(Table.concat([dc.table, delta]))
+        from .parallel.dist_plan import table_is_sharded
+
+        if isinstance(dc, LazyParquetContainer) \
+                or table_is_sharded(dc.table):
+            # a replace, as in the reference: a file-backed or sharded
+            # table has no in-place concat, so the rows and the appended
+            # ones register anew on one device with a new uid, and every
+            # reuse tier fails closed
+            dc = DataContainer(Table.concat([dc.table.unsharded(), delta]))
             container.tables[table_name] = dc
             container.filepaths.pop(table_name, None)
             container.statistics[table_name] = Statistics(

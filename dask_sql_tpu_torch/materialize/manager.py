@@ -6,8 +6,9 @@ for the CPU): the pin pass runs the full-width stem there once, an append
 runs it over the delta slice alone and concatenates on the device, and a
 rewritten plan scans the pinned table on the interpreted walk.  A card
 Context re-filters only cached rows that lie on the card
-(`subsume.servable_on`).  Port tables are never padded, so the
-reference's ``row_valid`` declines have nothing to decline here.
+(`subsume.servable_on`).  Port tables are never padded; the reference's
+``row_valid`` decline of a stem over padded, sharded storage is a decline
+of a sharded table here.
 
 Three answering tiers sit above the exact-match result cache, all owned by
 this manager (one per Context, ``context.materialize``):
@@ -340,6 +341,10 @@ class MaterializationManager:
 
         if isinstance(dc, LazyParquetContainer):
             return  # file-backed rows can change without a catalog bump
+        from ..parallel.dist_plan import table_is_sharded
+
+        if table_is_sharded(dc.table):
+            return  # sharded storage belongs to the sharded rungs
         exec_stem = families.full_width_stem(si, dc.table)
         if exec_stem is None:
             metrics.inc("serving.materialize.declined")

@@ -1670,13 +1670,17 @@ def pipeline_owner(context) -> int:
 def evict_owner(token: int) -> None:
     """Drop every cached pipeline of the Context whose token this is."""
     from . import compiled_join, compiled_predict, compiled_select
+    from ..spmd import aggregate as spmd_agg
+    from ..spmd import join as spmd_join
+    from ..spmd import select as spmd_sel
     from ..streaming import aggregate as streamed_agg
     from ..streaming import select as streamed_sel
 
     with _cache_lock:
         for cache in (_cache, compiled_join._cache, compiled_select._cache,
                       compiled_predict._cache, streamed_agg._cache,
-                      streamed_sel._cache):
+                      streamed_sel._cache, spmd_agg._cache, spmd_join._cache,
+                      spmd_sel._cache):
             for key in [k for k in cache if k[0] == token]:
                 del cache[key]
 

@@ -21,8 +21,10 @@ reaches the host in one transfer of one packed float64 matrix, the group
 key values of a pointer id riding along.  The probe table's encoded
 columns are read as codes (code-space filters, DICT and FOR group keys as
 radix digits, decode where an expression reads values); an RLE probe
-column makes the pipeline decline.  Left out of the reference's version:
-the lazy parquet scan, the distributed plan and observability.  The probe
+column makes the pipeline decline.  A sharded probe runs here on its
+global columns when the sharded rung (`spmd/join.py`, which runs
+`_register_run` a shard) steps down.  Left out of the reference's version:
+the lazy parquet scan and observability.  The probe
 side's literals lift into the family's parameters (`families/`), so one
 pipeline serves every literal of a family.
 """
@@ -71,8 +73,9 @@ from .compiled import (
     fetch_packed,
     global_row_of_nothing,
     group_table,
+    assemble_agg_outputs,
     pack_flat,
-    segment_agg_outputs,
+    register_agg_outputs,
     singleflight_get_or_build,
     unpack_row,
 )
@@ -398,7 +401,17 @@ class CompiledJoinAggregate:
             params: Tuple = ()) -> Table:
         """One query over the probe and build tables, with its family's
         parameter values."""
-        ev = self._ev
+        reducer, hit_h, plans = self._register_run(
+            self._ev, probe_table, build_tables, params, SegmentReducer)
+        reducer.finish()
+        return self._finish_run(reducer, hit_h, plans, build_tables)
+
+    def _register_run(self, ev, probe_table: Table, build_tables: List[Table],
+                      params: Tuple, reducer_cls):
+        """The probe, the joins and the filters over the probe table's rows,
+        and every reduction registered on a new ``reducer_cls`` reducer,
+        not yet finished: (reducer, hit handle, plans).  The sharded rung
+        (`spmd/join.py`) runs it a shard, over the shard's probe block."""
         n_rows = probe_table.num_rows
         device = probe_table.device
         slots: Dict = {
@@ -410,7 +423,7 @@ class CompiledJoinAggregate:
         for k in range(self.n_joins):
             kd, kv = ev.eval(self.lkeys[k], slots)
             rmin, lut = self.luts[k]
-            ri = self._probe(kd, rmin, lut)
+            ri = self._probe(kd, rmin, lut.to(device))
             if kv is not None:
                 ri = torch.where(kv, ri, -1)
             matched = ri >= 0
@@ -457,10 +470,17 @@ class CompiledJoinAggregate:
         else:
             gid = ri_safe[self.gid_join].to(torch.int32)
 
-        reducer = SegmentReducer(gid, self.domain, self.segsum_mode, n_rows)
+        reducer = reducer_cls(gid, self.domain, self.segsum_mode, n_rows)
         hit_h = reducer.count(mask)
-        outs = segment_agg_outputs(ev, slots, self.agg_exprs, mask, gid,
-                                   self.domain, reducer)
+        plans = register_agg_outputs(ev, slots, self.agg_exprs, mask,
+                                     reducer)
+        return reducer, hit_h, plans
+
+    def _finish_run(self, reducer, hit_h, plans,
+                    build_tables: List[Table]) -> Table:
+        """The outputs of a finished run packed, pulled in one transfer
+        and decoded."""
+        outs = assemble_agg_outputs(plans, reducer)
         hit = reducer.get(hit_h) > 0
         flat = [hit]
         for d, v in outs:
@@ -469,7 +489,7 @@ class CompiledJoinAggregate:
         if self.group_meta:
             # a pointer gid's group keys are the build row's columns: they
             # ride the same transfer, one row per build row
-            bt = build_tables[self.gid_join]
+            bt = build_tables[self.gid_join].to(hit.device)
             for col_idx in self.group_cols:
                 c = bt.columns[bt.column_names[col_idx]]
                 flat.append(c.data)
@@ -605,6 +625,14 @@ def try_compiled_join_aggregate(rel: p.Aggregate, executor) -> Optional[Table]:
             ctx.metrics.inc("columnar.encoding.codespace_pred",
                             compiled.codespace_preds)
         faults.maybe_inject("oom", executor.config)
+        from ..parallel import dist_plan
+
+        if dist_plan.table_is_sharded(probe_table):
+            # a sharded probe below its SPMD rung: the pipeline reads the
+            # global columns on the first shard's device (the reference's
+            # GSPMD run of the same pipeline); joined rows never
+            # materialize anywhere
+            dist_plan._stat("sharded_join_agg")
         result = compiled.run(probe_table, build_tables, params)
         ctx.metrics.inc("compiled_join.run")
         if compiled.has_encoded:

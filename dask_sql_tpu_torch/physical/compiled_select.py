@@ -23,8 +23,10 @@ evaluator does not take declines before the pipeline is cached.  Filter
 and projection literals lift into the family's parameters (`families/`),
 so one pipeline serves every literal of a family.  The fused PREDICT rung
 (`compiled_predict.py`) appends its model's output to the gather program
-through `CompiledSelect._extra_pack_outputs`.  Left out of the reference's
-version: the family batcher and the lazy parquet and sharded scans.
+through `CompiledSelect._extra_pack_outputs`.  A sharded scan declines
+here, as in the reference: `spmd/select.py` runs it a shard at a time.
+Left out of the reference's version: the family batcher and the lazy
+parquet scan.
 """
 from __future__ import annotations
 
@@ -172,8 +174,12 @@ class CompiledSelect:
         self._gather(datas, valids, mask, ordinal, 1, params, [])
 
     # -- the two device programs -------------------------------------------
-    def _mask(self, datas, valids, params: Tuple):
-        """(row mask, running survivor count) over every row."""
+    def _mask(self, datas, valids, params: Tuple, carry=None):
+        """(row mask, running survivor count) over every row.  With
+        ``carry`` (a one-element list holding a 0-dim count), a LIMIT
+        parked above the scan windows the survivor ordinal that continues
+        the row blocks before this one (a shard's run, `spmd/select.py`),
+        and ``carry[0]`` moves past this block's scan survivors."""
         ev = self._ev
         slots: Dict = {i: (datas[i], valids[i]) for i in range(len(datas))}
         slots[PARAMS_SLOT] = tuple(params)
@@ -201,6 +207,9 @@ class CompiledSelect:
             mask = as_rows(mask)
             skip_i, fetch_i = self.inner_limit
             ordinal = torch.cumsum(mask, 0)
+            if carry is not None:
+                ordinal = ordinal + carry[0]
+                carry[0] = carry[0] + mask.sum()
             w = ordinal > skip_i
             if fetch_i is not None:
                 w &= ordinal <= skip_i + fetch_i
@@ -418,6 +427,13 @@ def try_compiled_select(root, executor) -> Optional[Table]:
         if resolved is None:
             return None
         dc, table = resolved
+        from ..parallel.dist_plan import table_is_sharded
+
+        if table_is_sharded(table):
+            # a sharded scan keeps the sharded operators (spmd_select
+            # above this rung; the range-partition sort leaves its result
+            # sharded in sort order)
+            return None
         # filter and projection literals lift into the family's parameters;
         # LIMIT and sort-fetch windows stay in the key (they steer the pull
         # and the host window), so each window is its own family

@@ -1,11 +1,12 @@
 """Physical executor: walks the logical plan and produces Tables.
 
-Counterpart of `dask_sql_tpu/physical/executor.py` on one device: the plan
+Counterpart of `dask_sql_tpu/physical/executor.py`: the plan
 root runs under the degradation ladder (`resilience/ladder.py`): the fused
 PREDICT of a root PREDICT over a select chain (`compiled_predict.py`), the
 streamed root select of a plan the admission gate routed to partitions
-(`streaming/select.py`, `stream_decisions`), the compiled root select
-(`compiled_select.py`), then the interpreted
+(`streaming/select.py`, `stream_decisions`), the sharded root select of
+a plan over a sharded table (`spmd/select.py`, ``spmd`` fault site), the
+compiled root select (`compiled_select.py`), then the interpreted
 walk, where each plan node goes to the plugin registered for its node
 type: the relational operators (`rel/logical/`) and the statements
 (`rel/custom/ddl.py`, `rel/custom/ml.py`).  With ``trace`` on, each plan node runs under the
@@ -70,6 +71,13 @@ class Executor:
         if ticket is not None:  # checkpoint before the one-kernel fast path
             ticket.checkpoint()
         faults.maybe_inject("execute", self.config)
+        # the sharded rung is worth a try only where the plan is a select
+        # chain that scans a sharded table
+        from ..parallel.dist_plan import plan_has_sharded_scan
+        from ..spmd import takes_spmd_select, try_spmd_select
+
+        sharded = takes_spmd_select(rel) and plan_has_sharded_scan(
+            rel, self.context)
         # a root select the admission gate routed to partitions (streaming/)
         streamed = id(rel) in self.stream_decisions
         # fused PREDICT: its own (family, compiled_predict) breaker entity,
@@ -90,6 +98,15 @@ class Executor:
                                      rel=rel)
                 if out is not None:
                     return out
+            if sharded:
+                # the sharded rung above the one-device one (which declines
+                # sharded tables): its own (family, spmd_select) breaker
+                # entity, the ``spmd`` fault site at its entry
+                out = ladder.attempt(self, "spmd_select",
+                                     lambda: try_spmd_select(rel, self),
+                                     rel=rel, inject_site="spmd")
+                if out is not None:
+                    return out
             out = ladder.attempt(self, "compiled_select",
                                  lambda: try_compiled_select(rel, self),
                                  rel=rel, inject_site="compile")
@@ -105,6 +122,11 @@ class Executor:
             from ..streaming import try_streamed_select
 
             out = try_streamed_select(rel, self)
+            if out is not None:
+                return out
+        if sharded:
+            faults.maybe_inject("spmd", self.config)
+            out = try_spmd_select(rel, self)
             if out is not None:
                 return out
         faults.maybe_inject("compile", self.config)

@@ -16,20 +16,28 @@ class BaseRelPlugin:
         raise NotImplementedError
 
     @staticmethod
-    def assert_inputs(rel: LogicalPlan, n: int, executor) -> List[Table]:
+    def assert_inputs(rel: LogicalPlan, n: int, executor,
+                      keep_shards: bool = False) -> List[Table]:
+        """The inputs' tables.  A sharded input reaches a plugin with no
+        sharded path as its global rows (`gather_global`); one that has
+        such a path asks for the blocks with ``keep_shards``."""
         inputs = rel.inputs()
         if len(inputs) != n:
             raise ValueError(f"{rel.node_type} expects {n} inputs")
-        return [executor.execute(i) for i in inputs]
+        tables = [executor.execute(i) for i in inputs]
+        if keep_shards:
+            return tables
+        return [gather_global(t, executor) for t in tables]
 
     @staticmethod
     def fix_column_to_row_type(table: Table, schema: Schema) -> Table:
-        """Rename positional columns to the plan's field names (made unique)."""
+        """Rename positional columns to the plan's field names (made
+        unique); a sharded table keeps its blocks."""
         names = unique_names([f.name for f in schema])
         cols = {}
         for new, old in zip(names, table.column_names):
             cols[new] = table.columns[old]
-        return Table(cols, table.num_rows, table.device)
+        return Table(cols, table.num_rows, table.device, table.sharding)
 
     @staticmethod
     def fix_dtype_to_row_type(table: Table, schema: Schema) -> Table:
@@ -41,6 +49,20 @@ class BaseRelPlugin:
                 col = col.cast(f.sql_type)
             cols[name] = col
         return Table(cols, table.num_rows, table.device)
+
+
+def gather_global(table: Table, executor) -> Table:
+    """The global rows of a sharded table, for an operator with no sharded
+    path: the columns on the mesh's first shard's device (where the
+    blocks share that device, the loaded columns themselves; the
+    reference's implicit all-gather of a sharded array), counted in
+    ``metrics.counter("parallel.dist.gather")``.  Never a move to the
+    host.  Identity for an unsharded table."""
+    if table.sharding is None:
+        return table
+    if table.sharding.mesh.size > 1:
+        executor.context.metrics.inc("parallel.dist.gather")
+    return table.unsharded()
 
 
 def on_one_device(tables: List[Table]) -> List[Table]:

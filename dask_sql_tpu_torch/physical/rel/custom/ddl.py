@@ -20,7 +20,7 @@ lowering verdict (inference/).
 
 SHOW REPLICAS, whose subsystem the port does not have yet, raises
 `NotImplementedError`, naming it and its item in ROADMAP.md's Queue 1
-(item 10).
+(item 10b).
 """
 from __future__ import annotations
 
@@ -97,8 +97,9 @@ class CreateMemoryTablePlugin(BaseRelPlugin):
                 raise RuntimeError(
                     f"A table with the name {name} is already present.")
         if rel.persist:
-            # an aggregate's group table lives on the host
-            table = executor.execute(rel.input).to(ctx.device)
+            # an aggregate's group table lives on the host; a result over
+            # a sharded table registers as its global rows
+            table = executor.execute(rel.input).to(ctx.device).unsharded()
             ctx.create_table(name, table, schema_name=schema_name)
         else:
             ctx._register_view(name, rel.input, schema_name)
@@ -458,4 +459,4 @@ class ShowReplicasPlugin(BaseRelPlugin):
     class_name = "ShowReplicasNode"
     convert = _not_ported(
         "SHOW REPLICAS",
-        "the fleet router (fleet/, ROADMAP.md Queue 1 item 10)")
+        "the fleet router (fleet/, ROADMAP.md Queue 1 item 10b)")

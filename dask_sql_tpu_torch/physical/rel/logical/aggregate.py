@@ -1,14 +1,18 @@
 """Aggregate converter (counterpart of `AggregatePlugin` in
-`dask_sql_tpu/physical/rel/logical/aggregate.py`, one device).
+`dask_sql_tpu/physical/rel/logical/aggregate.py`).
 
 An aggregate over a lazy parquet table larger than
 ``sql.streaming.batch_rows`` streams it in batches first
 (`physical/streaming.py`); that is not a rung of the ladder, and a failure
 there raises.  Then the rungs of the degradation ladder in the reference's
-single-device order: the streamed aggregate of a plan the admission gate
-routed to partitions (`streaming/aggregate.py`), then, each with the
-``compile`` fault site at its entry, the join->aggregate pipeline, the fused scan-chain aggregate, then the
-eager aggregate here.  The eager rung runs its input through the
+order: the streamed aggregate of a plan the admission gate
+routed to partitions (`streaming/aggregate.py`); over a sharded scan the
+sharded rungs (`spmd/`: the join->aggregate pipeline, then the scan-chain
+aggregate, each with the ``spmd`` fault site at its entry); then, each
+with the ``compile`` fault site at its entry, the join->aggregate
+pipeline, the fused scan-chain aggregate; over a sharded input the
+collectives engine (`parallel/dist_plan.py`, the ``dist_aggregate`` rung);
+then the eager aggregate here, over the global rows.  The eager rung runs its input through the
 other plugins and groups it: a mixed radix of small-domain keys
 (`ops.grouping.radix_gid`, no sort; the present groups compacted at the
 end), or one lexicographic sort (`factorize`) with each group's first row
@@ -34,7 +38,12 @@ from ...compiled import try_compiled_aggregate
 from ...compiled_join import try_compiled_join_aggregate
 from ...executor import Executor
 from ...streaming import try_streaming_aggregate
-from ..base import BaseRelPlugin, unique_names
+from ....parallel.dist_plan import (
+    plan_has_sharded_scan,
+    table_is_sharded,
+    try_dist_aggregate,
+)
+from ..base import BaseRelPlugin, gather_global, unique_names
 
 
 @Executor.add_plugin_class
@@ -59,6 +68,20 @@ class AggregatePlugin(BaseRelPlugin):
                 lambda: try_streamed_aggregate(rel, executor), rel=rel)
             if streamed is not None:
                 return streamed
+        if plan_has_sharded_scan(rel.input, executor.context):
+            # the sharded rungs that take the plan's shape first, each its
+            # own (family, rung) breaker entity with the ``spmd`` fault
+            # site at its entry, then the
+            # one-device compiled rungs over the global columns, then the
+            # collectives engine over the sharded input
+            from ....spmd import spmd_rungs_for
+
+            for name, fn in spmd_rungs_for(rel):
+                out = ladder.attempt(executor, name,
+                                     lambda fn=fn: fn(rel, executor),
+                                     rel=rel, inject_site="spmd")
+                if out is not None:
+                    return out
         joined = rung("compiled_join_aggregate",
                       lambda: try_compiled_join_aggregate(rel, executor))
         if joined is not None:
@@ -67,7 +90,16 @@ class AggregatePlugin(BaseRelPlugin):
                         lambda: try_compiled_aggregate(rel, executor))
         if compiled is not None:
             return compiled
-        (inp,) = self.assert_inputs(rel, 1, executor)
+        (inp,) = self.assert_inputs(rel, 1, executor, keep_shards=True)
+        if table_is_sharded(inp):
+            # a capacity ladder topping out inside the engine steps down
+            # to the one-device aggregate below
+            dist = ladder.attempt(
+                executor, "dist_aggregate",
+                lambda: try_dist_aggregate(rel, executor, inp), rel=rel)
+            if dist is not None:
+                return dist
+        inp = gather_global(inp, executor)
         n = inp.num_rows
         device = inp.device
 

@@ -24,7 +24,7 @@ from ....planner import plan as p
 from ....planner.expressions import Cast, ColumnRef, Literal
 from ....utils import host_ints
 from ...executor import Executor
-from ..base import BaseRelPlugin, on_one_device, unique_names
+from ..base import BaseRelPlugin, gather_global, on_one_device, unique_names
 
 
 def _predicate_mask(executor, predicates, table: Table):
@@ -85,7 +85,8 @@ class ProjectionPlugin(BaseRelPlugin):
     class_name = "Projection"
 
     def convert(self, rel: p.Projection, executor) -> Table:
-        (inp,) = self.assert_inputs(rel, 1, executor)
+        # row by row: a sharded input keeps its blocks
+        (inp,) = self.assert_inputs(rel, 1, executor, keep_shards=True)
         names = unique_names([f.name for f in rel.schema])
         cols = {}
         for name, expr in zip(names, rel.exprs):
@@ -93,7 +94,7 @@ class ProjectionPlugin(BaseRelPlugin):
                 cols[name] = inp.columns[inp.column_names[expr.index]]
             else:
                 cols[name] = executor.eval_expr(expr, inp)
-        return Table(cols, inp.num_rows, inp.device)
+        return Table(cols, inp.num_rows, inp.device, inp.sharding)
 
 
 @Executor.add_plugin_class
@@ -101,7 +102,8 @@ class FilterPlugin(BaseRelPlugin):
     class_name = "Filter"
 
     def convert(self, rel: p.Filter, executor) -> Table:
-        (inp,) = self.assert_inputs(rel, 1, executor)
+        # each block keeps its own survivors
+        (inp,) = self.assert_inputs(rel, 1, executor, keep_shards=True)
         return inp.filter(_predicate_mask(executor, [rel.predicate], inp))
 
 
@@ -124,10 +126,32 @@ class SortPlugin(BaseRelPlugin):
     class_name = "Sort"
 
     def convert(self, rel: p.Sort, executor) -> Table:
-        (inp,) = self.assert_inputs(rel, 1, executor)
+        (inp,) = self.assert_inputs(rel, 1, executor, keep_shards=True)
         if inp.num_rows == 0:
-            return inp
+            return gather_global(inp, executor)
         cols = [executor.eval_expr(k.expr, inp) for k in rel.keys]
+        if rel.fetch is None and cols:
+            # a full sort of a sharded input: the range-partition sort over
+            # its mesh, the output sharded in sort order (a top-k keeps the
+            # path below: its k survivors are few whatever the sharding).
+            # An exchange past its ladder steps down to the sort below
+            from ....parallel import dist_plan
+            from ....resilience import ladder
+
+            mesh = dist_plan.should_distribute(
+                executor, "sql.distributed.sort", inp)
+            if mesh is not None:
+                sorted_t = ladder.attempt(
+                    executor, "dist_sort",
+                    lambda: dist_plan.dist_sort_table(
+                        mesh, inp, cols,
+                        [k.ascending for k in rel.keys],
+                        [k.nulls_first_resolved() for k in rel.keys],
+                        metrics=executor.context.metrics),
+                    rel=rel)
+                if sorted_t is not None:
+                    return self.fix_column_to_row_type(sorted_t, rel.schema)
+        inp = gather_global(inp, executor)
         limit = executor.config.get("sql.sort.topk-nelem-limit", 1_000_000)
         if (rel.fetch is not None and cols
                 and rel.fetch * max(len(inp.columns), 1) <= limit):
@@ -153,7 +177,7 @@ class SubqueryAliasPlugin(BaseRelPlugin):
     class_name = "SubqueryAlias"
 
     def convert(self, rel: p.SubqueryAlias, executor) -> Table:
-        (inp,) = self.assert_inputs(rel, 1, executor)
+        (inp,) = self.assert_inputs(rel, 1, executor, keep_shards=True)
         return self.fix_column_to_row_type(inp, rel.schema)
 
 

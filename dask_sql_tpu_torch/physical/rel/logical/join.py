@@ -1,17 +1,18 @@
-"""Join converters: every join type of the single-device path, and cross
-joins.
+"""Join converters: every join type, and cross joins.
 
 Counterpart of `JoinPlugin` and `CrossJoinPlugin` in
-`dask_sql_tpu/physical/rel/logical/join.py`, on one device: the keys become
+`dask_sql_tpu/physical/rel/logical/join.py`: the keys become
 comparable ids (`ops.join.join_key_gids`), the pairs or the per-row match
 flags come from a lookup table or a sorted probe (`ops.join`), and the
 combined table is gathered through them.  INNER, LEFT, RIGHT and FULL
 joins (an ON residual applies to the matched pairs before the outer rows
 pad), LEFTSEMI and LEFTANTI (with a residual: a match under it), the
 null-aware anti join of ``NOT IN (subquery)`` (SQL's three-valued answer)
-and LEFTMARK (the left rows with a matched flag, EXISTS under OR).  The
-distributed branches of the reference (`_maybe_dist_pairs`) are not in the
-port yet.
+and LEFTMARK (the left rows with a matched flag, EXISTS under OR).  With
+a sharded input the pairs come from the collectives engine
+(`_maybe_dist_pairs`: `parallel/dist_plan.py`'s broadcast or hash-shuffle
+matching) and an INNER join's rows stay sharded; without one, a sharded
+input is read as its global rows.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from ....planner import plan as p
 from ....planner.expressions import shift_columns
 from ....utils import host_ints
 from ...executor import Executor
-from ..base import BaseRelPlugin, unique_names
+from ..base import BaseRelPlugin, gather_global, unique_names
 
 
 def _materialize(left: Table, right: Table, li, ri,
@@ -49,7 +50,7 @@ class JoinPlugin(BaseRelPlugin):
     class_name = "Join"
 
     def convert(self, rel: p.Join, executor) -> Table:
-        left, right = self.assert_inputs(rel, 2, executor)
+        left, right = self.assert_inputs(rel, 2, executor, keep_shards=True)
         # an aggregate's group table lives on the host: it joins on the
         # device of the other side
         if left.device.type == "cpu":
@@ -67,6 +68,17 @@ class JoinPlugin(BaseRelPlugin):
             lkeys = rkeys = []
             lgid = torch.zeros(left.num_rows, dtype=torch.int64, device=left.device)
             rgid = torch.zeros(right.num_rows, dtype=torch.int64, device=right.device)
+
+        # a sharded input: the collectives engine's pairs (a hash shuffle,
+        # or the small side broadcast to the big side's shards)
+        dist = None
+        if rel.on and not (jt == "LEFTANTI" and rel.null_aware):
+            dist = self._maybe_dist_pairs(executor, left, right, lkeys,
+                                          rkeys, lgid, rgid)
+        if dist is not None:
+            return self._from_dist_pairs(rel, executor, left, right, *dist)
+        left = gather_global(left, executor)
+        right = gather_global(right, executor)
 
         if jt == "LEFTANTI" and rel.null_aware:
             return self.fix_column_to_row_type(
@@ -119,6 +131,90 @@ class JoinPlugin(BaseRelPlugin):
         raise NotImplementedError(f"join type {jt}")
 
     @staticmethod
+    def _maybe_dist_pairs(executor, left, right, lkeys, rkeys, lgid, rgid):
+        """The matching pairs of a join with a sharded input, or None for
+        the one-device path: (left row ids, right row ids, left matched
+        flags, output block boundaries or None, mesh).  Honors
+        ``sql.join.broadcast``: True broadcasts always, a number is a row
+        threshold, None (auto) broadcasts a small side well under the big
+        one; the big side never moves."""
+        from ....parallel import dist_plan
+
+        mesh = dist_plan.should_distribute(
+            executor, "sql.distributed.join", left, right)
+        if mesh is None:
+            return None
+
+        def valid_of(keys, n, device):
+            v = torch.ones(n, dtype=torch.bool, device=device)
+            for c in keys:
+                if c.validity is not None:
+                    v = v & c.valid_mask()
+            return v
+
+        def offsets_of(t):
+            sh = t.sharding
+            return sh.offsets if sh is not None and sh.mesh == mesh else None
+
+        lvalid = valid_of(lkeys, left.num_rows, left.device)
+        rvalid = valid_of(rkeys, right.num_rows, right.device)
+        broadcast = executor.config.get("sql.join.broadcast", None)
+        small = min(left.num_rows, right.num_rows)
+        big = max(left.num_rows, right.num_rows)
+        explicit = (broadcast is True
+                    or (broadcast not in (None, False)
+                        and small <= float(broadcast)))
+        auto = broadcast is None and small <= 65536 and small * 4 <= big
+        metrics = executor.context.metrics
+        if explicit or auto:
+            metrics.inc("parallel.dist.broadcast_join")
+            if right.num_rows <= left.num_rows:
+                li, ri, lmatch, blocks = dist_plan.broadcast_inner_pairs(
+                    lgid, lvalid, rgid, rvalid, offsets_of(left))
+                return li, ri, lmatch, blocks, mesh
+            ri, li, _, blocks = dist_plan.broadcast_inner_pairs(
+                rgid, rvalid, lgid, lvalid, offsets_of(right))
+            lmatch = _none_of(left.num_rows, left.device)
+            lmatch[li] = True
+            return li, ri, lmatch, blocks, mesh
+        metrics.inc("parallel.dist.join_kernel")
+        li, ri, lmatch, blocks = dist_plan.dist_inner_pairs(
+            mesh, lgid, lvalid, rgid, rvalid, offsets_of(left),
+            offsets_of(right))
+        return li, ri, lmatch, blocks, mesh
+
+    def _from_dist_pairs(self, rel, executor, left, right, li, ri, lmatch,
+                         blocks, mesh) -> Table:
+        """A join's result from the engine's pairs.  An INNER join's rows
+        stay sharded in the pairs' blocks; semi, anti and mark joins keep
+        the left side's."""
+        from ....parallel.mesh import RowBlocks
+
+        jt = rel.join_type
+        if jt in ("LEFTMARK", "LEFTSEMI", "LEFTANTI"):
+            mask = lmatch if rel.filter is None else \
+                self._filtered_match_mask(rel, executor, left, right, li, ri)
+            if jt == "LEFTMARK":
+                return self.fix_column_to_row_type(
+                    self._append_mark(rel, left, mask), rel.schema)
+            if jt == "LEFTANTI":
+                mask = ~mask
+            return self.fix_column_to_row_type(left.filter(mask), rel.schema)
+        if jt == "INNER":
+            combined = _materialize(left, right, li, ri, False, False)
+            if blocks is not None:
+                combined.sharding = RowBlocks(mesh, blocks)
+            if rel.filter is not None:
+                cond = executor.eval_expr(rel.filter, combined)
+                combined = combined.filter(cond.data & cond.valid_mask())
+            return self.fix_column_to_row_type(combined, rel.schema)
+        if jt in ("LEFT", "RIGHT", "FULL"):
+            return self._outer_from_pairs(
+                rel, executor, left.unsharded(), right.unsharded(), li, ri,
+                jt)
+        raise NotImplementedError(f"join type {jt}")
+
+    @staticmethod
     def _filtered_match_mask(rel, executor, left, right, li, ri):
         """Per left row: a match that the residual keeps (the semi, anti
         and mark joins with an ON residual)."""
@@ -137,7 +233,7 @@ class JoinPlugin(BaseRelPlugin):
         cols = {n: left.columns[src]
                 for n, src in zip(names[:-1], left.column_names)}
         cols[names[-1]] = Column(mask, SqlType.BOOLEAN)
-        return Table(cols, left.num_rows, left.device)
+        return Table(cols, left.num_rows, left.device, left.sharding)
 
     @staticmethod
     def _null_aware_anti(left: Table, lkeys, rkeys, lgid, rgid,

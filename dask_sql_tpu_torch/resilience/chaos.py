@@ -41,8 +41,8 @@ failure, shed, cancel are all acceptable under chaos; what is NOT
 acceptable is corrupted engine state after the storm passes.  A query that
 fails on the card is such an outcome: nothing re-runs it on the host.
 
-Not yet in the port: the ``spmd`` site and the replica-kill fleet
-campaigns (ROADMAP.md Queue 1 item 10).
+Not yet in the port: the replica-kill fleet campaigns (ROADMAP.md Queue 1
+item 10b).
 """
 from __future__ import annotations
 
@@ -68,7 +68,7 @@ _campaign_nonce = itertools.count()
 #: every error-raising inject site of the port plus the hang site — the
 #: campaign rotates probability-armed subsets of this list
 ALL_SITES = ("compile", "oom", "exec_oom", "execute", "checkpoint",
-             "predict", "partition", "d2h", "compile_hang")
+             "spmd", "predict", "partition", "d2h", "compile_hang")
 
 #: base config for a campaign: fast backoff, short breaker cooldown, a
 #: short injected hang with a compile deadline it trips, a flight ring

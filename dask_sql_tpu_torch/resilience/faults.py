@@ -43,8 +43,9 @@ refused:
                 partition launch sleeps ``resilience.inject.hang_s`` inside
                 the watchdog's helper thread (`hang_duration`)
 
-The reference's ``spmd`` site (ROADMAP.md Queue 1 item 10) comes with
-its code.
+    spmd        the entry of the sharded rungs only (spmd_select /
+                spmd_aggregate / spmd_join_aggregate; ResourceExhaustedError):
+                proves the step down to the one-device rung
 
 The injector is rebuilt whenever the spec string changes, so tests can flip
 faults on and off through plain config scopes.  When the key is unset the
@@ -92,6 +93,7 @@ class InjectedWriteError(InjectedFault, ExecutionError):
 SITE_ERRORS = {
     "compile": InjectedCompileError,
     "predict": InjectedOomError,
+    "spmd": InjectedOomError,
     "oom": InjectedOomError,
     "exec_oom": InjectedOomError,
     "execute": InjectedTransientError,

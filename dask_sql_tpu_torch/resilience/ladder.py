@@ -43,13 +43,14 @@ Rungs in the port: ``compiled_predict`` (physical/compiled_predict.py,
 only for a root PREDICT, stepping down to the host tier),
 ``streamed_select`` and ``streamed_aggregate``
 (streaming/, only for plans the admission gate routed there),
+over a sharded scan ``spmd_select``, ``spmd_join_aggregate`` and
+``spmd_aggregate`` (spmd/, each above its one-device counterpart, a
+``rung:<rung>`` event with the spmd attribute marking that one answered),
 ``compiled_select`` (physical/compiled_select.py),
 ``compiled_join_aggregate`` (physical/compiled_join.py),
-``compiled_aggregate`` (physical/compiled.py), ``interpreted`` (the eager
-plugins) and ``cpu`` (on a CPU Context).  Left out until the modules they
-need are ported (ROADMAP.md Queue 1): the SPMD and distributed rungs
-(item 10), with the ``rung:<rung>`` event the reference records for an
-SPMD rung.  Each skip and step down is an event on the query's
+``compiled_aggregate`` (physical/compiled.py), over a sharded input
+``dist_aggregate`` and ``dist_sort`` (parallel/dist_plan.py),
+``interpreted`` (the eager plugins) and ``cpu`` (on a CPU Context).  Each skip and step down is an event on the query's
 lifecycle trace (`observability/spans.py`), and a step down a marker in
 EXPLAIN ANALYZE's node tree; a rung that answers records its wall time on
 the fingerprint's profile (SHOW PROFILES), the evidence `cost_skip`
@@ -257,6 +258,10 @@ def attempt(executor, rung: str, fn: Callable[[], Optional[T]],
             metrics.inc("resilience.pressure.rung_retry_ok")
         metrics.inc(f"resilience.rung.{rung}")
         live.update(rung=rung)
+        if rung.startswith("spmd_"):
+            # the mark that a query ran on a sharded rung: a zero-length
+            # span with the spmd attribute
+            trace_event(f"rung:{rung}", rung=rung, spmd=True)
         if key is not None and breaker.record_success(key):
             # an open circuit closed on its half-open trial
             flight.record("breaker.restore", rung=rung, fingerprint=key[0])

@@ -86,6 +86,9 @@ DOCUMENTED_METRICS = frozenset({
     "parallel.dist.sort_kernel",
     "parallel.dist.join_kernel",
     "parallel.dist.broadcast_join",
+    # a sharded table read as its global rows by an operator with no
+    # sharded path (physical/rel/base.py gather_global)
+    "parallel.dist.gather",
     # observability/ — lifecycle tracing + slow-query log + flight recorder
     "observability.slow_query",
     "observability.flight.dumps",

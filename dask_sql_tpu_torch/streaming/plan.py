@@ -17,8 +17,9 @@ provably cannot fit (``headroom <= 0``, the configured minimum partition
 still over the budget, or more partitions than
 ``serving.stream.max_partitions``).  Eligibility is static and
 conservative, as the reference's: exactly one scanned table, registered in
-memory (a lazy parquet table streams through `physical/streaming.py`), no
-RLE column, and a plan shape a streamed rung serves (a
+memory (a lazy parquet table streams through `physical/streaming.py`), not
+sharded (the sharded rungs own sharded storage), no RLE column, and a
+plan shape a streamed rung serves (a
 scan->filter*->aggregate chain, or a root scan->filter*->project chain
 with no ORDER BY or LIMIT).
 """
@@ -147,8 +148,11 @@ def stream_decision(plan: p.LogicalPlan, estimate, context, config,
     if isinstance(dc, LazyParquetContainer):
         return None
     from ..columnar.encodings import Encoding
+    from ..parallel.dist_plan import table_is_sharded
 
     table = dc.table
+    if table_is_sharded(table):
+        return None  # sharded storage never streams: the sharded rungs own it
     if any(c.encoding is Encoding.RLE for c in table.columns.values()):
         return None
     total = int(table.num_rows)

@@ -85,10 +85,11 @@ def test_campaign_is_seed_deterministic_in_armed_plan():
 
 
 def test_sites_and_templates_are_the_references_but_items_9_and_10():
-    """The reference's sites and templates but item 10's ``spmd`` site;
-    item 9's ``predict`` site and PREDICT template are in."""
-    assert set(chaos.ALL_SITES) == set(ref_chaos.ALL_SITES) - {"spmd"}
-    assert "predict" in chaos.ALL_SITES
+    """The reference's sites and templates: item 9's ``predict`` site and
+    PREDICT template and item 10's ``spmd`` site are in."""
+    assert set(chaos.ALL_SITES) == set(ref_chaos.ALL_SITES)
+    assert chaos.ALL_SITES == ref_chaos.ALL_SITES
+    assert "predict" in chaos.ALL_SITES and "spmd" in chaos.ALL_SITES
     assert set(chaos.ALL_SITES) == set(faults.SITE_ERRORS) | set(
         faults.HANG_SITES)
     budget = 12345

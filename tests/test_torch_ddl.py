@@ -196,8 +196,6 @@ def test_views_describe_and_drop_view(c, df):
 
 
 @pytest.mark.parametrize("sql, needs", [
-    ("CREATE TABLE f WITH (location = '/nowhere.csv', format = 'csv', "
-     "distributed = True)", "multi-device storage"),
     ("SHOW REPLICAS", "fleet router"),
 ])
 def test_statements_of_later_items_raise(c, sql, needs):

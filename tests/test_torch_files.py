@@ -622,9 +622,23 @@ def test_append_to_a_lazy_table_replaces_it(files):
 
 
 def test_distributed_tables_wait_for_the_multi_device_port(files):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        Context(device="cpu").create_table("t", files["small"][0],
-                                           distributed=True)
+    """The multi-device port is in: a parquet location registered with
+    ``distributed=True`` loads and shards over the default mesh of the
+    Context's device kind (here a two-shard CPU mesh)."""
+    from dask_sql_tpu_torch.parallel import mesh as pmesh
+
+    path, df = files["small"]
+    pmesh.set_default_mesh(pmesh.make_mesh(2, devices=["cpu"]))
+    try:
+        c = Context(device="cpu")
+        c.create_table("t", path, distributed=True)
+    finally:
+        pmesh.reset_default_mesh("cpu")
+    t = c.schema["root"].tables["t"].table
+    assert t.sharding is not None and t.sharding.mesh.size == 2
+    assert t.sharding.offsets == (0, -(-len(df) // 2), len(df))
+    got = c.sql("SELECT COUNT(*) AS n FROM t").compute()
+    assert int(got["n"][0]) == len(df)
 
 
 # -- Hive, Intake and SQLAlchemy: the reference's test_hive_input.py ----------

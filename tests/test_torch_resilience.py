@@ -249,18 +249,18 @@ def test_fault_sites_are_the_references():
     """The port's sites are the reference's, each raising the same class of
     taxonomy error; a reference site whose code the port lacks yet, or any
     other name, is refused."""
-    assert set(faults.SITE_ERRORS) == {"compile", "predict", "oom",
+    assert set(faults.SITE_ERRORS) == {"compile", "predict", "spmd", "oom",
                                        "exec_oom", "execute", "d2h",
                                        "partition", "checkpoint"}
+    assert set(faults.SITE_ERRORS) == set(ref_faults.SITE_ERRORS)
     assert faults.HANG_SITES == ref_faults.HANG_SITES == {"compile_hang"}
     for site, err in faults.SITE_ERRORS.items():
         ref_bases = {b.__name__ for b in ref_faults.SITE_ERRORS[site].__mro__}
         assert {b.__name__ for b in err.__mro__} == ref_bases, site
     FaultInjector(",".join(f"{s}:once" for s in
                            list(faults.SITE_ERRORS) + ["compile_hang"]))
-    for site in ("spmd", "warpcore"):
-        with pytest.raises(ValueError):
-            FaultInjector(f"{site}:once")
+    with pytest.raises(ValueError):
+        FaultInjector("warpcore:once")
 
 
 def test_fault_injector_keyed_on_spec_and_seed():
